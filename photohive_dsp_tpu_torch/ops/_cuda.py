@@ -1,0 +1,178 @@
+"""Build, load and count the port's CUDA kernels.
+
+The kernels live in ``photohive_dsp_tpu_torch/csrc`` and are compiled with
+``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+interface, loaded with ``ctypes``.  The build runs at first use, into
+``photohive_dsp_tpu_torch/_build/<hash of the sources and flags>/``, so an
+edited source rebuilds and an unchanged one loads at once.  Nothing here runs
+at import time: the CPU-only tests import every module.
+
+Floating point: ``--fmad=false`` forbids FMA contraction and
+``--use_fast_math`` is never passed, so ``/`` is IEEE division.  The kernels
+also spell their bit-critical arithmetic with the ``__f*_rn`` intrinsics.
+
+``LAUNCHES`` counts kernel launches by name.  A wrapper adds one exactly
+where it launches its kernel, so a run can show which kernels it went
+through; ``reset_launch_counts`` zeroes the counts.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+LIB_NAME = "libphotohive_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+LAUNCHES = {"cell_counts_s": 0, "margin_sort": 0, "palette_sums_q1": 0,
+            "palette_sums_q8": 0, "palette_sums_qfull": 0}
+
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+class CellParams(ctypes.Structure):
+    """Mirror of ``struct CellParams`` in csrc/hsv_cells.cuh: the float32
+    constants of the HSV -> cell-id mapping (ops/quantize.assign_cells)."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "black_thresh", "gray_thresh", "cell_lv", "cell_ls", "cell_lh",
+        "v_clip", "s_clip", "h_clip", "max_sv", "inv360")] + \
+        [(name, ctypes.c_int) for name in (
+            "s_partitions", "v_partitions", "gray_start", "black_id",
+            "num_cells")]
+
+    @classmethod
+    def for_config(cls, cfg) -> "CellParams":
+        f32 = np.float32
+        return cls(
+            black_thresh=f32(cfg.black_thresh),
+            gray_thresh=f32(cfg.gray_thresh),
+            cell_lv=f32(cfg.cell_Lv), cell_ls=f32(cfg.cell_Ls),
+            cell_lh=f32(cfg.cell_Lh),
+            v_clip=f32(cfg.v_partitions - 1e-6),
+            s_clip=f32(cfg.s_partitions - 1e-6),
+            h_clip=f32(cfg.h_partitions - 1e-6),
+            max_sv=f32(0.999999), inv360=f32(1.0 / 360.0),
+            s_partitions=cfg.s_partitions, v_partitions=cfg.v_partitions,
+            gray_start=cfg.gray_start, black_id=cfg.black_id,
+            num_cells=cfg.num_cells)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_PARAMS = ctypes.POINTER(CellParams)
+_SIGNATURES = {
+    # (rgb, is_u8, batch, pixels, params, counts_out, s_out, acc, stream)
+    "ph_cell_counts_s": [_P, _I, _I, _LL, _PARAMS, _P, _P, _P, _P],
+    # (sal, batch, c, order_out, stream)
+    "ph_margin_sort": [_P, _I, _I, _P, _P],
+    # (rgb, is_u8, batch, pixels, params, slot_of_cell, offset_of_cell,
+    #  sums_out, acc, stream)
+    "ph_palette_sums_q1": [_P, _I, _I, _LL, _PARAMS, _P, _P, _P, _P, _P],
+    # (rgb, is_u8, batch, pixels, params, cand, q, centers_by_k,
+    #  sums_out, acc, stream)
+    "ph_palette_sums": [_P, _I, _I, _LL, _PARAMS, _P, _I, _P, _P, _P, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(p for p in SRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library unless the build for the
+    current sources already exists; returns its path."""
+    out_dir = BUILD_DIR / _source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def launch(name: str, t: torch.Tensor, *args) -> None:
+    """Call C entry point ``name`` with ``args`` on ``t``'s device and
+    current stream (appended as the last argument); raise on the
+    cudaError_t it returns."""
+    with torch.cuda.device(t.device):
+        status = getattr(lib(), name)(*args, stream_ptr(t))
+    if status != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {status}")
+
+
+def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
+    """Validate a tensor handed to a kernel wrapper."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.device.type == "cuda" and not t.is_contiguous():
+        raise ValueError(f"{name}: CUDA input must be contiguous")

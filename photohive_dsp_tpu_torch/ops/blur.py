@@ -1,0 +1,134 @@
+"""Polar blur profile and directional blur-vector extraction (counterpart of
+``photohive_dsp_tpu/ops/blur.py``).
+
+reference: src/blur_profile.c
+  * calculate_blur_profile (:34-126): per-FFT-pixel (angle, radius) binning,
+    then per-bin mean.
+  * vectorize_blur_profile (:324-416): per-angle low-band totals, trailing
+    circular 5-tap smoothing, local-maxima streak detection, and conversion
+    to <=10 (angle, magnitude) blur vectors.
+
+The bin of every FFT pixel depends only on the image shape (ops/geometry.py),
+so binning is a static gather into per-bin padded rows and a row sum: no
+scatter and no float atomics, so the bins are the same from run to run
+(``index_add_`` on CUDA is not).  This is the JAX package's gather route;
+its Pallas polar kernels are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import NUM_BLUR_VECTORS, ReportConfig
+from .filtering import trailing_circular_box
+from .geometry import polar_geometry
+from .stats import div_const
+
+
+class PolarTables(NamedTuple):
+    """Polar binning constants for one image shape (geometry.PolarGeometry)."""
+
+    pad_index: torch.Tensor   # (A*R, Lmax) int64 spectrum index, sentinel P
+    bin_counts: torch.Tensor  # (A*R,) int32
+    bin_ids: torch.Tensor     # (H * fft_width,) int32
+
+    @classmethod
+    def for_shape(cls, height: int, width: int, cfg: ReportConfig,
+                  device="cpu") -> "PolarTables":
+        geom = polar_geometry(height, width, cfg.angle_partitions,
+                              cfg.radius_partitions)
+        return cls.from_numpy(geom.pad_index, geom.bin_counts, geom.bin_ids,
+                              device)
+
+    @classmethod
+    def from_numpy(cls, pad_index, bin_counts, bin_ids,
+                   device="cpu") -> "PolarTables":
+        return cls(
+            pad_index=torch.tensor(np.asarray(pad_index, np.int64),
+                                   device=device),
+            bin_counts=torch.tensor(np.asarray(bin_counts, np.int32),
+                                    device=device),
+            bin_ids=torch.tensor(np.asarray(bin_ids, np.int32),
+                                 device=device))
+
+
+def blur_profile_bins(mag_norm: torch.Tensor, tables: PolarTables,
+                      num_angle_bins: int, num_radius_bins: int)\
+        -> torch.Tensor:
+    """Mean normalized FFT magnitude per (angle, radius) bin.
+
+    mag_norm: (B, H, W//2+1).  Returns (B, A, R) float32; empty bins are 0
+    (reference src/blur_profile.c:106-116)."""
+    b = mag_norm.shape[0]
+    flat = torch.cat([mag_norm.reshape(b, -1),
+                      mag_norm.new_zeros((b, 1))], dim=1)
+    sums = flat[:, tables.pad_index].sum(dim=-1)       # (B, A*R)
+    counts = tables.bin_counts.to(mag_norm.dtype)
+    means = torch.where(tables.bin_counts > 0,
+                        sums / torch.clamp(counts, min=1.0),
+                        torch.zeros_like(sums))
+    return means.reshape(b, num_angle_bins, num_radius_bins)
+
+
+def _angle_table(a: int) -> np.ndarray:
+    """Blur-vector angle per rolled angle bin, in float32 as the C code
+    rounds it without FMA contraction: (int)(180 * ((float)idx / (float)A)
+    - 90), e.g. idx=50, A=72 gives 34 (reference src/blur_profile.c:413)."""
+    angle_idx = (np.arange(a) + a // 2) % a
+    return np.trunc(
+        np.float32(180) * (angle_idx.astype(np.float32) / np.float32(a))
+        - np.float32(90)).astype(np.int32)
+
+
+def vectorize_blur_profile(bins: torch.Tensor, cfg: ReportConfig):
+    """Extract <=10 blur vectors per image (reference
+    src/blur_profile.c:324-416).
+
+    bins: (B, A, R).  Returns (angles int32 (B, 10), magnitudes f32 (B, 10));
+    unused slots are zero like the reference's calloc'd 10-slot group."""
+    a = cfg.angle_partitions
+    r = cfg.radius_partitions
+    radius_cutoff = r // cfg.blur_cutoff_ratio_denom
+    dev = bins.device
+
+    tot = bins[..., :radius_cutoff].sum(dim=-1)             # (B, A)
+    avg = div_const(tot.sum(dim=-1, keepdim=True), a)       # (B, 1)
+    smooth = trailing_circular_box(tot, 5)
+
+    # Local maxima with circular neighbours (reference :360-379).
+    left = torch.roll(smooth, 1, dims=-1)
+    right = torch.roll(smooth, -1, dims=-1)
+    is_max = (smooth > left) & (smooth > right) \
+        & (smooth > avg * cfg.fft_streak_thresh)
+    # The first 10 maxima in ascending angle order fill the 10 slots.
+    rank = torch.cumsum(is_max.to(torch.int32), dim=-1) - 1
+    keep = is_max & (rank < NUM_BLUR_VECTORS)
+
+    # Re-indexed angle (:387): cur[i] = bins[(i + A//2) % A]; vetted
+    # against the global average (:392-400).
+    cur = torch.roll(bins, -(a // 2), dims=-2)              # (B, A, R)
+    blur_avg = cur[..., :radius_cutoff].sum(dim=-1)
+    suppressed = blur_avg > avg
+
+    # Magnitude: first radius bin below the magnitude threshold (:403-412).
+    below = cur < cfg.magnitude_thresh
+    first_below = torch.where(below.any(dim=-1),
+                              below.to(torch.int32).argmax(dim=-1),
+                              torch.full_like(rank, r, dtype=torch.int64))
+    magnitude = div_const(first_below.to(bins.dtype), r)
+
+    table = torch.as_tensor(_angle_table(a), device=dev)
+    live = keep & ~suppressed
+    angles_a = torch.where(live, table, torch.zeros_like(table))
+    mags_a = torch.where(live, magnitude, torch.zeros_like(magnitude))
+
+    # Slot k <- the maximum whose rank is k.
+    slots = torch.arange(NUM_BLUR_VECTORS, device=dev)[:, None]
+    sel = (rank[:, None, :] == slots) & keep[:, None, :]    # (B, 10, A)
+    angles = torch.where(sel, angles_a[:, None, :], 0).sum(
+        dim=-1, dtype=torch.int32)
+    mags = torch.where(sel, mags_a[:, None, :], 0.0).sum(dim=-1)
+    return angles, mags

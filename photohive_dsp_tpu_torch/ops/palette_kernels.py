@@ -1,0 +1,200 @@
+"""K1, K3 and K4: the palette's pixel passes, their plain versions and the
+per-image tables they read.
+
+Counterparts of ``photohive_dsp_tpu/ops/pallas_kernels_bf16.py``
+(``cell_counts_s_from_rgb``, ``palette_sums_by_k_rgb_q1``,
+``palette_sums_by_k_rgb``) and of the LUT builders in
+``photohive_dsp_tpu/ops/pallas_kernels.py`` (``palette_offset_lut``,
+``palette_candidate_lut``).  The CUDA kernels are csrc/palette.cu; each
+wrapper launches its kernel for CUDA tensors and takes the plain PyTorch
+version for CPU tensors.
+
+The input image is (B, 3, H, W), float32 in [0, 1] or uint8, any H and W.
+Both forms give the same results: uint8 decodes to the correctly rounded
+x/255 (colorspace.u8_to_unit_f32 here, ``__fdiv_rn`` in the kernels).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..config import MAX_NUM_PIXELS
+from . import _cuda
+from .colorspace import rgb_to_hsv, u8_to_unit_f32
+from .quantize import ParentAssignment, OctreeTables, assign_cells, \
+    candidate_slots
+
+_RGB_DTYPES = (torch.float32, torch.uint8)
+
+
+def _check_rgb(rgb: torch.Tensor) -> None:
+    _cuda.require(rgb, "rgb", _RGB_DTYPES, 4)
+    if rgb.shape[1] != 3:
+        raise ValueError(f"rgb: expected (B, 3, H, W), got {tuple(rgb.shape)}")
+    if rgb.shape[2] * rgb.shape[3] > MAX_NUM_PIXELS:
+        # The kernels' 64-bit fixed-point sums hold ~1.9e8 pixels per image.
+        raise ValueError("rgb: image larger than config.MAX_NUM_PIXELS")
+
+
+def _check_table(t: torch.Tensor, name: str, dtype, shape, rgb) -> None:
+    _cuda.require(t, name, (dtype,), len(shape))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != rgb.device:
+        raise ValueError(f"{name}: on {t.device}, rgb on {rgb.device}")
+
+
+def _hsv_cells(rgb: torch.Tensor, cfg):
+    """(B, 3, H, W) -> h, s, v (B, P) float32 and cells (B, P) int64."""
+    if rgb.dtype == torch.uint8:
+        rgb = u8_to_unit_f32(rgb)
+    flat = rgb.reshape(rgb.shape[0], 3, -1)
+    h, s, v = rgb_to_hsv(flat[:, 0], flat[:, 1], flat[:, 2])
+    return h, s, v, assign_cells(h, s, v, cfg).long()
+
+
+def _launch_args(rgb: torch.Tensor, cfg):
+    b, _, hh, ww = rgb.shape
+    return (_cuda.ptr(rgb), int(rgb.dtype == torch.uint8), b, hh * ww,
+            ctypes.byref(_cuda.CellParams.for_config(cfg)))
+
+
+# ---------------------------------------------------------------- K1 ----
+
+def cell_counts_s_from_rgb_plain(rgb: torch.Tensor, cfg):
+    """Plain version of K1: ((B, C) int32 cell counts, (B,) float32 sum of
+    the saturation channel)."""
+    _, s, _, cells = _hsv_cells(rgb, cfg)
+    counts = torch.zeros((cells.shape[0], cfg.num_cells), dtype=torch.int64,
+                         device=cells.device)
+    counts.scatter_add_(1, cells, torch.ones_like(cells))
+    s_sum = s.to(torch.float64).sum(dim=1).to(torch.float32)
+    return counts.to(torch.int32), s_sum
+
+
+def cell_counts_s_from_rgb(rgb: torch.Tensor, cfg):
+    """K1: exact per-image cell histogram and saturation sum from planar
+    RGB, HSV computed in-kernel."""
+    _check_rgb(rgb)
+    if rgb.device.type == "cpu":
+        return cell_counts_s_from_rgb_plain(rgb, cfg)
+    b, c = rgb.shape[0], cfg.num_cells
+    counts = torch.empty((b, c), dtype=torch.int32, device=rgb.device)
+    s_sum = torch.empty((b,), dtype=torch.float32, device=rgb.device)
+    acc = torch.empty((b, c + 1), dtype=torch.int64, device=rgb.device)
+    _cuda.launch("ph_cell_counts_s", rgb, *_launch_args(rgb, cfg),
+                 _cuda.ptr(counts), _cuda.ptr(s_sum), _cuda.ptr(acc))
+    _cuda.LAUNCHES["cell_counts_s"] += 1
+    return counts, s_sum
+
+
+# ------------------------------------------------------------ tables ----
+
+def palette_offset_table(assign: ParentAssignment, tables: OctreeTables,
+                         num_cells: int):
+    """K3's per-image tables, valid on the q=1 tier (no populated cell
+    tied): each cell's parent slot (B, C) int32 and the hue offset
+    180 - centre_hue of that parent (B, C) float32."""
+    c = num_cells
+    slot = candidate_slots(assign, c, 1)[..., 0]
+    hue_by_k = tables.centers[assign.order, 0]                # (B, C)
+    offset = 180.0 - torch.gather(hue_by_k, 1,
+                                  torch.clamp(slot, max=c - 1).long())
+    return slot.contiguous(), offset.contiguous()
+
+
+def palette_candidate_table(assign: ParentAssignment, tables: OctreeTables,
+                            num_cells: int, q_pad: int):
+    """K4's per-image tables: the candidate slots (B, C, q_pad) int32 and
+    the cell centres in valid order (B, C, 3) float32."""
+    return (candidate_slots(assign, num_cells, q_pad),
+            tables.centers[assign.order].contiguous())
+
+
+# ------------------------------------------------------------ K3 / K4 ---
+
+def _slot_sums(h, s, v, slot, offset, c: int) -> torch.Tensor:
+    """[sum wrapped hue + offset, sum s, sum v, count] per slot, (B, C, 4)
+    float32, accumulated in float64; slots >= c drop out."""
+    temp = h + offset
+    temp = torch.where(temp > 360.0, temp - 360.0,
+                       torch.where(temp < 0.0, temp + 360.0, temp))
+    b = h.shape[0]
+    base = torch.arange(b, device=h.device)[:, None] * (c + 1)
+    idx = (torch.where(slot < c, slot, c) + base).reshape(-1)
+    vals = torch.stack([temp, s, v, torch.ones_like(s)], dim=-1)
+    acc = torch.zeros((b * (c + 1), 4), dtype=torch.float64, device=h.device)
+    acc.index_add_(0, idx, vals.reshape(-1, 4).to(torch.float64))
+    return acc.reshape(b, c + 1, 4)[:, :c].to(torch.float32)
+
+
+def palette_sums_by_k_rgb_q1_plain(rgb, slot_of_cell, offset_of_cell, cfg):
+    """Plain version of K3: (B, C, 4) per-slot sums."""
+    h, s, v, cells = _hsv_cells(rgb, cfg)
+    slot = torch.gather(slot_of_cell.long(), 1, cells)
+    offset = torch.gather(offset_of_cell, 1, cells)
+    return _slot_sums(h, s, v, slot, offset, cfg.num_cells)
+
+
+def palette_sums_by_k_rgb_q1(rgb, slot_of_cell, offset_of_cell, cfg):
+    """K3, the q=1 tier: every pixel's parent is a function of its cell, so
+    the pass is a table lookup and a per-slot sum."""
+    _check_rgb(rgb)
+    b, c = rgb.shape[0], cfg.num_cells
+    _check_table(slot_of_cell, "slot_of_cell", torch.int32, (b, c), rgb)
+    _check_table(offset_of_cell, "offset_of_cell", torch.float32, (b, c), rgb)
+    if rgb.device.type == "cpu":
+        return palette_sums_by_k_rgb_q1_plain(rgb, slot_of_cell,
+                                              offset_of_cell, cfg)
+    sums = torch.empty((b, c, 4), dtype=torch.float32, device=rgb.device)
+    acc = torch.empty((b, c, 4), dtype=torch.int64, device=rgb.device)
+    _cuda.launch("ph_palette_sums_q1", rgb, *_launch_args(rgb, cfg),
+                 _cuda.ptr(slot_of_cell), _cuda.ptr(offset_of_cell),
+                 _cuda.ptr(sums), _cuda.ptr(acc))
+    _cuda.LAUNCHES["palette_sums_q1"] += 1
+    return sums
+
+
+def palette_sums_by_k_rgb_plain(rgb, cand, centers_by_k, cfg):
+    """Plain version of K4: per pixel, the float32 distance to each of its
+    cell's candidates in the op order of the JAX package's pixel pass
+    (quantize.palette_pixel_sums); the first minimum wins."""
+    h, s, v, cells = _hsv_cells(rgb, cfg)
+    c = cfg.num_cells
+    slots, offsets = [], []
+    for i in range(h.shape[0]):      # one image at a time bounds (P, q) temps
+        cand_p = cand[i].long()[cells[i]]                     # (P, q)
+        ctr = centers_by_k[i][torch.clamp(cand_p, max=c - 1)]  # (P, q, 3)
+        hd = torch.abs(h[i][:, None] - ctr[..., 0])
+        hd = torch.where(hd > 180.0, 360.0 - hd, hd) * (1.0 / 360.0)
+        sd = s[i][:, None] - ctr[..., 1]
+        vd = v[i][:, None] - ctr[..., 2]
+        d = hd * hd + sd * sd + vd * vd
+        d = torch.where(cand_p < c, d, float("inf"))
+        slot = torch.gather(cand_p, 1, d.argmin(dim=1, keepdim=True))[:, 0]
+        slots.append(slot)
+        safe = torch.clamp(slot, max=c - 1)
+        offsets.append(180.0 - centers_by_k[i][safe, 0])
+    return _slot_sums(h, s, v, torch.stack(slots), torch.stack(offsets), c)
+
+
+def palette_sums_by_k_rgb(rgb, cand, centers_by_k, cfg):
+    """K4, q > 1: per-pixel tie-break among the cell's candidates, sums per
+    valid-order slot, (B, C, 4) float32."""
+    _check_rgb(rgb)
+    b, c = rgb.shape[0], cfg.num_cells
+    q = cand.shape[-1] if cand.dim() == 3 else 0
+    _check_table(cand, "cand", torch.int32, (b, c, q), rgb)
+    _check_table(centers_by_k, "centers_by_k", torch.float32, (b, c, 3), rgb)
+    if rgb.device.type == "cpu":
+        return palette_sums_by_k_rgb_plain(rgb, cand, centers_by_k, cfg)
+    sums = torch.empty((b, c, 4), dtype=torch.float32, device=rgb.device)
+    acc = torch.empty((b, c, 4), dtype=torch.int64, device=rgb.device)
+    _cuda.launch("ph_palette_sums", rgb, *_launch_args(rgb, cfg),
+                 _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), _cuda.ptr(sums),
+                 _cuda.ptr(acc))
+    _cuda.LAUNCHES["palette_sums_q8" if q <= 8 else "palette_sums_qfull"] += 1
+    return sums

@@ -15,9 +15,13 @@ setup(
         "(brightness/contrast, saturation, HSV palette, crop sharpness, "
         "FFT blur profile) as a batched, mesh-shardable JAX pipeline"
     ),
-    packages=find_packages(include=["photohive_dsp_tpu*"]),
-    package_data={"photohive_dsp_tpu.runtime": ["native.cpp"]},
+    # photohive_dsp_tpu_torch is the PyTorch/CUDA port; its kernels build
+    # from csrc/ with nvcc at first use on a machine with a GPU.
+    packages=find_packages(include=["photohive_dsp_tpu*",
+                                    "photohive_dsp_tpu_torch*"]),
+    package_data={"photohive_dsp_tpu.runtime": ["native.cpp"],
+                  "photohive_dsp_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "Pillow"],
-    extras_require={"viz": ["matplotlib"]},
+    extras_require={"viz": ["matplotlib"], "torch": ["torch"]},
 )
