@@ -7,11 +7,17 @@ path).  Phases, each of which raises on failure:
 
   1. device: a CUDA device must be present; prints its name and power limit;
   2. build: compiles the kernels from photohive_dsp_tpu_torch/csrc;
-  3. kernels against their plain versions on the card, at 1080x1920, B=4,
-     float32 and uint8 input;
-  4. main path, with the kernel launch counts of that run;
-  5. timing: warm get_report latency, batch-8 throughput, each kernel's
-     time beside its plain version's.
+  3. kernels against their plain versions on the card: the palette kernels
+     (K1-K4) at 1080x1920, B=4, float32 and uint8 input; the FFT kernels
+     (K6a, K6b) and the polar kernel (K7+K8) at 1080x1920 B=4, 2160x3840
+     B=1 and 1092x1001 B=2, the FFT also against float64 rfft2 (>= 90 dB),
+     the polar sums twice (bit-identical), a zero frame, and a 360x100-bin
+     table (the polar kernel's global-atomics branch);
+  4. main path, with the kernel launch counts of that run (each kernel at
+     least once);
+  5. timing: warm get_report latency, batch-8 throughput, the blur stage by
+     the torch route and by the kernels at B=1 and B=8, and each kernel's
+     time beside its plain version's, its bound and a library call's.
 
 Prints the kernels' JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  Exits nonzero without that line when a
@@ -34,6 +40,24 @@ SEED = 0
 DEVICE = "cuda"
 K1_S_RTOL = 1e-6          # saturation sum vs its plain version
 SUMS_RTOL = 1e-5          # palette hue/s/v sums vs their plain versions
+# The FFT kernels equal their plain versions bit for bit (the same float32
+# operations in the same order); both meet the JAX package's bar against
+# float64 rfft2 (tests/test_pallas_fft.py).
+FFT_SNR_DB = 90.0
+POLAR_RTOL = 1e-6         # polar sums vs plain: logf rounding only
+BLUR_SHAPES = [(1080, 1920, 4), (2160, 3840, 1), (1092, 1001, 2)]
+# Peak rates of an H100 SXM (NVIDIA data sheet): HBM3 bytes/s and float32
+# operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations per pixel of the palette kernels' front end
+# (csrc/hsv_cells.cuh pixel_hsv_cell, counted from the source: 3 decodes,
+# 4 max/min, 5 for the hue, 1 for s, 12 for the cell id), of one slot
+# update (wrapped hue, 3 fixed-point conversions) and of one K4 candidate
+# distance (3 differences, abs, fold, scale, 3 squares, 2 adds, compare).
+OPS_CELL_PX = 25
+OPS_SLOT_PX = 6
+OPS_CANDIDATE = 13
 
 
 def log(msg: str) -> None:
@@ -90,6 +114,24 @@ def planar(img: np.ndarray) -> np.ndarray:
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     got, want = got.double().cpu(), want.double().cpu()
     return float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+
+
+def snr_db(want: torch.Tensor, got: torch.Tensor) -> float:
+    want, got = want.double().cpu(), got.double().cpu()
+    err = float(torch.linalg.vector_norm(want - got))
+    sig = float(torch.linalg.vector_norm(want))
+    return float("inf") if err == 0 else 20 * float(np.log10(sig / err))
+
+
+def luma_dc(images) -> torch.Tensor:
+    """(B, H, W) luma of uint8 frames on the card, mean removed."""
+    from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_pgm, \
+        u8_to_unit_f32
+
+    rgb = u8_to_unit_f32(torch.as_tensor(
+        np.stack([planar(im) for im in images]), device=DEVICE))
+    pgm = rgb_to_pgm(rgb[:, 0], rgb[:, 1], rgb[:, 2])
+    return (pgm - pgm.mean(dim=(1, 2), keepdim=True)).contiguous()
 
 
 def report_fields(rep) -> dict:
@@ -255,7 +297,84 @@ def phase_kernels(images, cfg, tables):
     if not torch.equal(margin_sort(big), margin_insertion_argsort(big)):
         raise AssertionError("K2: order differs at C=2164")
     log("  K2 exact at C=112 and C=2164")
-    return err, dict(u8=u8, slot=slot, off=off, sal=sal, assign=assign)
+    return err, dict(u8=u8, slot=slot, off=off, sal=sal, assign=assign,
+                     counts=counts)
+
+
+def phase_blur_kernels(images, cfg):
+    """K6a, K6b and K7+K8 against their plain versions on the card at the
+    BLUR_SHAPES; returns per-kernel max abs error at 1080x1920 B=4 and the
+    inputs the timing phase reuses."""
+    from photohive_dsp_tpu_torch.config import ReportConfig
+    from photohive_dsp_tpu_torch.ops import fft_kernels as fk
+    from photohive_dsp_tpu_torch.ops import polar_kernels as pk
+    from photohive_dsp_tpu_torch.ops.blur import PolarTables, \
+        blur_bins_lognorm
+    from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
+
+    a, r = cfg.angle_partitions, cfg.radius_partitions
+    rng = np.random.default_rng(SEED + 2)
+
+    def polar_check(flat, ids, nb, label):
+        sums = pk.polar_bin_sums_lognorm(flat, ids, nb)
+        again = pk.polar_bin_sums_lognorm(flat, ids, nb)
+        want = pk.polar_bin_sums_lognorm_plain(flat, ids, nb)
+        sync()
+        if not torch.equal(sums, again):
+            raise AssertionError(f"K7+K8 {label}: two launches differ")
+        bad = (sums - want).abs() > POLAR_RTOL * want.abs()
+        if bool(bad.any()):
+            raise AssertionError(f"K7+K8 {label}: rel err "
+                                 f"{rel_err(sums, want)}")
+        return float((sums - want).abs().max()), rel_err(sums, want)
+
+    err, kin = {}, {}
+    for h, w, b in BLUR_SHAPES:
+        label = f"{h}x{w} B={b}"
+        if (h, w) == (H, W):
+            x = luma_dc(images[:b])
+        else:
+            x = torch.as_tensor(rng.random((b, h, w), dtype=np.float32) - 0.5,
+                                device=DEVICE)
+        plan = FftPlan.for_shape(h, w, DEVICE)
+        polar = PolarTables.for_shape(h, w, cfg, DEVICE)
+        spec, spec0 = fk.fft_rows(x, plan), fk.fft_rows_plain(x, plan)
+        mag, mag0 = fk.fft_cols(spec0, plan), fk.fft_cols_plain(spec0, plan)
+        sync()
+        e_rows = float((spec - spec0).abs().max())
+        e_cols = float((mag - mag0).abs().max())
+        if not torch.equal(spec, spec0):
+            raise AssertionError(f"K6a {label}: differs from plain, max abs "
+                                 f"err {e_rows}")
+        if not torch.equal(mag, mag0):
+            raise AssertionError(f"K6b {label}: differs from plain, max abs "
+                                 f"err {e_cols}")
+        want = torch.fft.rfft2(x.cpu().double()).abs().square()
+        snr_k = snr_db(want, fk.magnitude2(x, plan))
+        snr_p = snr_db(want, fk.magnitude2_plain(x, plan))
+        if not min(snr_k, snr_p) >= FFT_SNR_DB:
+            raise AssertionError(f"K6 {label}: {snr_k} dB (kernels), "
+                                 f"{snr_p} dB (plain) vs float64")
+        flat = mag.reshape(b, -1)
+        e_polar, r_polar = polar_check(flat, polar.bin_ids, a * r, label)
+        zero = blur_bins_lognorm(torch.zeros_like(x), plan, polar, a, r)
+        sync()
+        if not bool(torch.isfinite(zero).all()) or bool(zero.any()):
+            raise AssertionError(f"{label}: zero frame gives nonzero bins")
+        log(f"  {label}: K6a/K6b equal plain bit for bit; |rfft2|^2 "
+            f"{snr_k:.1f} dB (plain {snr_p:.1f} dB) vs float64; K7+K8 "
+            f"bit-identical twice, rel err {r_polar:.2e}; zero frame -> "
+            f"zero bins")
+        if (h, w) == (H, W):
+            err = {"K6a": e_rows, "K6b": e_cols, "K7+K8": e_polar}
+            kin = dict(x=x, plan=plan, polar=polar, spec=spec0, flat=flat)
+    big = ReportConfig(angle_partitions=360, radius_partitions=100)
+    nb = big.angle_partitions * big.radius_partitions
+    ids = PolarTables.for_shape(H, W, big, DEVICE).bin_ids
+    e_big, r_big = polar_check(kin["flat"], ids, nb, "360x100 bins")
+    log(f"  K7+K8 global-atomics branch, {nb} bins ({8 * nb} B table): "
+        f"bit-identical twice, rel err {r_big:.2e}")
+    return err, kin
 
 
 def phase_main_path(images, cfg):
@@ -308,9 +427,70 @@ def phase_main_path(images, cfg):
     return launches, tables_gpu, batch_gpu, bboxes, bvalid
 
 
-def phase_timing(images, cfg, kin, main):
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes over the HBM rate and the float32 operations over
+    the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def margin_sort_compares(sal: torch.Tensor) -> int:
+    """The float32 margin comparisons the insertion sort makes on these
+    saliencies (K2's work, which depends on the data)."""
+    n = 0
+    for row in sal.cpu().numpy():
+        done = [row[0]]
+        for si in row[1:]:
+            j = len(done) - 1
+            while j >= 0 and np.float32(done[j] - si) <= -1:
+                j -= 1
+                n += 1
+            n += int(j >= 0)
+            done.insert(j + 1, si)
+    return n
+
+
+def stage_times(images, cfg, tables):
+    """The blur stage at B=1 and B=8 on the noise frame: the torch route
+    (rfft2 + normalisation, then the gather) against the kernels (K6a+K6b,
+    then max + K7+K8 + gain), in turns torch, kernels, kernels, torch."""
+    from photohive_dsp_tpu_torch.ops.blur import blur_profile_bins, \
+        lognorm_bin_means
+    from photohive_dsp_tpu_torch.ops.fft import magnitude_fft_normalized
+    from photohive_dsp_tpu_torch.ops.fft_kernels import magnitude2
+    from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
+
+    a, r = cfg.angle_partitions, cfg.radius_partitions
+    plan = FftPlan.for_shape(H, W, DEVICE)
+    for b in (1, 8):
+        x = luma_dc([images[0]] * b)
+        mag = magnitude_fft_normalized(x)
+        mag2 = magnitude2(x, plan).reshape(b, -1)
+        torch_route = [
+            lambda: magnitude_fft_normalized(x),
+            lambda: blur_profile_bins(mag, tables.polar, a, r)]
+        kernel_route = [
+            lambda: magnitude2(x, plan),
+            lambda: lognorm_bin_means(mag2, tables.polar, a, r)]
+        t1 = [cuda_ms(f, 20) for f in torch_route]
+        k1 = [cuda_ms(f, 20) for f in kernel_route]
+        k2 = [cuda_ms(f, 20) for f in kernel_route]
+        t2 = [cuda_ms(f, 20) for f in torch_route]
+        t = [(u + v) / 2 for u, v in zip(t1, t2)]
+        k = [(u + v) / 2 for u, v in zip(k1, k2)]
+        log(f"  blur stage B={b} 1080x1920: torch route fft+norm {t[0]:.4f} "
+            f"ms + polar bins {t[1]:.4f} ms = {sum(t):.4f} ms; kernels "
+            f"K6a+K6b {k[0]:.4f} ms + max/K7+K8/gain {k[1]:.4f} ms = "
+            f"{sum(k):.4f} ms")
+
+
+def phase_timing(images, cfg, kin, bkin, main):
     import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.ops import fft_kernels as fk
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops import polar_kernels as pol
     from photohive_dsp_tpu_torch.ops import quantize as qz
     from photohive_dsp_tpu_torch.ops.margin_sort import (
         margin_insertion_argsort, margin_sort)
@@ -339,13 +519,23 @@ def phase_timing(images, cfg, kin, main):
     mps = 8 * H * W / dt / 1e6
     log(f"  full_report_batched B=8 1080x1920 u8 (device-resident, 3 boxes):"
         f" {1e3 * dt:.3f} ms per batch, {mps:.1f} MP/s")
+    stage_times(images, cfg, tables)
 
     c = cfg.num_cells
     _, q_full = qz.palette_widths(cfg)
     x = kin["u8"]
     assign = kin["assign"]
-    c8 = pk.palette_candidate_table(assign, tables.octree, c, 8)
-    cf = pk.palette_candidate_table(assign, tables.octree, c, q_full)
+    cand = {"K4q8": pk.palette_candidate_table(assign, tables.octree, c, 8),
+            "K4qfull": pk.palette_candidate_table(assign, tables.octree, c,
+                                                  q_full)}
+    c8, cf = cand["K4q8"], cand["K4qfull"]
+    fx, plan, spec, flat = bkin["x"], bkin["plan"], bkin["spec"], bkin["flat"]
+    ids = bkin["polar"].bin_ids
+    nb = cfg.angle_partitions * cfg.radius_partitions
+    zc = torch.view_as_complex(spec)
+    gated = pol.log_gate(flat)
+    ids_l = ids.long()
+    acc = torch.zeros((flat.shape[0], nb), device=DEVICE)
     pairs = {
         "K1": (lambda: pk.cell_counts_s_from_rgb(x, cfg),
                lambda: pk.cell_counts_s_from_rgb_plain(x, cfg)),
@@ -359,18 +549,79 @@ def phase_timing(images, cfg, kin, main):
                  lambda: pk.palette_sums_by_k_rgb_plain(x, *c8, cfg)),
         "K4qfull": (lambda: pk.palette_sums_by_k_rgb(x, *cf, cfg),
                     lambda: pk.palette_sums_by_k_rgb_plain(x, *cf, cfg)),
+        "K6a": (lambda: fk.fft_rows(fx, plan),
+                lambda: fk.fft_rows_plain(fx, plan)),
+        "K6b": (lambda: fk.fft_cols(spec, plan),
+                lambda: fk.fft_cols_plain(spec, plan)),
+        "K7+K8": (lambda: pol.polar_bin_sums_lognorm(flat, ids, nb),
+                  lambda: pol.polar_bin_sums_lognorm_plain(flat, ids, nb)),
+    }
+    # One PyTorch call computing the same function, where there is one.
+    library = {
+        "K6a": lambda: torch.fft.rfft(fx, dim=-1),
+        "K6b": lambda: torch.fft.fft(zc, dim=1).abs().square(),
+        "K7+K8": lambda: acc.index_add_(1, ids_l, gated),
     }
     times = {}
     for key, (kern, plain) in pairs.items():
-        # plain, kernel, kernel, plain; report the mean of each pair
+        # plain, library, kernel, kernel, library, plain; the mean of each
+        lib = library.get(key)
         p1 = cuda_ms(plain, 3)
+        l1 = cuda_ms(lib, 20) if lib else None
         k1 = cuda_ms(kern, 20)
         k2 = cuda_ms(kern, 20)
+        l2 = cuda_ms(lib, 20) if lib else None
         p2 = cuda_ms(plain, 3)
-        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2,
+                      (l1 + l2) / 2 if lib else None)
         log(f"  {key}: kernel {times[key][0]:.4f} ms, plain "
-            f"{times[key][1]:.4f} ms (B=4 u8 1080x1920)")
-    return times, lat_ms, mps
+            f"{times[key][1]:.4f} ms, library "
+            f"{'%.4f ms' % times[key][2] if lib else 'none'}")
+    k6 = times["K6a"][0] + times["K6b"][0]
+    rfft2 = cuda_ms(lambda: torch.fft.rfft2(fx).abs().square(), 20)
+    times["K6"] = (k6, None, rfft2)
+    log(f"  K6a+K6b {k6:.4f} ms vs torch.fft.rfft2 + |.|^2 {rfft2:.4f} ms "
+        f"(B={fx.shape[0]} f32 {H}x{W})")
+
+    # Work of each timed call, from these inputs.
+    b, _, hh, ww = x.shape
+    px = b * hh * ww
+    x_bytes = x.numel() * x.element_size()
+    counts = kin["counts"].long()
+    work = {
+        "K1": (x_bytes + b * c * 4 + b * 4, px * (OPS_CELL_PX + 1)),
+        "K2": (2 * b * c * 4, 2 * margin_sort_compares(kin["sal"])),
+        "K3": (x_bytes + b * c * 8 + b * c * 16,
+               px * (OPS_CELL_PX + OPS_SLOT_PX)),
+    }
+    for key, (cand_t, centres) in cand.items():
+        per_cell = (cand_t < c).sum(dim=-1).long()
+        n_cand = int((counts * per_cell).sum())
+        work[key] = (x_bytes + cand_t.numel() * 4 + centres.numel() * 4
+                     + b * c * 16,
+                     px * (OPS_CELL_PX + OPS_SLOT_PX)
+                     + n_cand * OPS_CANDIDATE)
+    fb, fh, fw = fx.shape
+    half = fw // 2 + 1
+    spec_bytes = fb * fh * half * 8
+    work["K6a"] = (fx.numel() * 4 + spec_bytes + fw * 8,
+                   (fb * fh + 1) // 2 * 5 * fw * np.log2(fw)
+                   + fb * fh * half * 6)
+    work["K6b"] = (spec_bytes + fb * fh * half * 4 + fh * 8,
+                   fb * half * 5 * fh * np.log2(fh) + fb * fh * half * 3)
+    # K6 as one function, |rfft2|^2: the luma read once and the half
+    # spectrum written once; the intermediate K6a writes and K6b reads
+    # back is the two-pass design's cost, not the function's.
+    work["K6"] = (fx.numel() * 4 + fb * fh * half * 4,
+                  work["K6a"][1] + work["K6b"][1])
+    n_gated = int((flat >= 1.0).sum())
+    work["K7+K8"] = (flat.numel() * 4 + ids.numel() * 4 + fb * nb * 4,
+                     flat.numel() + 3 * n_gated)
+    bounds = {k: bound(*v) for k, v in work.items()}
+    for k, (ms, by) in bounds.items():
+        log(f"  {k}: bound {ms:.5f} ms ({by}; {work[k][0] / 1e6:.2f} MB, "
+            f"{work[k][1] / 1e9:.4f} G float32 ops)")
+    return times, bounds, lat_ms, mps
 
 
 KERNELS = [
@@ -389,7 +640,28 @@ KERNELS = [
     ("K4qfull", "palette_sums (q=q_full)", "palette_sums_qfull",
      "photohive_dsp_tpu_torch/csrc/palette.cu",
      "photohive_dsp_tpu/ops/pallas_kernels_bf16.py:402"),
+    ("K6a", "fft_rows", "fft_rows",
+     "photohive_dsp_tpu_torch/csrc/fft.cu",
+     "photohive_dsp_tpu/ops/pallas_fft.py:541"),
+    ("K6b", "fft_cols", "fft_cols",
+     "photohive_dsp_tpu_torch/csrc/fft.cu",
+     "photohive_dsp_tpu/ops/pallas_fft.py:586"),
+    ("K7+K8", "polar_bin_sums_lognorm", "polar_bins",
+     "photohive_dsp_tpu_torch/csrc/polar.cu",
+     "photohive_dsp_tpu/ops/pallas_kernels.py:222"),
 ]
+
+# The library call timed beside each kernel, or why there is none.
+LIBRARY = {
+    "K1": "none: no PyTorch call computes the HSV cell histogram",
+    "K2": "none: the margin comparator is not a sort key torch.argsort takes",
+    "K3": "none: no PyTorch call computes the tie-broken palette sums",
+    "K4q8": "none: no PyTorch call computes the tie-broken palette sums",
+    "K4qfull": "none: no PyTorch call computes the tie-broken palette sums",
+    "K6a": "torch.fft.rfft(dim=-1)",
+    "K6b": "torch.fft.fft(dim=1) then abs().square()",
+    "K7+K8": "Tensor.index_add_ of the gated values into (B, A*R)",
+}
 
 
 def main() -> int:
@@ -404,18 +676,30 @@ def main() -> int:
     images = [noise_image(rng), structured_image(rng), hue_wheel_image(rng),
               noise_image(rng)]
     tables = ReportTables.build(H, W, cfg, DEVICE)
-    log("phase 3: kernels vs plain versions, 1080x1920, B=4")
+    log("phase 3: kernels vs plain versions")
     err, kin = phase_kernels(images, cfg, tables)
+    blur_err, bkin = phase_blur_kernels(images, cfg)
+    err.update(blur_err)
     log("phase 4: main path")
     main_out = phase_main_path(images, cfg)
     launches = main_out[0]
-    log("phase 5: timing")
-    times, lat_ms, mps = phase_timing(images, cfg, kin, main_out)
+    log("phase 5: timing (B=4 1080x1920: u8 for K1-K4, f32 luma for K6-K8)")
+    times, bounds, lat_ms, mps = phase_timing(images, cfg, kin, bkin,
+                                              main_out)
 
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+    kernels = [dict(id=key, name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[counter], max_abs_err=err[key],
-                    ms=times[key][0], plain_ms=times[key][1])
+                    ms=times[key][0], plain_ms=times[key][1],
+                    bound_ms=bounds[key][0], bound_by=bounds[key][1],
+                    library_ms=times[key][2], library=LIBRARY[key])
                for key, name, counter, src, rep in KERNELS]
+    for entry in kernels:
+        if entry["id"] in ("K6a", "K6b"):
+            entry.update(k6_ms=times["K6"][0], k6_bound_ms=bounds["K6"][0],
+                         k6_bound_by=bounds["K6"][1])
+    log(f"  K6 (K6a+K6b) {times['K6'][0]:.4f} ms against the bound of "
+        f"|rfft2|^2 itself, {bounds['K6'][0]:.5f} ms "
+        f"({times['K6'][0] / bounds['K6'][0]:.1f}x)")
     log(f"get_report warm median {lat_ms:.3f} ms; full_report_batched B=8 "
         f"{mps:.1f} MP/s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,8 +6,10 @@ Mirrors the reference orchestrator get_full_report_data
 
   downsample -> palette + mean saturation (downsampled, K1-K4)
   -> rgb2pgm and rgb statistics (full res) -> crop sharpness (pre-DC
-  removal) -> DC removal with the RGB brightness mean -> magnitude FFT +
-  log normalisation -> polar bins -> blur vectors.
+  removal) -> DC removal with the RGB brightness mean -> blur bins (FFT
+  kernels K6a/K6b + log-gated polar kernel K7+K8 on shapes inside
+  fft_plan.fft_kernel_eligible, else torch rfft2 + normalisation + gather)
+  -> blur vectors.
 
 Behavioural subtleties honoured (SURVEY.md §3.1): palette and saturation
 run on the *downsampled* image, the rest on the full-resolution original;
@@ -22,9 +24,11 @@ import numpy as np
 import torch
 
 from ..config import ReportConfig
-from ..ops.blur import PolarTables, blur_profile_bins, vectorize_blur_profile
+from ..ops.blur import (PolarTables, blur_bins_lognorm, blur_profile_bins,
+                        vectorize_blur_profile)
 from ..ops.colorspace import downsample_rgb, rgb_to_pgm, u8_to_unit_f32
 from ..ops.fft import magnitude_fft_normalized
+from ..ops.fft_plan import FftPlan, fft_kernel_eligible
 from ..ops.quantize import OctreeTables, color_palette_batched_from_rgb
 from ..ops.sharpness import variance_sharpness_batched
 from ..ops.stats import div_const, rgb_statistics
@@ -84,7 +88,8 @@ def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
                  a host array.
     boxes_valid: (B, MAX_CROP_BOXES) bool, a host array.
 
-    The routes are picked on the host from the boxes and, once per batch,
+    The routes are picked on the host from the shape, the boxes and, once
+    per batch,
     from one scalar of the palette's tie structure read from the device."""
     # uint8 frames feed the palette kernels directly when no decimation is
     # configured (in-kernel x/255, bit-identical to the float planes).
@@ -103,9 +108,17 @@ def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
     sharp = variance_sharpness_batched(pgm, boxes, boxes_valid)
 
     dc = (stats[:, 0] + stats[:, 1] + stats[:, 2]) / 3.0
-    mag = magnitude_fft_normalized(pgm - dc[:, None, None])
-    bins = blur_profile_bins(mag, tables.polar, cfg.angle_partitions,
-                             cfg.radius_partitions)
+    pgm_dc = pgm - dc[:, None, None]
+    h, w = pgm_dc.shape[1:]
+    if fft_kernel_eligible(h, w):
+        bins = blur_bins_lognorm(pgm_dc,
+                                 FftPlan.for_shape(h, w, pgm_dc.device),
+                                 tables.polar, cfg.angle_partitions,
+                                 cfg.radius_partitions)
+    else:
+        bins = blur_profile_bins(magnitude_fft_normalized(pgm_dc),
+                                 tables.polar, cfg.angle_partitions,
+                                 cfg.radius_partitions)
     angles, mags = vectorize_blur_profile(bins, cfg)
 
     return ReportData(

@@ -1,8 +1,9 @@
 """Build, load and count the port's CUDA kernels.
 
 The kernels live in ``photohive_dsp_tpu_torch/csrc`` and are compiled with
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, loaded with ``ctypes``.  The build runs at first use, into
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source started together,
+and linked into one shared library with a plain C interface, loaded with
+``ctypes``.  The build runs at first use, into
 ``photohive_dsp_tpu_torch/_build/<hash of the sources and flags>/``, so an
 edited source rebuilds and an unchanged one loads at once.  Nothing here runs
 at import time: the CPU-only tests import every module.
@@ -32,11 +33,13 @@ import torch
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 LIB_NAME = "libphotohive_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC"]
 
 LAUNCHES = {"cell_counts_s": 0, "margin_sort": 0, "palette_sums_q1": 0,
-            "palette_sums_q8": 0, "palette_sums_qfull": 0}
+            "palette_sums_q8": 0, "palette_sums_qfull": 0, "fft_rows": 0,
+            "fft_cols": 0, "polar_bins": 0}
 
 _lib = None
 
@@ -74,10 +77,27 @@ class CellParams(ctypes.Structure):
             num_cells=cfg.num_cells)
 
 
+class FftStages(ctypes.Structure):
+    """Mirror of ``struct FftStages`` in csrc/fft.cu: one transform length
+    and its stage radices (ops/fft_plan.py)."""
+
+    MAX_STAGES = 16
+    _fields_ = [("n", ctypes.c_int), ("count", ctypes.c_int),
+                ("radix", ctypes.c_int * MAX_STAGES)]
+
+    @classmethod
+    def for_plan(cls, n: int, radices) -> "FftStages":
+        if len(radices) > cls.MAX_STAGES:
+            raise ValueError(f"{len(radices)} stages > {cls.MAX_STAGES}")
+        return cls(n=n, count=len(radices),
+                   radix=(ctypes.c_int * cls.MAX_STAGES)(*radices))
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _PARAMS = ctypes.POINTER(CellParams)
+_STAGES = ctypes.POINTER(FftStages)
 _SIGNATURES = {
     # (rgb, is_u8, batch, pixels, params, counts_out, s_out, acc, stream)
     "ph_cell_counts_s": [_P, _I, _I, _LL, _PARAMS, _P, _P, _P, _P],
@@ -89,6 +109,12 @@ _SIGNATURES = {
     # (rgb, is_u8, batch, pixels, params, cand, q, centers_by_k,
     #  sums_out, acc, stream)
     "ph_palette_sums": [_P, _I, _I, _LL, _PARAMS, _P, _I, _P, _P, _P, _P],
+    # (pgm, rows, stages, twiddles, spec_out, stream)
+    "ph_fft_rows": [_P, _I, _STAGES, _P, _P, _P],
+    # (spec, batch, half, stages, twiddles, mag2_out, stream)
+    "ph_fft_cols": [_P, _I, _I, _STAGES, _P, _P, _P],
+    # (mag2, bin_ids, batch, pixels, num_bins, acc, sums_out, stream)
+    "ph_polar_bin_sums_lognorm": [_P, _P, _I, _LL, _I, _P, _P, _P],
 }
 
 
@@ -114,6 +140,20 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _nvcc_start(*args) -> subprocess.Popen:
+    return subprocess.Popen([_nvcc(), *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _nvcc_check(procs) -> None:
+    """Wait for every nvcc in ``procs``; raise with the output of those
+    that failed."""
+    done = [(p.args[-1], *p.communicate(), p.returncode) for p in procs]
+    failed = [f"{name} ({rc}):\n{out}" for name, out, _, rc in done if rc]
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless the build for the
     current sources already exists; returns its path."""
@@ -122,15 +162,15 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        cu = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [os.path.join(work, p.stem + ".o") for p in cu]
+        _nvcc_check([_nvcc_start(*NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o",
+                                 obj, str(src))
+                     for src, obj in zip(cu, objs)])
+        tmp = os.path.join(work, LIB_NAME)
+        _nvcc_check([_nvcc_start(*ARCH_FLAGS, "-shared", "-o", tmp, *objs)])
+        os.replace(tmp, lib)
     return lib
 
 

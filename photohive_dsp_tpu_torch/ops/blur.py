@@ -8,11 +8,18 @@ reference: src/blur_profile.c
     circular 5-tap smoothing, local-maxima streak detection, and conversion
     to <=10 (angle, magnitude) blur vectors.
 
-The bin of every FFT pixel depends only on the image shape (ops/geometry.py),
-so binning is a static gather into per-bin padded rows and a row sum: no
-scatter and no float atomics, so the bins are the same from run to run
-(``index_add_`` on CUDA is not).  This is the JAX package's gather route;
-its Pallas polar kernels are not ported yet.
+The bin of every FFT pixel depends only on the image shape (ops/geometry.py).
+Two routes give the bins, both the same from run to run:
+
+  * ``blur_bins_lognorm`` (shapes inside fft_plan.fft_kernel_eligible):
+    the FFT kernels (K6a, K6b), the per-image max, the log-gated bin sums
+    of the polar kernel (K7+K8, exact fixed point), then the gain and the
+    means; the counterpart of ``pallas_fft.blur_bins_scrambled_lognorm``.
+    The normalised spectrum never exists.
+  * ``blur_profile_bins`` (all other shapes): a static gather of the
+    normalised spectrum (ops/fft.py) into per-bin padded rows and a row
+    sum, the JAX package's gather route; no scatter and no float atomics
+    (``index_add_`` on CUDA is not deterministic).
 """
 
 from __future__ import annotations
@@ -23,8 +30,11 @@ import numpy as np
 import torch
 
 from ..config import NUM_BLUR_VECTORS, ReportConfig
+from .fft_kernels import magnitude2
+from .fft_plan import FftPlan
 from .filtering import trailing_circular_box
 from .geometry import polar_geometry
+from .polar_kernels import polar_bin_sums_lognorm
 from .stats import div_const
 
 
@@ -33,7 +43,9 @@ class PolarTables(NamedTuple):
 
     pad_index: torch.Tensor   # (A*R, Lmax) int64 spectrum index, sentinel P
     bin_counts: torch.Tensor  # (A*R,) int32
-    bin_ids: torch.Tensor     # (H * fft_width,) int32
+    # (H * fft_width,) int32, natural row-major order: the layout the FFT
+    # kernels write, so it is also the polar kernel's table.
+    bin_ids: torch.Tensor
 
     @classmethod
     def for_shape(cls, height: int, width: int, cfg: ReportConfig,
@@ -66,11 +78,48 @@ def blur_profile_bins(mag_norm: torch.Tensor, tables: PolarTables,
     flat = torch.cat([mag_norm.reshape(b, -1),
                       mag_norm.new_zeros((b, 1))], dim=1)
     sums = flat[:, tables.pad_index].sum(dim=-1)       # (B, A*R)
-    counts = tables.bin_counts.to(mag_norm.dtype)
+    return bin_means(sums, tables, num_angle_bins, num_radius_bins)
+
+
+def bin_means(sums: torch.Tensor, tables: PolarTables, num_angle_bins: int,
+              num_radius_bins: int) -> torch.Tensor:
+    """(B, A*R) bin sums -> (B, A, R) means; empty bins are 0."""
+    counts = tables.bin_counts.to(sums.dtype)
     means = torch.where(tables.bin_counts > 0,
                         sums / torch.clamp(counts, min=1.0),
                         torch.zeros_like(sums))
-    return means.reshape(b, num_angle_bins, num_radius_bins)
+    return means.reshape(sums.shape[0], num_angle_bins, num_radius_bins)
+
+
+def blur_bins_lognorm(pgm_dc: torch.Tensor, plan: FftPlan,
+                      tables: PolarTables, num_angle_bins: int,
+                      num_radius_bins: int) -> torch.Tensor:
+    """Mean normalised FFT magnitude per (angle, radius) bin, (B, A, R)
+    float32, from the DC-removed luma (B, H, W), by the FFT and polar
+    kernels (``pallas_fft.blur_bins_scrambled_lognorm``).
+
+    The reference's x < 1 -> 0 else log(x) * G_s is summed as log(x) per
+    bin and the per-image gain G_s = 1 / (2 log(sqrt(max) + 1)) multiplies
+    the sums: a scalar through a linear sum.  A zero spectrum (black or
+    uniform frame) has max 0 and gain 0, so its bins are 0, not NaN."""
+    mag2 = magnitude2(pgm_dc, plan)
+    return lognorm_bin_means(mag2.reshape(mag2.shape[0], -1), tables,
+                             num_angle_bins, num_radius_bins)
+
+
+def lognorm_bin_means(mag2: torch.Tensor, tables: PolarTables,
+                      num_angle_bins: int, num_radius_bins: int)\
+        -> torch.Tensor:
+    """The half of ``blur_bins_lognorm`` after the FFT: (B, P) |X|^2 in the
+    FFT kernels' layout -> (B, A, R) normalised bin means."""
+    mx = mag2.amax(dim=1)
+    denom = 2.0 * torch.log(torch.sqrt(mx) + 1.0)
+    g_s = torch.where(denom > 0.0, 1.0 / torch.clamp(denom, min=1e-30),
+                      torch.zeros_like(denom))
+    sums = polar_bin_sums_lognorm(mag2, tables.bin_ids,
+                                  num_angle_bins * num_radius_bins)
+    return bin_means(sums * g_s[:, None], tables, num_angle_bins,
+                     num_radius_bins)
 
 
 def _angle_table(a: int) -> np.ndarray:

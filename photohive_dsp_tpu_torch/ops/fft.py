@@ -8,7 +8,9 @@ reference: src/fft_processing.c
     then x < 1 -> 0 else log(x)*G_s.
 
 This is the JAX package's XLA route (``jnp.fft.rfft2``), here
-``torch.fft.rfft2`` in complex64; the Pallas FFT kernels are not ported yet.
+``torch.fft.rfft2`` in complex64, taken by shapes outside the FFT kernels'
+gate (fft_plan.fft_kernel_eligible); the others take
+blur.blur_bins_lognorm.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""The CUDA kernels (K1-K4) against their plain PyTorch versions on an
-NVIDIA GPU.  Every test here needs the card and nvcc and skips without
-them; this file imports no JAX, so the machine with the card runs it with
+"""The CUDA kernels (K1-K4, K6a/K6b, K7+K8) against their plain PyTorch
+versions on an NVIDIA GPU.  Every test here needs the card and nvcc and
+skips without them; this file imports no JAX, so the machine with the card
+runs it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -10,9 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+import photohive_dsp_tpu_torch as pt
 from photohive_dsp_tpu_torch.config import ReportConfig
+from photohive_dsp_tpu_torch.ops import _cuda
+from photohive_dsp_tpu_torch.ops import fft_kernels as tfk
 from photohive_dsp_tpu_torch.ops import palette_kernels as tpk
+from photohive_dsp_tpu_torch.ops import polar_kernels as tpolar
 from photohive_dsp_tpu_torch.ops import quantize as tq
+from photohive_dsp_tpu_torch.ops.blur import PolarTables, blur_bins_lognorm
+from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
 from photohive_dsp_tpu_torch.ops.margin_sort import (
     margin_insertion_argsort, margin_sort)
 
@@ -103,3 +110,87 @@ def test_cuda_margin_sort_any_c(c, cuda_device):
                        + rng.random((3, c)) * 0.6, dtype=torch.float32,
                        device=cuda_device)
     assert torch.equal(margin_sort(sal), margin_insertion_argsort(sal))
+
+
+def _snr_db(want: torch.Tensor, got: torch.Tensor) -> float:
+    want, got = want.double().cpu(), got.double().cpu()
+    err = float(torch.linalg.vector_norm(want - got))
+    sig = float(torch.linalg.vector_norm(want))
+    return float("inf") if err == 0 else 20 * np.log10(sig / err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(2, 1080, 1920), (2, 1092, 1001),
+                                   (1, 91, 375)])
+def test_cuda_fft_kernels_match_plain(b, h, w, cuda_device):
+    """K6a and K6b repeat their plain versions' float32 operations in the
+    same order: they agree to the rounding of the peak, and both hold the
+    JAX package's 90 dB bar against float64 rfft2."""
+    x = np.random.default_rng(11).standard_normal((b, h, w)).astype(
+        np.float32)
+    xd = torch.from_numpy(x).to(cuda_device)
+    plan = FftPlan.for_shape(h, w, cuda_device)
+    spec, spec0 = tfk.fft_rows(xd, plan), tfk.fft_rows_plain(xd, plan)
+    assert float((spec - spec0).abs().max()) <= 1e-6 * float(
+        spec0.abs().max())
+    mag, mag0 = tfk.fft_cols(spec0, plan), tfk.fft_cols_plain(spec0, plan)
+    assert float((mag - mag0).abs().max()) <= 1e-6 * float(mag0.max())
+    want = torch.from_numpy(np.abs(np.fft.rfft2(x.astype(np.float64))) ** 2)
+    assert _snr_db(want, tfk.magnitude2(xd, plan)) >= 90
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,r", [(72, 40), (360, 100)],
+                         ids=["shared_table", "global_atomics"])
+def test_cuda_polar_kernel_matches_plain_and_repeats(a, r, cuda_device):
+    """Exact fixed-point sums: the kernel differs from the plain version
+    only by logf's rounding (<= 1e-6 relative), and two launches are
+    bit-identical.  360x100 bins overflow the shared table."""
+    h, w = 360, 512
+    cfg = ReportConfig(angle_partitions=a, radius_partitions=r)
+    x = np.random.default_rng(3).standard_normal((2, h, w)).astype(
+        np.float32)
+    plan = FftPlan.for_shape(h, w, cuda_device)
+    mag2 = tfk.magnitude2(torch.from_numpy(x).to(cuda_device),
+                          plan).reshape(2, -1)
+    ids = PolarTables.for_shape(h, w, cfg, cuda_device).bin_ids
+    got = tpolar.polar_bin_sums_lognorm(mag2, ids, a * r)
+    again = tpolar.polar_bin_sums_lognorm(mag2, ids, a * r)
+    want = tpolar.polar_bin_sums_lognorm_plain(mag2, ids, a * r)
+    assert torch.equal(got, again)
+    assert bool(((got - want).abs() <= 1e-6 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_cuda_blur_bins_zero_frame(cuda_device):
+    h, w = 360, 512
+    cfg = ReportConfig()
+    bins = blur_bins_lognorm(
+        torch.zeros((2, h, w), device=cuda_device),
+        FftPlan.for_shape(h, w, cuda_device),
+        PolarTables.for_shape(h, w, cfg, cuda_device),
+        cfg.angle_partitions, cfg.radius_partitions)
+    assert bool(torch.isfinite(bins).all()) and not bool(bins.any())
+
+
+@pytest.mark.cuda
+def test_cuda_blur_route_matches_cpu(cuda_device):
+    """full_report_batched on the card goes through the FFT and polar
+    kernels and gives the CPU path's blur bins (>= 60 dB) and vectors."""
+    h, w = 360, 512
+    cfg = ReportConfig()
+    u8 = np.round(noise_rgb(2, h, w, seed=7) * 255).astype(np.uint8)
+    boxes = np.zeros((2, 10, 4), np.int32)
+    valid = np.zeros((2, 10), bool)
+    _cuda.reset_launch_counts()
+    got = pt.full_report_batched(torch.from_numpy(u8).to(cuda_device), boxes,
+                                 valid, pt.ReportTables.build(h, w, cfg,
+                                                              cuda_device),
+                                 cfg)
+    for name in ("fft_rows", "fft_cols", "polar_bins"):
+        assert _cuda.LAUNCHES[name] == 1, name
+    want = pt.full_report_batched(torch.from_numpy(u8), boxes, valid,
+                                  pt.ReportTables.build(h, w, cfg), cfg)
+    assert _snr_db(want.blur_bins, got.blur_bins) >= 60
+    assert torch.equal(want.blur_vector_angles, got.blur_vector_angles.cpu())
+    assert torch.equal(want.blur_vector_mags, got.blur_vector_mags.cpu())
