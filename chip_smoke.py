@@ -1,23 +1,34 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives photohive_dsp_tpu_torch's main path — get_report on 1080x1920 frames
-and full_report_batched on a batch of 8 — through its CUDA kernels, and
-checks every result against the same call on the CPU (the plain PyTorch
-path).  Phases, each of which raises on failure:
+Drives photohive_dsp_tpu_torch's paths through their CUDA kernels — the
+main path (get_report on 1080x1920 frames and full_report_batched on a
+batch of 8, with and without crop boxes) and the row-sharded report
+(parallel/spatial.build_spatial_report, one NCCL rank, a 4320x7680 frame)
+— and checks every result against a reference.  Phases, each of which
+raises on failure:
 
   1. device: a CUDA device must be present; prints its name and power limit;
   2. build: compiles the kernels from photohive_dsp_tpu_torch/csrc;
   3. kernels against their plain versions on the card: the palette kernels
-     (K1-K4) at 1080x1920, B=4, float32 and uint8 input; the FFT kernels
-     (K6a, K6b) and the polar kernel (K7+K8) at 1080x1920 B=4, 2160x3840
-     B=1 and 1092x1001 B=2, the FFT also against float64 rfft2 (>= 90 dB),
-     the polar sums twice (bit-identical), a zero frame, and a 360x100-bin
-     table (the polar kernel's global-atomics branch);
-  4. main path, with the kernel launch counts of that run (each kernel at
-     least once);
-  5. timing: warm get_report latency, batch-8 throughput, the blur stage by
-     the torch route and by the kernels at B=1 and B=8, and each kernel's
-     time beside its plain version's, its bound and a library call's.
+     (K1-K4) at 1080x1920, B=4, float32 and uint8 input; the crop-box
+     sharpness kernel (K5) at 1080x1920 B=4 with three boxes, one on the
+     image's edge (twice, bit-identical); the flat-HSV palette kernels (K9,
+     K10) at 1080x1920 B=4 with a sentinel tail (which must change
+     nothing); the FFT kernels (K6a, K6b) and the polar kernel (K7+K8) at
+     1080x1920 B=4, 2160x3840 B=1 and 1092x1001 B=2, the FFT also against
+     float64 rfft2 (>= 90 dB), the polar sums twice (bit-identical), a zero
+     frame, and a 360x100-bin table (the polar kernel's global-atomics
+     branch);
+  4. main path against the CPU path, with the kernel launch counts of that
+     run (each of its kernels at least once, K5 included);
+  5. spatial path: build_spatial_report at world size 1 on 4320x7680 frames
+     (boxes, a thin box, a full-width tie tier) against the single-device
+     full_report_batched on the card, with the launch counts of that run
+     (K9 and K10 at both widths at least once);
+  6. timing: warm get_report latency, batch-8 throughput, the spatial
+     call's wall time, the blur and sharpness stages by their plain routes
+     and by the kernels at B=1 and B=8, and each kernel's time beside its
+     plain version's, its bound and a library call's.
 
 Prints the kernels' JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  Exits nonzero without that line when a
@@ -36,6 +47,7 @@ import numpy as np
 import torch
 
 H, W = 1080, 1920
+SH, SW = 4320, 7680       # the spatial path's frame: 33 MP
 SEED = 0
 DEVICE = "cuda"
 K1_S_RTOL = 1e-6          # saturation sum vs its plain version
@@ -45,6 +57,9 @@ SUMS_RTOL = 1e-5          # palette hue/s/v sums vs their plain versions
 # float64 rfft2 (tests/test_pallas_fft.py).
 FFT_SNR_DB = 90.0
 POLAR_RTOL = 1e-6         # polar sums vs plain: logf rounding only
+# K5's s1, s2 vs plain: float32 per-thread sums there, float64 here.
+SHARP_RTOL = 1e-5
+SENTINEL_TAIL = 4096      # hue-sentinel pixels after K9/K10's real ones
 BLUR_SHAPES = [(1080, 1920, 4), (2160, 3840, 1), (1092, 1001, 2)]
 # Peak rates of an H100 SXM (NVIDIA data sheet): HBM3 bytes/s and float32
 # operations/s outside the tensor cores.
@@ -56,8 +71,28 @@ F32_OPS_PER_S = 67e12
 # update (wrapped hue, 3 fixed-point conversions) and of one K4 candidate
 # distance (3 differences, abs, fold, scale, 3 squares, 2 adds, compare).
 OPS_CELL_PX = 25
+OPS_CELL_ID = 12
 OPS_SLOT_PX = 6
 OPS_CANDIDATE = 13
+# float32 operations of K5 per pixel of box area (csrc/sharpness.cu: three
+# masked row triples and the column sum 8, 9x - box 2, the square and its
+# sum 2, rows_in/cols_in 4, the weight 2, its product and sum 2).
+OPS_SHARP_PX = 20
+
+
+def main_boxes(h: int, w: int):
+    """Three crop boxes, none thin, the last on the image's top and right
+    edges."""
+    return [dict(top=h // 10, bottom=h * 2 // 3, left=w // 10,
+                 right=w * 5 // 8),
+            dict(top=h * 3 // 10, bottom=h * 5 // 6, left=w // 2,
+                 right=w - 20),
+            dict(top=0, bottom=h // 4, left=w * 3 // 4, right=w)]
+
+
+def thin_box(h: int, w: int):
+    return dict(top=h // 2, bottom=h // 2 + 2, left=w // 20,
+                right=w * 3 // 4)                                # 2 px
 
 
 def log(msg: str) -> None:
@@ -66,8 +101,8 @@ def log(msg: str) -> None:
 
 # --------------------------------------------------------------- inputs ---
 
-def noise_image(rng) -> np.ndarray:
-    return rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+def noise_image(rng, h=H, w=W) -> np.ndarray:
+    return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
 
 
 def structured_image(rng) -> np.ndarray:
@@ -87,11 +122,11 @@ def structured_image(rng) -> np.ndarray:
     return np.round(np.clip(rgb, 0, 1) * 255).astype(np.uint8)
 
 
-def hue_wheel_image(rng) -> np.ndarray:
+def hue_wheel_image(rng, h=H, w=W) -> np.ndarray:
     """All 18 hues at one (s, v) plus a gray band: the gray cell is
     populated but not a parent and ties across every hue, so the palette
     needs the full candidate width."""
-    hue = np.broadcast_to(np.arange(W)[None, :] / W * 360.0, (H, W))
+    hue = np.broadcast_to(np.arange(w)[None, :] / w * 360.0, (h, w))
     s, v = 0.8, 0.8
     c = v * s
     xx = c * (1 - np.abs((hue / 60) % 2 - 1))
@@ -100,8 +135,8 @@ def hue_wheel_image(rng) -> np.ndarray:
     g = np.choose(sec, [xx, c, c, xx, 0, 0])
     b = np.choose(sec, [0, 0, xx, c, c, xx])
     rgb = np.stack([r, g, b], axis=-1) + (v - c)
-    rgb[: H // 40] = 0.5
-    rgb = rgb + rng.normal(0, 0.002, rgb.shape)
+    rgb[: h // 40] = 0.5
+    rgb = rgb + rng.normal(0, 0.002, rgb.shape).astype(np.float32)
     return np.round(np.clip(rgb, 0, 1) * 255).astype(np.uint8)
 
 
@@ -159,12 +194,14 @@ def data_fields(data, i: int) -> dict:
     return out
 
 
-def compare_reports(gpu: dict, cpu: dict, label: str) -> None:
-    """The port on the card against the same call on the CPU, at the bars
-    the port is held to against the JAX package."""
+def compare_reports(gpu: dict, cpu: dict, label: str,
+                    against: str = "the CPU path") -> None:
+    """A report of the port on the card against a reference report (by
+    default the same call on the CPU), at the bars the port is held to
+    against the JAX package."""
     for f in ("palette_ids", "palette_n", "palette_pct"):
         if not np.array_equal(gpu[f], cpu[f]):
-            raise AssertionError(f"{label}: {f} differs from the CPU path")
+            raise AssertionError(f"{label}: {f} differs from {against}")
     hsv = np.abs(gpu["palette_hsv"] - cpu["palette_hsv"]).max()
     if not hsv < 5e-3:
         raise AssertionError(f"{label}: palette_hsv off by {hsv}")
@@ -186,11 +223,11 @@ def compare_reports(gpu: dict, cpu: dict, label: str) -> None:
         raise AssertionError(f"{label}: blur_bins SNR {snr} dB")
     for f in ("blur_vector_angles", "blur_vector_mags"):
         if not np.array_equal(gpu[f], cpu[f]):
-            raise AssertionError(f"{label}: {f} differs from the CPU path")
+            raise AssertionError(f"{label}: {f} differs from {against}")
     if not (np.isfinite(gpu["blur_bins"]).all()
             and np.isfinite(gpu["rgb_stats"]).all()):
         raise AssertionError(f"{label}: non-finite report values")
-    log(f"  {label}: matches the CPU path (hsv {hsv:.2e}, sat {sat:.2e}, "
+    log(f"  {label}: matches {against} (hsv {hsv:.2e}, sat {sat:.2e}, "
         f"stats {st:.2e}, blur {snr:.1f} dB)")
 
 
@@ -301,6 +338,107 @@ def phase_kernels(images, cfg, tables):
                      counts=counts)
 
 
+def luma(images) -> torch.Tensor:
+    """(B, H, W) luma of uint8 frames on the card (sharpness's input)."""
+    from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_pgm, \
+        u8_to_unit_f32
+
+    rgb = u8_to_unit_f32(torch.as_tensor(
+        np.stack([planar(im) for im in images]), device=DEVICE))
+    return rgb_to_pgm(rgb[:, 0], rgb[:, 1], rgb[:, 2]).contiguous()
+
+
+def phase_sharpness_kernel(images):
+    """K5 against its plain version at 1080x1920 B=4 with main_boxes (one
+    touching the top and right edges), twice (bit-identical); returns its
+    max abs error and the inputs the timing phase reuses."""
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
+
+    pgm = luma(images)
+    boxes, valid = pt.set_bounding_boxes(main_boxes(H, W))
+    bt = sk.box_tensor(np.stack([boxes] * len(images)),
+                       np.stack([valid] * len(images)), DEVICE)
+    got = sk.sharpness_sums(pgm, bt)
+    again = sk.sharpness_sums(pgm, bt)
+    want = sk.sharpness_sums_plain(pgm, bt)
+    sync()
+    err = 0.0
+    for name, g, a, w in zip(("s1", "s2"), got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"K5 {name}: two launches differ")
+        if not rel_err(g[:, :3], w[:, :3]) <= SHARP_RTOL:
+            raise AssertionError(f"K5 {name}: rel err "
+                                 f"{rel_err(g[:, :3], w[:, :3])}")
+        if bool(g[:, 3:].any()):
+            raise AssertionError(f"K5 {name}: empty slots not zero")
+        err = max(err, float((g - w).abs().max()))
+    log(f"  K5 B={len(images)} 3 boxes: bit-identical twice, rel err "
+        f"{max(rel_err(g[:, :3], w[:, :3]) for g, w in zip(got, want)):.2e}")
+    return err, dict(pgm=pgm, bt=bt, boxes=boxes, valid=valid)
+
+
+def flat_hsv(x: torch.Tensor, tail: int):
+    """(B, 3, H, W) uint8 -> flat h, s, v (B, H*W + tail) float32, the tail
+    hue-sentinel pixels with random s and v."""
+    from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_hsv, \
+        u8_to_unit_f32
+
+    b = x.shape[0]
+    flat = u8_to_unit_f32(x).reshape(b, 3, -1)
+    hsv = rgb_to_hsv(flat[:, 0], flat[:, 1], flat[:, 2])
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    pad = torch.rand((3, b, tail), generator=gen, device=x.device)
+    pad[0] = -1.0
+    return [torch.cat([c, t], dim=1).contiguous() for c, t in zip(hsv, pad)]
+
+
+def phase_flat_kernels(kin, cfg, tables):
+    """K9 and K10 (q=8 and q_full) against their plain versions at
+    1080x1920 B=4 on flat HSV with a sentinel tail: counts and percentages
+    exact, sums within SUMS_RTOL, the run on the real pixels alone
+    bit-identical; returns max abs errors and the timing phase's inputs."""
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops import quantize as qz
+
+    c = cfg.num_cells
+    _, q_full = qz.palette_widths(cfg)
+    x = kin["u8"]
+    p = x.shape[2] * x.shape[3]
+    hsv = flat_hsv(x, SENTINEL_TAIL)
+    real = [t[:, :p].contiguous() for t in hsv]
+    counts = pk.cell_counts_from_hsv(*hsv, cfg)
+    sync()
+    for label, other in (("plain", pk.cell_counts_from_hsv_plain(*hsv, cfg)),
+                         ("real pixels alone",
+                          pk.cell_counts_from_hsv(*real, cfg)),
+                         ("K1 on the RGB frames", kin["counts"])):
+        if not torch.equal(counts, other):
+            raise AssertionError(f"K9: counts differ from {label}")
+    err = {"K9": 0.0}
+    assign = kin["assign"]
+    for key, q in (("K10q8", 8), ("K10qfull", q_full)):
+        tabs = pk.palette_candidate_table(assign, tables.octree, c, q)
+        got = pk.palette_sums_by_k(*hsv, *tabs, cfg)
+        alone = pk.palette_sums_by_k(*real, *tabs, cfg)
+        want = pk.palette_sums_by_k_plain(*hsv, *tabs, cfg)
+        sync()
+        if not torch.equal(got, alone):
+            raise AssertionError(f"{key}: the sentinel tail changes the sums")
+        pct = [qz.palette_finalize_by_k(t, assign, p, tables.octree)
+               .percentages for t in (got, want)]
+        if not (torch.equal(got[..., 3], want[..., 3])
+                and torch.equal(*pct)):
+            raise AssertionError(f"{key}: counts or percentages differ")
+        if bool(((got - want).abs() > SUMS_RTOL * want.abs()).any()):
+            raise AssertionError(f"{key}: sums rel err {rel_err(got, want)}")
+        err[key] = float((got - want).abs().max())
+    log(f"  K9, K10 (q=8, q={q_full}) B={x.shape[0]} + {SENTINEL_TAIL} "
+        f"sentinel px: match their plain versions, K9 = K1's counts, the "
+        f"tail changes nothing")
+    return err, dict(hsv=hsv, p=p)
+
+
 def phase_blur_kernels(images, cfg):
     """K6a, K6b and K7+K8 against their plain versions on the card at the
     BLUR_SHAPES; returns per-kernel max abs error at 1080x1920 B=4 and the
@@ -377,18 +515,32 @@ def phase_blur_kernels(images, cfg):
     return err, kin
 
 
+# The kernels each path must launch (ops/_cuda.LAUNCHES names).
+MAIN_COUNTERS = ("cell_counts_s", "margin_sort", "palette_sums_q1",
+                 "palette_sums_q8", "palette_sums_qfull", "sharpness_sums",
+                 "fft_rows", "fft_cols", "polar_bins")
+SPATIAL_COUNTERS = ("margin_sort", "sharpness_sums", "polar_bins",
+                    "cell_counts_hsv", "palette_sums_flat_q8",
+                    "palette_sums_flat_qfull")
+
+
+def check_launches(launches: dict, counters, path: str) -> None:
+    missing = [k for k in counters if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path}: {missing}")
+
+
 def phase_main_path(images, cfg):
     import photohive_dsp_tpu_torch as pt
     from photohive_dsp_tpu_torch.ops import _cuda
 
     noise, structured, wheel = images[:3]
-    boxes = pt.set_bounding_boxes([
-        dict(top=H // 10, bottom=H * 2 // 3, left=W // 10, right=W * 5 // 8),
-        dict(top=H * 3 // 10, bottom=H * 5 // 6, left=W // 2, right=W - 20),
-        dict(top=H // 2, bottom=H // 2 + 2, left=W // 20,
-             right=W * 3 // 4)])                              # thin: 2 px
+    boxes = pt.set_bounding_boxes(main_boxes(H, W))
+    thin = pt.set_bounding_boxes(main_boxes(H, W)[:2] + [thin_box(H, W)])
     calls = [("noise", noise, None), ("structured", structured, None),
              ("structured+3 boxes", structured, boxes),
+             ("noise+3 boxes", noise, boxes),
+             ("structured+thin box", structured, thin),
              ("hue wheel", wheel, None)]
     batch = np.stack([planar(images[i % len(images)]) for i in range(8)])
     bboxes = np.stack([boxes[0]] * 8)
@@ -419,12 +571,72 @@ def phase_main_path(images, cfg):
                                        tables_cpu, cfg)
     for i in range(len(batch)):
         compare_reports(data_fields(gpu_batch, i), data_fields(cpu_batch, i),
-                        f"full_report_batched B=8, image {i}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+                        f"full_report_batched B=8 3 boxes, image {i}")
+    check_launches(launches, MAIN_COUNTERS, "main path")
     return launches, tables_gpu, batch_gpu, bboxes, bvalid
+
+
+def spatial_frames():
+    """The spatial path's 4320x7680 uint8 frames, planar (3, H, W): noise
+    (the palette's q=8 tier) and the hue wheel (q_full)."""
+    rng = np.random.default_rng(SEED + 3)
+    return {"noise": planar(noise_image(rng, SH, SW)),
+            "hue wheel": planar(hue_wheel_image(rng, SH, SW))}
+
+
+def phase_spatial(cfg):
+    """build_spatial_report on one NCCL rank against the single-device
+    full_report_batched on the card, at 4320x7680: the noise frame with
+    main_boxes, then with a thin box, the hue-wheel frame with main_boxes.
+    Returns the launch counts of those calls, the spatial call's warm wall
+    time and the inputs of the timing phase."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.ops import _cuda
+    from photohive_dsp_tpu_torch.parallel import mesh, spatial
+
+    t0 = time.perf_counter()
+    frames = spatial_frames()
+    boxes = pt.set_bounding_boxes(main_boxes(SH, SW))
+    thin = pt.set_bounding_boxes(main_boxes(SH, SW) + [thin_box(SH, SW)])
+    calls = [("noise+3 boxes", "noise", boxes),
+             ("noise+thin box", "noise", thin),
+             ("hue wheel+3 boxes", "hue wheel", boxes)]
+    tables = pt.ReportTables.build(SH, SW, cfg, DEVICE)
+    rendezvous = f"file://{tempfile.mkdtemp()}/rendezvous"
+    group = mesh.init_spatial_group(0, 1, rendezvous, device=DEVICE)
+    try:
+        fn = spatial.build_spatial_report(group, SH, SW, cfg, DEVICE)
+        log(f"  frames and tables {SH}x{SW}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        _cuda.reset_launch_counts()
+        out = [fn(frames[f], *bx) for _, f, bx in calls]
+        sync()
+        launches = dict(_cuda.LAUNCHES)
+        log(f"  launch counts in the spatial-path run: {launches}")
+        wall = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(frames["noise"], *boxes)
+            sync()
+            wall.append(time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    for (label, f, (bx, vd)), got in zip(calls, out):
+        x = torch.as_tensor(frames[f][None], device=DEVICE)
+        ref = pt.full_report_batched(x, bx[None], vd[None], tables, cfg)
+        one = {k: v[None] for k, v in got._asdict().items()}
+        compare_reports(data_fields(pt.ReportData(**one), 0),
+                        data_fields(ref, 0), f"spatial {SH}x{SW} {label}",
+                        "the single-device path")
+    check_launches(launches, SPATIAL_COUNTERS, "spatial path")
+    wall_ms = 1e3 * float(np.median(wall))
+    log(f"  build_spatial_report {SH}x{SW} u8, 1 rank, 3 boxes, warm: "
+        f"median {wall_ms:.1f} ms (min {1e3 * min(wall):.1f}, n=3)")
+    return launches, wall_ms
 
 
 def bound(nbytes: float, ops: float):
@@ -486,12 +698,58 @@ def stage_times(images, cfg, tables):
             f"{sum(k):.4f} ms")
 
 
-def phase_timing(images, cfg, kin, bkin, main):
+def sharpness_stage_times(images):
+    """The sharpness stage at B=1 and B=8 on the noise frame with
+    main_boxes: the plain route (K5's plain version, then the finish)
+    against the kernel route (K5, then the finish; what
+    variance_sharpness_batched runs), in turns plain, kernel, kernel,
+    plain; and, once, the masked route that a batch with a thin box takes
+    (plain PyTorch)."""
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.ops import sharpness as sh
+    from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
+
+    boxes, valid = pt.set_bounding_boxes(main_boxes(H, W))
+    for b in (1, 8):
+        pgm = luma([images[0]] * b)
+        bx, vd = np.stack([boxes] * b), np.stack([valid] * b)
+        bt = sk.box_tensor(bx, vd, DEVICE)
+        bx_d, vd_d = torch.as_tensor(bx, device=DEVICE), \
+            torch.as_tensor(vd, device=DEVICE)
+
+        def plain():
+            return sh.finish_sharpness(*sk.sharpness_sums_plain(pgm, bt), bx,
+                                       vd)
+
+        def kernel():
+            return sh.variance_sharpness_batched(pgm, bx, vd)
+
+        p1, k1, k2, p2 = (cuda_ms(plain, 5), cuda_ms(kernel, 20),
+                          cuda_ms(kernel, 20), cuda_ms(plain, 5))
+        masked = cuda_ms(lambda: sh._masked_sharpness(pgm, bx_d, vd_d), 3)
+        log(f"  sharpness stage B={b} 1080x1920 3 boxes: plain route "
+            f"{(p1 + p2) / 2:.4f} ms, K5 route {(k1 + k2) / 2:.4f} ms "
+            f"({p1:.4f}/{k1:.4f}/{k2:.4f}/{p2:.4f}); masked route "
+            f"{masked:.4f} ms")
+
+
+def dilated_area(boxes, valid, h: int, w: int) -> int:
+    """Pixels of one image inside the boxes or their 1-px rings: what K5
+    has to read."""
+    mask = np.zeros((h, w), bool)
+    for (t, b, l, r), ok in zip(boxes, valid):
+        if ok:
+            mask[max(t - 1, 0):min(b + 1, h), max(l - 1, 0):min(r + 1, w)] = 1
+    return int(mask.sum())
+
+
+def phase_timing(images, cfg, kin, bkin, skin, fkin, main):
     import photohive_dsp_tpu_torch as pt
     from photohive_dsp_tpu_torch.ops import fft_kernels as fk
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import polar_kernels as pol
     from photohive_dsp_tpu_torch.ops import quantize as qz
+    from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
     from photohive_dsp_tpu_torch.ops.margin_sort import (
         margin_insertion_argsort, margin_sort)
 
@@ -517,9 +775,10 @@ def phase_timing(images, cfg, kin, bkin, main):
     sync()
     dt = (time.perf_counter() - t0) / reps
     mps = 8 * H * W / dt / 1e6
-    log(f"  full_report_batched B=8 1080x1920 u8 (device-resident, 3 boxes):"
-        f" {1e3 * dt:.3f} ms per batch, {mps:.1f} MP/s")
+    log(f"  full_report_batched B=8 1080x1920 u8 (device-resident, 3 boxes,"
+        f" none thin): {1e3 * dt:.3f} ms per batch, {mps:.1f} MP/s")
     stage_times(images, cfg, tables)
+    sharpness_stage_times(images)
 
     c = cfg.num_cells
     _, q_full = qz.palette_widths(cfg)
@@ -529,6 +788,7 @@ def phase_timing(images, cfg, kin, bkin, main):
             "K4qfull": pk.palette_candidate_table(assign, tables.octree, c,
                                                   q_full)}
     c8, cf = cand["K4q8"], cand["K4qfull"]
+    hsv = fkin["hsv"]
     fx, plan, spec, flat = bkin["x"], bkin["plan"], bkin["spec"], bkin["flat"]
     ids = bkin["polar"].bin_ids
     nb = cfg.angle_partitions * cfg.radius_partitions
@@ -555,6 +815,14 @@ def phase_timing(images, cfg, kin, bkin, main):
                 lambda: fk.fft_cols_plain(spec, plan)),
         "K7+K8": (lambda: pol.polar_bin_sums_lognorm(flat, ids, nb),
                   lambda: pol.polar_bin_sums_lognorm_plain(flat, ids, nb)),
+        "K5": (lambda: sk.sharpness_sums(skin["pgm"], skin["bt"]),
+               lambda: sk.sharpness_sums_plain(skin["pgm"], skin["bt"])),
+        "K9": (lambda: pk.cell_counts_from_hsv(*hsv, cfg),
+               lambda: pk.cell_counts_from_hsv_plain(*hsv, cfg)),
+        "K10q8": (lambda: pk.palette_sums_by_k(*hsv, *c8, cfg),
+                  lambda: pk.palette_sums_by_k_plain(*hsv, *c8, cfg)),
+        "K10qfull": (lambda: pk.palette_sums_by_k(*hsv, *cf, cfg),
+                     lambda: pk.palette_sums_by_k_plain(*hsv, *cf, cfg)),
     }
     # One PyTorch call computing the same function, where there is one.
     library = {
@@ -617,6 +885,25 @@ def phase_timing(images, cfg, kin, bkin, main):
     n_gated = int((flat >= 1.0).sum())
     work["K7+K8"] = (flat.numel() * 4 + ids.numel() * 4 + fb * nb * 4,
                      flat.numel() + 3 * n_gated)
+    # K5: the luma in and around the boxes, the boxes, the (B, 10, 2)
+    # float64 sums; OPS_SHARP_PX per pixel of box area.
+    sb = skin["pgm"].shape[0]
+    areas = [max(0, min(bb, H) - max(t, 0)) * max(0, min(r, W) - max(lf, 0))
+             for (t, bb, lf, r), ok in zip(skin["boxes"], skin["valid"]) if ok]
+    work["K5"] = (sb * dilated_area(skin["boxes"], skin["valid"], H, W) * 4
+                  + skin["bt"].numel() * 4 + sb * 10 * 2 * 8,
+                  sb * sum(areas) * OPS_SHARP_PX)
+    # K9/K10: h of every pixel, s and v of the real ones.
+    real_px = b * fkin["p"]
+    hsv_bytes = real_px * 12 + b * SENTINEL_TAIL * 4
+    work["K9"] = (hsv_bytes + b * c * 4, real_px * OPS_CELL_ID)
+    for key, (cand_t, centres) in (("K10q8", c8), ("K10qfull", cf)):
+        per_cell = (cand_t < c).sum(dim=-1).long()
+        n_cand = int((counts * per_cell).sum())
+        work[key] = (hsv_bytes + cand_t.numel() * 4 + centres.numel() * 4
+                     + b * c * 16,
+                     real_px * (OPS_CELL_ID + OPS_SLOT_PX)
+                     + n_cand * OPS_CANDIDATE)
     bounds = {k: bound(*v) for k, v in work.items()}
     for k, (ms, by) in bounds.items():
         log(f"  {k}: bound {ms:.5f} ms ({by}; {work[k][0] / 1e6:.2f} MB, "
@@ -646,9 +933,21 @@ KERNELS = [
     ("K6b", "fft_cols", "fft_cols",
      "photohive_dsp_tpu_torch/csrc/fft.cu",
      "photohive_dsp_tpu/ops/pallas_fft.py:586"),
+    ("K5", "sharpness_sums", "sharpness_sums",
+     "photohive_dsp_tpu_torch/csrc/sharpness.cu",
+     "photohive_dsp_tpu/ops/pallas_sharpness.py:123"),
     ("K7+K8", "polar_bin_sums_lognorm", "polar_bins",
      "photohive_dsp_tpu_torch/csrc/polar.cu",
      "photohive_dsp_tpu/ops/pallas_kernels.py:222"),
+    ("K9", "cell_counts_from_hsv", "cell_counts_hsv",
+     "photohive_dsp_tpu_torch/csrc/palette.cu",
+     "photohive_dsp_tpu/ops/pallas_kernels.py:378"),
+    ("K10q8", "palette_sums_by_k (q=8)", "palette_sums_flat_q8",
+     "photohive_dsp_tpu_torch/csrc/palette.cu",
+     "photohive_dsp_tpu/ops/pallas_kernels.py:627"),
+    ("K10qfull", "palette_sums_by_k (q=q_full)", "palette_sums_flat_qfull",
+     "photohive_dsp_tpu_torch/csrc/palette.cu",
+     "photohive_dsp_tpu/ops/pallas_kernels.py:627"),
 ]
 
 # The library call timed beside each kernel, or why there is none.
@@ -661,6 +960,10 @@ LIBRARY = {
     "K6a": "torch.fft.rfft(dim=-1)",
     "K6b": "torch.fft.fft(dim=1) then abs().square()",
     "K7+K8": "Tensor.index_add_ of the gated values into (B, A*R)",
+    "K5": "none: no PyTorch call computes masked-crop Laplacian sums",
+    "K9": "none: no PyTorch call computes the sentinel HSV cell histogram",
+    "K10q8": "none: no PyTorch call computes the tie-broken palette sums",
+    "K10qfull": "none: no PyTorch call computes the tie-broken palette sums",
 }
 
 
@@ -678,14 +981,25 @@ def main() -> int:
     tables = ReportTables.build(H, W, cfg, DEVICE)
     log("phase 3: kernels vs plain versions")
     err, kin = phase_kernels(images, cfg, tables)
+    sharp_err, skin = phase_sharpness_kernel(images)
+    err["K5"] = sharp_err
+    flat_err, fkin = phase_flat_kernels(kin, cfg, tables)
+    err.update(flat_err)
     blur_err, bkin = phase_blur_kernels(images, cfg)
     err.update(blur_err)
     log("phase 4: main path")
     main_out = phase_main_path(images, cfg)
     launches = main_out[0]
-    log("phase 5: timing (B=4 1080x1920: u8 for K1-K4, f32 luma for K6-K8)")
-    times, bounds, lat_ms, mps = phase_timing(images, cfg, kin, bkin,
-                                              main_out)
+    log("phase 5: spatial path")
+    spatial_launches, spatial_ms = phase_spatial(cfg)
+    # K9 and K10 run on the spatial path only.
+    for counter in ("cell_counts_hsv", "palette_sums_flat_q8",
+                    "palette_sums_flat_qfull"):
+        launches[counter] = spatial_launches[counter]
+    log("phase 6: timing (B=4 1080x1920: u8 for K1-K4, f32 luma for K5-K8, "
+        "flat HSV for K9-K10)")
+    times, bounds, lat_ms, mps = phase_timing(images, cfg, kin, bkin, skin,
+                                              fkin, main_out)
 
     kernels = [dict(id=key, name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[counter], max_abs_err=err[key],
@@ -701,7 +1015,7 @@ def main() -> int:
         f"|rfft2|^2 itself, {bounds['K6'][0]:.5f} ms "
         f"({times['K6'][0] / bounds['K6'][0]:.1f}x)")
     log(f"get_report warm median {lat_ms:.3f} ms; full_report_batched B=8 "
-        f"{mps:.1f} MP/s")
+        f"{mps:.1f} MP/s; build_spatial_report {SH}x{SW} {spatial_ms:.1f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

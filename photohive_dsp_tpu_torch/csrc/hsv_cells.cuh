@@ -1,9 +1,11 @@
 // Shared per-pixel front end of the palette kernels: planar u8 or f32 RGB
 // -> HSV -> octree cell id.
 //
-// Every palette kernel (cell_counts_s, palette_sums q=1, palette_sums q>1)
-// calls pixel_hsv_cell(), so a pixel on a cell boundary can never land in
-// one cell for the counts and another for the sums.  The arithmetic is
+// Every palette kernel derives its cell ids through hsv_cell(): the RGB
+// kernels (cell_counts_s, palette_sums q=1, palette_sums q>1) by way of
+// pixel_hsv_cell(), the flat-HSV ones (cell_counts_hsv, palette_sums_hsv)
+// directly, so a pixel on a cell boundary can never land in one cell for
+// the counts and another for the sums.  The arithmetic is
 // op-for-op the JAX package's _hsv_rows / _cell_ids_row
 // (photohive_dsp_tpu/ops/pallas_kernels.py:685-711, :478-501) and the XLA
 // colorspace.rgb_to_hsv / quantize.assign_cells: IEEE division and
@@ -35,6 +37,21 @@ __device__ __forceinline__ int clip_index(float x, float hi) {
   return static_cast<int>(fminf(fmaxf(x, 0.0f), hi));
 }
 
+// Octree cell of one HSV pixel (quantize.assign_cells).
+__device__ __forceinline__ int hsv_cell(float h, float s, float v,
+                                        const CellParams& p) {
+  const int vi = clip_index(
+      __fdiv_rn(__fsub_rn(v, p.black_thresh), p.cell_lv), p.v_clip);
+  const int si = clip_index(
+      __fdiv_rn(__fsub_rn(s, p.gray_thresh), p.cell_ls), p.s_clip);
+  const int hi = clip_index(__fdiv_rn(h, p.cell_lh), p.h_clip);
+  const int color_id = (hi * p.s_partitions + si) * p.v_partitions + vi;
+  // The reference's premature int cast sends every gray pixel to the
+  // first gray cell (src/color_quantization.c:136).
+  return v < p.black_thresh ? p.black_id
+                            : (s < p.gray_thresh ? p.gray_start : color_id);
+}
+
 template <typename T>
 __device__ __forceinline__ void pixel_hsv_cell(const T* img, long long plane,
                                                long long i,
@@ -64,15 +81,5 @@ __device__ __forceinline__ void pixel_hsv_cell(const T* img, long long plane,
   h = hh;
   v = mx == 1.0f ? p.max_sv : mx;
   s = mx == 0.0f ? 0.0f : (delta == mx ? p.max_sv : __fdiv_rn(delta, mx));
-
-  const int vi = clip_index(
-      __fdiv_rn(__fsub_rn(v, p.black_thresh), p.cell_lv), p.v_clip);
-  const int si = clip_index(
-      __fdiv_rn(__fsub_rn(s, p.gray_thresh), p.cell_ls), p.s_clip);
-  const int hi = clip_index(__fdiv_rn(h, p.cell_lh), p.h_clip);
-  const int color_id = (hi * p.s_partitions + si) * p.v_partitions + vi;
-  // The reference's premature int cast sends every gray pixel to the
-  // first gray cell (src/color_quantization.c:136).
-  cell = v < p.black_thresh ? p.black_id
-                            : (s < p.gray_thresh ? p.gray_start : color_id);
+  cell = hsv_cell(h, s, v, p);
 }

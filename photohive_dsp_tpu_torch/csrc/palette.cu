@@ -1,10 +1,19 @@
-// Palette kernels: the cell histogram with the saturation sum (K1) and the
-// per-slot palette sums at q=1 (K3) and q>1 (K4).
+// Palette kernels: the cell histogram with the saturation sum (K1, and K9
+// on flat HSV) and the per-slot palette sums at q=1 (K3) and q>1 (K4, and
+// K10 on flat HSV).
 //
 // Replace (photohive_dsp_tpu/ops/pallas_kernels_bf16.py):
 //   K1 cell_counts_s_from_rgb   (_cell_counts_rgb_kernel_bf16)
 //   K3 palette_sums_by_k_rgb_q1 (_palette_rgb_q1_kernel_bf16)
 //   K4 palette_sums_by_k_rgb    (_palette_rgb_kernel_bf16)
+// and (photohive_dsp_tpu/ops/pallas_kernels.py):
+//   K9  cell_counts_from_hsv    (_cell_counts_hsv_kernel)
+//   K10 palette_sums_by_k       (_palette_kernel)
+// K9 and K10 are the same kernels as K1 and K4 fed by a flat-HSV pixel
+// source (HsvPixels below): (B, P) float32 h, s, v planes in which a hue
+// below 0 marks a pixel that counts for nothing (the row-sharded report's
+// padded rows).  Such a pixel is skipped before any table is touched, so a
+// sentinel tail changes no bit of the outputs.
 //
 // What bounds them on an H100: each pixel costs three loads (3 B as u8,
 // 12 B as f32), then ~60 float ops including four IEEE divisions for HSV and
@@ -22,6 +31,10 @@
 // (grid = pixel runs x images); it flushes its nonzero table entries into a
 // per-image accumulator in device memory with 64-bit integer atomics, and
 // a second small kernel converts the accumulator to the outputs.
+//
+// The flat-HSV kernels read 12 B per real pixel (4 B per sentinel pixel)
+// and skip the HSV arithmetic; they stay bound by the cell-id divisions
+// and the shared-memory atomics.
 //
 // Every sum is exact and order-free: counts are integers, and hue, s and v
 // (all >= 0 and <= 360) are added as 64-bit fixed point with 28 fraction
@@ -61,11 +74,47 @@ __device__ __forceinline__ float wrap360(float t) {
                     : (t < 0.0f ? __fadd_rn(t, 360.0f) : t);
 }
 
-// ---------------------------------------------------------------- K1 ----
-// acc: (B, C + 1) u64 = [count per cell..., fixed-point sum of s].
+// Pixel sources.  load() gives pixel i of image b as (h, s, v, cell) and
+// returns false for a pixel that counts for nothing.
+//
+// Planar RGB, (B, 3, P) uint8 or float32: every pixel is real.
 template <typename T>
-__global__ void cell_counts_s_kernel(const T* __restrict__ rgb,
-                                     long long pixels, CellParams p,
+struct RgbPixels {
+  const T* rgb;
+  long long pixels;
+  __device__ __forceinline__ bool load(int b, long long i, const CellParams& p,
+                                       float& h, float& s, float& v,
+                                       int& cell) const {
+    pixel_hsv_cell(rgb + static_cast<long long>(b) * 3 * pixels, pixels, i, p,
+                   h, s, v, cell);
+    return true;
+  }
+};
+
+// Flat HSV, three (B, P) float32 planes; a hue below 0 (or NaN) is the
+// sentinel of a pixel outside the image.
+struct HsvPixels {
+  const float* h;
+  const float* s;
+  const float* v;
+  long long pixels;
+  __device__ __forceinline__ bool load(int b, long long i, const CellParams& p,
+                                       float& hh, float& ss, float& vv,
+                                       int& cell) const {
+    const long long j = static_cast<long long>(b) * pixels + i;
+    hh = h[j];
+    if (!(hh >= 0.0f)) return false;
+    ss = s[j];
+    vv = v[j];
+    cell = hsv_cell(hh, ss, vv, p);
+    return true;
+  }
+};
+
+// ----------------------------------------------------------- K1 / K9 ---
+// acc: (B, C + 1) u64 = [count per cell..., fixed-point sum of s].
+template <typename Src>
+__global__ void cell_counts_s_kernel(Src src, CellParams p,
                                      u64* __restrict__ acc) {
   extern __shared__ u64 smem[];
   const int c = p.num_cells;
@@ -74,7 +123,7 @@ __global__ void cell_counts_s_kernel(const T* __restrict__ rgb,
   __syncthreads();
 
   const int b = blockIdx.y;
-  const T* img = rgb + static_cast<long long>(b) * 3 * pixels;
+  const long long pixels = src.pixels;
   const long long start = blockIdx.x * kPixelsPerBlock;
   const long long end =
       start + kPixelsPerBlock < pixels ? start + kPixelsPerBlock : pixels;
@@ -82,7 +131,7 @@ __global__ void cell_counts_s_kernel(const T* __restrict__ rgb,
   for (long long i = start + threadIdx.x; i < end; i += blockDim.x) {
     float h, s, v;
     int cell;
-    pixel_hsv_cell(img, pixels, i, p, h, s, v, cell);
+    if (!src.load(b, i, p, h, s, v, cell)) continue;
     atomicAdd(&cnt[cell], 1u);
     s_fx += to_fixed(s);
   }
@@ -104,16 +153,16 @@ __global__ void cell_counts_s_finish(const u64* __restrict__ acc, int c,
   for (int i = threadIdx.x; i < c; i += blockDim.x) {
     counts[static_cast<long long>(b) * c + i] = static_cast<int>(row[i]);
   }
-  if (threadIdx.x == 0) s_sum[b] = from_fixed(row[c]);
+  if (threadIdx.x == 0 && s_sum) s_sum[b] = from_fixed(row[c]);
 }
 
-// ------------------------------------------------------------ K3 / K4 ---
+// ------------------------------------------------------- K3 / K4 / K10 -
 // acc: (B, C, 4) u64 = per valid-order slot [hue, s, v, count], the first
 // three in fixed point.  kQ1 selects K3 (slot and offset are functions of
-// the cell) or K4 (first minimum distance over the cell's candidates).
-template <typename T, bool kQ1>
-__global__ void palette_sums_kernel(const T* __restrict__ rgb,
-                                    long long pixels, CellParams p,
+// the cell) or K4 / K10 (first minimum distance over the cell's
+// candidates).
+template <typename Src, bool kQ1>
+__global__ void palette_sums_kernel(Src src, CellParams p,
                                     const int* __restrict__ cell_tab,
                                     const float* __restrict__ val_tab, int q,
                                     bool tab_in_shared,
@@ -148,14 +197,14 @@ __global__ void palette_sums_kernel(const T* __restrict__ rgb,
   const int* tab = tab_in_shared ? tab_sh : gtab;
   __syncthreads();
 
-  const T* img = rgb + static_cast<long long>(b) * 3 * pixels;
+  const long long pixels = src.pixels;
   const long long start = blockIdx.x * kPixelsPerBlock;
   const long long end =
       start + kPixelsPerBlock < pixels ? start + kPixelsPerBlock : pixels;
   for (long long i = start + threadIdx.x; i < end; i += blockDim.x) {
     float h, s, v;
     int cell;
-    pixel_hsv_cell(img, pixels, i, p, h, s, v, cell);
+    if (!src.load(b, i, p, h, s, v, cell)) continue;
     int k;
     float off;
     if (kQ1) {
@@ -227,53 +276,69 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, bool kQ1>
-cudaError_t launch_palette_sums(const void* rgb, int batch, long long pixels,
-                                const CellParams& p, const int* cell_tab,
-                                const float* val_tab, int q, float* sums_out,
-                                u64* acc, cudaStream_t stream) {
+// sums_out == nullptr leaves the result in acc (fixed point), for a caller
+// that adds accumulators across ranks before converting them.
+template <typename Src, bool kQ1>
+cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
+                                const int* cell_tab, const float* val_tab,
+                                int q, float* sums_out, u64* acc,
+                                cudaStream_t stream) {
   const int c = p.num_cells;
   const size_t base = 3 * c * sizeof(u64) + c * sizeof(unsigned int) +
                       (kQ1 ? c : 3 * c) * sizeof(float);
   const size_t tab = (kQ1 ? c : static_cast<size_t>(c) * q) * sizeof(int);
   const bool tab_in_shared = base + tab <= kSharedBudget;
   const size_t bytes = base + (tab_in_shared ? tab : 0);
-  auto kernel = palette_sums_kernel<T, kQ1>;
+  auto kernel = palette_sums_kernel<Src, kQ1>;
   cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(acc, 0, static_cast<size_t>(batch) * c * 4 * sizeof(u64),
                         stream);
   if (err != cudaSuccess) return err;
-  kernel<<<pixel_grid(batch, pixels), kThreads, bytes, stream>>>(
-      static_cast<const T*>(rgb), pixels, p, cell_tab, val_tab, q,
-      tab_in_shared, acc);
-  palette_sums_finish<<<batch, kThreads, 0, stream>>>(acc, c, sums_out);
+  kernel<<<pixel_grid(batch, src.pixels), kThreads, bytes, stream>>>(
+      src, p, cell_tab, val_tab, q, tab_in_shared, acc);
+  if (sums_out) palette_sums_finish<<<batch, kThreads, 0, stream>>>(acc, c, sums_out);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_cell_counts_s(const void* rgb, int batch, long long pixels,
-                                 const CellParams& p, int* counts, float* s_sum,
-                                 u64* acc, cudaStream_t stream) {
+// counts == nullptr leaves the result in acc (fixed point); s_sum ==
+// nullptr writes the counts only.
+template <typename Src>
+cudaError_t launch_cell_counts_s(Src src, int batch, const CellParams& p,
+                                 int* counts, float* s_sum, u64* acc,
+                                 cudaStream_t stream) {
   const int c = p.num_cells;
   const size_t bytes = c * sizeof(unsigned int);
-  auto kernel = cell_counts_s_kernel<T>;
+  auto kernel = cell_counts_s_kernel<Src>;
   cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(acc, 0, static_cast<size_t>(batch) * (c + 1) * sizeof(u64),
                         stream);
   if (err != cudaSuccess) return err;
-  kernel<<<pixel_grid(batch, pixels), kThreads, bytes, stream>>>(
-      static_cast<const T*>(rgb), pixels, p, acc);
-  cell_counts_s_finish<<<batch, kThreads, 0, stream>>>(acc, c, counts, s_sum);
+  kernel<<<pixel_grid(batch, src.pixels), kThreads, bytes, stream>>>(src, p, acc);
+  if (counts) {
+    cell_counts_s_finish<<<batch, kThreads, 0, stream>>>(acc, c, counts, s_sum);
+  }
   return cudaGetLastError();
+}
+
+template <typename T>
+RgbPixels<T> rgb_pixels(const void* rgb, long long pixels) {
+  return RgbPixels<T>{static_cast<const T*>(rgb), pixels};
+}
+
+HsvPixels hsv_pixels(const void* h, const void* s, const void* v,
+                     long long pixels) {
+  return HsvPixels{static_cast<const float*>(h), static_cast<const float*>(s),
+                   static_cast<const float*>(v), pixels};
 }
 
 }  // namespace
 
 // C entry points (bound with ctypes in ops/_cuda.py).  Each returns the
-// cudaError_t of its launches; the rgb input is (B, 3, pixels) planar,
-// contiguous, uint8 (is_u8) or float32.
+// cudaError_t of its launches.  The RGB input is (B, 3, pixels) planar,
+// contiguous, uint8 (is_u8) or float32; the HSV input three contiguous
+// (B, pixels) float32 planes.
 extern "C" int ph_cell_counts_s(const void* rgb, int is_u8, int batch,
                                 long long pixels, const CellParams* p,
                                 void* counts, void* s_sum, void* acc,
@@ -282,8 +347,21 @@ extern "C" int ph_cell_counts_s(const void* rgb, int is_u8, int batch,
   int* cnt = static_cast<int*>(counts);
   float* ss = static_cast<float*>(s_sum);
   u64* a = static_cast<u64*>(acc);
-  return is_u8 ? launch_cell_counts_s<uint8_t>(rgb, batch, pixels, *p, cnt, ss, a, st)
-               : launch_cell_counts_s<float>(rgb, batch, pixels, *p, cnt, ss, a, st);
+  return is_u8 ? launch_cell_counts_s(rgb_pixels<uint8_t>(rgb, pixels), batch,
+                                      *p, cnt, ss, a, st)
+               : launch_cell_counts_s(rgb_pixels<float>(rgb, pixels), batch,
+                                      *p, cnt, ss, a, st);
+}
+
+// counts: (B, C) int32, or nullptr to leave the (B, C + 1) accumulator.
+extern "C" int ph_cell_counts_hsv(const void* h, const void* s, const void* v,
+                                  int batch, long long pixels,
+                                  const CellParams* p, void* counts, void* acc,
+                                  void* stream) {
+  return launch_cell_counts_s(hsv_pixels(h, s, v, pixels), batch, *p,
+                              static_cast<int*>(counts), nullptr,
+                              static_cast<u64*>(acc),
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ph_palette_sums_q1(const void* rgb, int is_u8, int batch,
@@ -296,10 +374,12 @@ extern "C" int ph_palette_sums_q1(const void* rgb, int is_u8, int batch,
   const float* off = static_cast<const float*>(offset_of_cell);
   float* out = static_cast<float*>(sums);
   u64* a = static_cast<u64*>(acc);
-  return is_u8 ? launch_palette_sums<uint8_t, true>(rgb, batch, pixels, *p, tab,
-                                                    off, 1, out, a, st)
-               : launch_palette_sums<float, true>(rgb, batch, pixels, *p, tab,
-                                                  off, 1, out, a, st);
+  return is_u8 ? launch_palette_sums<RgbPixels<uint8_t>, true>(
+                     rgb_pixels<uint8_t>(rgb, pixels), batch, *p, tab, off, 1,
+                     out, a, st)
+               : launch_palette_sums<RgbPixels<float>, true>(
+                     rgb_pixels<float>(rgb, pixels), batch, *p, tab, off, 1,
+                     out, a, st);
 }
 
 extern "C" int ph_palette_sums(const void* rgb, int is_u8, int batch,
@@ -312,8 +392,22 @@ extern "C" int ph_palette_sums(const void* rgb, int is_u8, int batch,
   const float* ctr = static_cast<const float*>(centers_by_k);
   float* out = static_cast<float*>(sums);
   u64* a = static_cast<u64*>(acc);
-  return is_u8 ? launch_palette_sums<uint8_t, false>(rgb, batch, pixels, *p, tab,
-                                                     ctr, q, out, a, st)
-               : launch_palette_sums<float, false>(rgb, batch, pixels, *p, tab,
-                                                   ctr, q, out, a, st);
+  return is_u8 ? launch_palette_sums<RgbPixels<uint8_t>, false>(
+                     rgb_pixels<uint8_t>(rgb, pixels), batch, *p, tab, ctr, q,
+                     out, a, st)
+               : launch_palette_sums<RgbPixels<float>, false>(
+                     rgb_pixels<float>(rgb, pixels), batch, *p, tab, ctr, q,
+                     out, a, st);
+}
+
+// sums: (B, C, 4) float32, or nullptr to leave the (B, C, 4) accumulator.
+extern "C" int ph_palette_sums_hsv(const void* h, const void* s, const void* v,
+                                   int batch, long long pixels,
+                                   const CellParams* p, const void* cand, int q,
+                                   const void* centers_by_k, void* sums,
+                                   void* acc, void* stream) {
+  return launch_palette_sums<HsvPixels, false>(
+      hsv_pixels(h, s, v, pixels), batch, *p, static_cast<const int*>(cand),
+      static_cast<const float*>(centers_by_k), q, static_cast<float*>(sums),
+      static_cast<u64*>(acc), static_cast<cudaStream_t>(stream));
 }

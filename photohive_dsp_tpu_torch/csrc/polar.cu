@@ -87,7 +87,9 @@ __global__ void polar_finish(const u64* __restrict__ acc, long long total,
 
 // mag2: (batch, pixels) float32; bin_ids: (pixels,) int32, ids outside
 // [0, num_bins) dropped; acc: (batch, num_bins) 64-bit scratch; sums:
-// (batch, num_bins) float32.  Returns the cudaError_t of the launches.
+// (batch, num_bins) float32, or nullptr to leave the fixed-point sums in acc
+// (a caller that adds them across ranks first).  Returns the cudaError_t of
+// the launches.
 extern "C" int ph_polar_bin_sums_lognorm(const void* mag2, const void* bin_ids,
                                          int batch, long long pixels,
                                          int num_bins, void* acc, void* sums,
@@ -116,7 +118,9 @@ extern "C" int ph_polar_bin_sums_lognorm(const void* mag2, const void* bin_ids,
     polar_lognorm_kernel<false><<<grid, kThreads, 0, st>>>(m, ids, pixels,
                                                           num_bins, a);
   }
-  polar_finish<<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
-                 kThreads, 0, st>>>(a, total, static_cast<float*>(sums));
+  if (sums) {
+    polar_finish<<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
+                   kThreads, 0, st>>>(a, total, static_cast<float*>(sums));
+  }
   return cudaGetLastError();
 }

@@ -38,8 +38,10 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
               "-fPIC"]
 
 LAUNCHES = {"cell_counts_s": 0, "margin_sort": 0, "palette_sums_q1": 0,
-            "palette_sums_q8": 0, "palette_sums_qfull": 0, "fft_rows": 0,
-            "fft_cols": 0, "polar_bins": 0}
+            "palette_sums_q8": 0, "palette_sums_qfull": 0,
+            "sharpness_sums": 0, "fft_rows": 0, "fft_cols": 0,
+            "polar_bins": 0, "cell_counts_hsv": 0, "palette_sums_flat_q8": 0,
+            "palette_sums_flat_qfull": 0}
 
 _lib = None
 
@@ -109,6 +111,15 @@ _SIGNATURES = {
     # (rgb, is_u8, batch, pixels, params, cand, q, centers_by_k,
     #  sums_out, acc, stream)
     "ph_palette_sums": [_P, _I, _I, _LL, _PARAMS, _P, _I, _P, _P, _P, _P],
+    # (h, s, v, batch, pixels, params, counts_out, acc, stream)
+    "ph_cell_counts_hsv": [_P, _P, _P, _I, _LL, _PARAMS, _P, _P, _P],
+    # (h, s, v, batch, pixels, params, cand, q, centers_by_k, sums_out,
+    #  acc, stream)
+    "ph_palette_sums_hsv": [_P, _P, _P, _I, _LL, _PARAMS, _P, _I, _P, _P, _P,
+                            _P],
+    # (pgm, halo, batch, height, width, row_offset, boxes, partial,
+    #  sums_out, stream)
+    "ph_sharpness_sums": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # (pgm, rows, stages, twiddles, spec_out, stream)
     "ph_fft_rows": [_P, _I, _STAGES, _P, _P, _P],
     # (spec, batch, half, stages, twiddles, mag2_out, stream)
@@ -202,8 +213,9 @@ def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address; None passes a null pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:

@@ -78,15 +78,16 @@ def blur_profile_bins(mag_norm: torch.Tensor, tables: PolarTables,
     flat = torch.cat([mag_norm.reshape(b, -1),
                       mag_norm.new_zeros((b, 1))], dim=1)
     sums = flat[:, tables.pad_index].sum(dim=-1)       # (B, A*R)
-    return bin_means(sums, tables, num_angle_bins, num_radius_bins)
+    return bin_means(sums, tables.bin_counts, num_angle_bins,
+                     num_radius_bins)
 
 
-def bin_means(sums: torch.Tensor, tables: PolarTables, num_angle_bins: int,
-              num_radius_bins: int) -> torch.Tensor:
-    """(B, A*R) bin sums -> (B, A, R) means; empty bins are 0."""
-    counts = tables.bin_counts.to(sums.dtype)
-    means = torch.where(tables.bin_counts > 0,
-                        sums / torch.clamp(counts, min=1.0),
+def bin_means(sums: torch.Tensor, bin_counts: torch.Tensor,
+              num_angle_bins: int, num_radius_bins: int) -> torch.Tensor:
+    """(B, A*R) bin sums and (A*R,) pixel counts -> (B, A, R) means; empty
+    bins are 0."""
+    counts = bin_counts.to(sums.dtype)
+    means = torch.where(bin_counts > 0, sums / torch.clamp(counts, min=1.0),
                         torch.zeros_like(sums))
     return means.reshape(sums.shape[0], num_angle_bins, num_radius_bins)
 
@@ -112,14 +113,18 @@ def lognorm_bin_means(mag2: torch.Tensor, tables: PolarTables,
         -> torch.Tensor:
     """The half of ``blur_bins_lognorm`` after the FFT: (B, P) |X|^2 in the
     FFT kernels' layout -> (B, A, R) normalised bin means."""
-    mx = mag2.amax(dim=1)
-    denom = 2.0 * torch.log(torch.sqrt(mx) + 1.0)
-    g_s = torch.where(denom > 0.0, 1.0 / torch.clamp(denom, min=1e-30),
-                      torch.zeros_like(denom))
     sums = polar_bin_sums_lognorm(mag2, tables.bin_ids,
                                   num_angle_bins * num_radius_bins)
-    return bin_means(sums * g_s[:, None], tables, num_angle_bins,
-                     num_radius_bins)
+    return bin_means(sums * lognorm_gain(mag2.amax(dim=1))[:, None],
+                     tables.bin_counts, num_angle_bins, num_radius_bins)
+
+
+def lognorm_gain(mx: torch.Tensor) -> torch.Tensor:
+    """The per-image gain G_s = 1 / (2 log(sqrt(max) + 1)) of the
+    log-gated sums, 0 for a zero spectrum."""
+    denom = 2.0 * torch.log(torch.sqrt(mx) + 1.0)
+    return torch.where(denom > 0.0, 1.0 / torch.clamp(denom, min=1e-30),
+                       torch.zeros_like(denom))
 
 
 def _angle_table(a: int) -> np.ndarray:

@@ -1,17 +1,25 @@
-"""K1, K3 and K4: the palette's pixel passes, their plain versions and the
-per-image tables they read.
+"""K1, K3, K4, K9 and K10: the palette's pixel passes, their plain
+versions and the per-image tables they read.
 
 Counterparts of ``photohive_dsp_tpu/ops/pallas_kernels_bf16.py``
 (``cell_counts_s_from_rgb``, ``palette_sums_by_k_rgb_q1``,
-``palette_sums_by_k_rgb``) and of the LUT builders in
-``photohive_dsp_tpu/ops/pallas_kernels.py`` (``palette_offset_lut``,
+``palette_sums_by_k_rgb``), of the flat-HSV kernels of
+``photohive_dsp_tpu/ops/pallas_kernels.py`` (``cell_counts_from_hsv``,
+``palette_sums_by_k``) and of its LUT builders (``palette_offset_lut``,
 ``palette_candidate_lut``).  The CUDA kernels are csrc/palette.cu; each
 wrapper launches its kernel for CUDA tensors and takes the plain PyTorch
 version for CPU tensors.
 
-The input image is (B, 3, H, W), float32 in [0, 1] or uint8, any H and W.
+The RGB input is (B, 3, H, W), float32 in [0, 1] or uint8, any H and W.
 Both forms give the same results: uint8 decodes to the correctly rounded
-x/255 (colorspace.u8_to_unit_f32 here, ``__fdiv_rn`` in the kernels).
+x/255 (colorspace.u8_to_unit_f32 here, ``__fdiv_rn`` in the kernels).  The
+flat-HSV input is three (B, P) float32 planes; a hue below 0 marks a pixel
+that counts for nothing (the row-sharded report's padded rows).
+
+Saturation and palette sums are exact on 64-bit fixed point
+(ops/fixed_point.py), in the kernels and in the plain versions alike.  With
+``fixed=True`` the flat-HSV wrappers return the int64 accumulators instead
+of their float conversion, for a caller that adds them across ranks first.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 from ..config import MAX_NUM_PIXELS
 from . import _cuda
 from .colorspace import rgb_to_hsv, u8_to_unit_f32
+from .fixed_point import from_fixed, to_fixed
 from .quantize import ParentAssignment, OctreeTables, assign_cells, \
     candidate_slots
 
@@ -56,23 +65,59 @@ def _hsv_cells(rgb: torch.Tensor, cfg):
     return h, s, v, assign_cells(h, s, v, cfg).long()
 
 
+def _check_hsv(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("h", h), ("s", s), ("v", v)):
+        _cuda.require(t, name, (torch.float32,), 2)
+        if t.shape != h.shape or t.device != h.device:
+            raise ValueError(f"{name}: {tuple(t.shape)} on {t.device}, h "
+                             f"{tuple(h.shape)} on {h.device}")
+    if h.shape[1] > MAX_NUM_PIXELS:
+        raise ValueError("hsv: more pixels per image than "
+                         "config.MAX_NUM_PIXELS")
+
+
+def _flat_hsv_cells(h, s, v, cfg):
+    """Cells (B, P) int64 of flat HSV pixels, sentinel C where h < 0."""
+    real = h >= 0.0
+    cells = assign_cells(torch.where(real, h, 0.0), s, v, cfg).long()
+    return torch.where(real, cells, cfg.num_cells), real
+
+
 def _launch_args(rgb: torch.Tensor, cfg):
     b, _, hh, ww = rgb.shape
     return (_cuda.ptr(rgb), int(rgb.dtype == torch.uint8), b, hh * ww,
             ctypes.byref(_cuda.CellParams.for_config(cfg)))
 
 
-# ---------------------------------------------------------------- K1 ----
+def _hsv_launch_args(h, s, v, cfg):
+    return (_cuda.ptr(h), _cuda.ptr(s), _cuda.ptr(v), h.shape[0], h.shape[1],
+            ctypes.byref(_cuda.CellParams.for_config(cfg)))
+
+
+# ----------------------------------------------------------- K1 / K9 ---
+
+def _counts_s_fixed(cells: torch.Tensor, s: torch.Tensor, c: int):
+    """(B, C + 1) int64 [count per cell, fixed-point sum of s] over the
+    pixels whose cell is < c."""
+    b = cells.shape[0]
+    acc = torch.zeros((b, c + 2), dtype=torch.int64, device=cells.device)
+    acc.scatter_add_(1, cells, torch.ones_like(cells))
+    s_fx = torch.where(cells < c, to_fixed(s), 0)
+    acc[:, c + 1] = s_fx.sum(dim=1)
+    return torch.cat([acc[:, :c], acc[:, c + 1:]], dim=1)
+
+
+def counts_s_from_fixed(acc: torch.Tensor):
+    """(B, C + 1) accumulator -> ((B, C) int32 counts, (B,) float32 sum
+    of s)."""
+    return acc[:, :-1].to(torch.int32), from_fixed(acc[:, -1])
+
 
 def cell_counts_s_from_rgb_plain(rgb: torch.Tensor, cfg):
     """Plain version of K1: ((B, C) int32 cell counts, (B,) float32 sum of
     the saturation channel)."""
     _, s, _, cells = _hsv_cells(rgb, cfg)
-    counts = torch.zeros((cells.shape[0], cfg.num_cells), dtype=torch.int64,
-                         device=cells.device)
-    counts.scatter_add_(1, cells, torch.ones_like(cells))
-    s_sum = s.to(torch.float64).sum(dim=1).to(torch.float32)
-    return counts.to(torch.int32), s_sum
+    return counts_s_from_fixed(_counts_s_fixed(cells, s, cfg.num_cells))
 
 
 def cell_counts_s_from_rgb(rgb: torch.Tensor, cfg):
@@ -89,6 +134,33 @@ def cell_counts_s_from_rgb(rgb: torch.Tensor, cfg):
                  _cuda.ptr(counts), _cuda.ptr(s_sum), _cuda.ptr(acc))
     _cuda.LAUNCHES["cell_counts_s"] += 1
     return counts, s_sum
+
+
+def cell_counts_from_hsv_plain(h, s, v, cfg, *, fixed: bool = False):
+    """Plain version of K9: (B, C) int32 counts of the real pixels, or with
+    ``fixed`` the (B, C + 1) int64 accumulator whose last column is their
+    saturation sum on the fixed point."""
+    cells, _ = _flat_hsv_cells(h, s, v, cfg)
+    acc = _counts_s_fixed(cells, s, cfg.num_cells)
+    return acc if fixed else counts_s_from_fixed(acc)[0]
+
+
+def cell_counts_from_hsv(h, s, v, cfg, *, fixed: bool = False):
+    """K9: exact per-image cell histogram of flat HSV pixels, (B, P) float32
+    x3 -> (B, C) int32, hue < 0 counting for nothing; with ``fixed`` the
+    (B, C + 1) int64 accumulator (counts, then the fixed-point saturation
+    sum of the real pixels)."""
+    _check_hsv(h, s, v)
+    if h.device.type == "cpu":
+        return cell_counts_from_hsv_plain(h, s, v, cfg, fixed=fixed)
+    b, c = h.shape[0], cfg.num_cells
+    counts = None if fixed else torch.empty((b, c), dtype=torch.int32,
+                                            device=h.device)
+    acc = torch.empty((b, c + 1), dtype=torch.int64, device=h.device)
+    _cuda.launch("ph_cell_counts_hsv", h, *_hsv_launch_args(h, s, v, cfg),
+                 _cuda.ptr(counts), _cuda.ptr(acc))
+    _cuda.LAUNCHES["cell_counts_hsv"] += 1
+    return acc if fixed else counts
 
 
 # ------------------------------------------------------------ tables ----
@@ -114,21 +186,33 @@ def palette_candidate_table(assign: ParentAssignment, tables: OctreeTables,
             tables.centers[assign.order].contiguous())
 
 
-# ------------------------------------------------------------ K3 / K4 ---
+# ------------------------------------------------------- K3 / K4 / K10 -
 
-def _slot_sums(h, s, v, slot, offset, c: int) -> torch.Tensor:
+def _slot_sums_fixed(h, s, v, slot, offset, c: int) -> torch.Tensor:
     """[sum wrapped hue + offset, sum s, sum v, count] per slot, (B, C, 4)
-    float32, accumulated in float64; slots >= c drop out."""
+    int64, the sums on the fixed point; slots >= c drop out."""
     temp = h + offset
     temp = torch.where(temp > 360.0, temp - 360.0,
                        torch.where(temp < 0.0, temp + 360.0, temp))
     b = h.shape[0]
     base = torch.arange(b, device=h.device)[:, None] * (c + 1)
     idx = (torch.where(slot < c, slot, c) + base).reshape(-1)
-    vals = torch.stack([temp, s, v, torch.ones_like(s)], dim=-1)
-    acc = torch.zeros((b * (c + 1), 4), dtype=torch.float64, device=h.device)
-    acc.index_add_(0, idx, vals.reshape(-1, 4).to(torch.float64))
-    return acc.reshape(b, c + 1, 4)[:, :c].to(torch.float32)
+    vals = torch.stack([to_fixed(temp), to_fixed(s), to_fixed(v),
+                        torch.ones_like(slot, dtype=torch.int64)], dim=-1)
+    acc = torch.zeros((b * (c + 1), 4), dtype=torch.int64, device=h.device)
+    acc.index_add_(0, idx, vals.reshape(-1, 4))
+    return acc.reshape(b, c + 1, 4)[:, :c]
+
+
+def palette_sums_from_fixed(acc: torch.Tensor) -> torch.Tensor:
+    """(B, C, 4) int64 accumulator -> (B, C, 4) float32 sums, the
+    conversion of the kernels' finish."""
+    return torch.cat([from_fixed(acc[..., :3]), acc[..., 3:].float()],
+                     dim=-1)
+
+
+def _slot_sums(h, s, v, slot, offset, c: int) -> torch.Tensor:
+    return palette_sums_from_fixed(_slot_sums_fixed(h, s, v, slot, offset, c))
 
 
 def palette_sums_by_k_rgb_q1_plain(rgb, slot_of_cell, offset_of_cell, cfg):
@@ -158,15 +242,14 @@ def palette_sums_by_k_rgb_q1(rgb, slot_of_cell, offset_of_cell, cfg):
     return sums
 
 
-def palette_sums_by_k_rgb_plain(rgb, cand, centers_by_k, cfg):
-    """Plain version of K4: per pixel, the float32 distance to each of its
-    cell's candidates in the op order of the JAX package's pixel pass
-    (quantize.palette_pixel_sums); the first minimum wins."""
-    h, s, v, cells = _hsv_cells(rgb, cfg)
-    c = cfg.num_cells
+def _nearest_candidates(h, s, v, cells, cand, centers_by_k, c: int):
+    """Per pixel, the float32 distance to each of its cell's candidates in
+    the op order of the JAX package's pixel pass
+    (quantize.palette_pixel_sums); the first minimum wins.  Returns the
+    slot (B, P) and the hue offset 180 - centre hue of that slot."""
     slots, offsets = [], []
     for i in range(h.shape[0]):      # one image at a time bounds (P, q) temps
-        cand_p = cand[i].long()[cells[i]]                     # (P, q)
+        cand_p = cand[i].long()[torch.clamp(cells[i], max=c - 1)]  # (P, q)
         ctr = centers_by_k[i][torch.clamp(cand_p, max=c - 1)]  # (P, q, 3)
         hd = torch.abs(h[i][:, None] - ctr[..., 0])
         hd = torch.where(hd > 180.0, 360.0 - hd, hd) * (1.0 / 360.0)
@@ -175,10 +258,18 @@ def palette_sums_by_k_rgb_plain(rgb, cand, centers_by_k, cfg):
         d = hd * hd + sd * sd + vd * vd
         d = torch.where(cand_p < c, d, float("inf"))
         slot = torch.gather(cand_p, 1, d.argmin(dim=1, keepdim=True))[:, 0]
-        slots.append(slot)
+        slots.append(torch.where(cells[i] < c, slot, c))
         safe = torch.clamp(slot, max=c - 1)
         offsets.append(180.0 - centers_by_k[i][safe, 0])
-    return _slot_sums(h, s, v, torch.stack(slots), torch.stack(offsets), c)
+    return torch.stack(slots), torch.stack(offsets)
+
+
+def palette_sums_by_k_rgb_plain(rgb, cand, centers_by_k, cfg):
+    """Plain version of K4 (see ``_nearest_candidates``)."""
+    h, s, v, cells = _hsv_cells(rgb, cfg)
+    c = cfg.num_cells
+    slot, offset = _nearest_candidates(h, s, v, cells, cand, centers_by_k, c)
+    return _slot_sums(h, s, v, slot, offset, c)
 
 
 def palette_sums_by_k_rgb(rgb, cand, centers_by_k, cfg):
@@ -186,9 +277,7 @@ def palette_sums_by_k_rgb(rgb, cand, centers_by_k, cfg):
     valid-order slot, (B, C, 4) float32."""
     _check_rgb(rgb)
     b, c = rgb.shape[0], cfg.num_cells
-    q = cand.shape[-1] if cand.dim() == 3 else 0
-    _check_table(cand, "cand", torch.int32, (b, c, q), rgb)
-    _check_table(centers_by_k, "centers_by_k", torch.float32, (b, c, 3), rgb)
+    q = _check_candidates(cand, centers_by_k, b, c, rgb)
     if rgb.device.type == "cpu":
         return palette_sums_by_k_rgb_plain(rgb, cand, centers_by_k, cfg)
     sums = torch.empty((b, c, 4), dtype=torch.float32, device=rgb.device)
@@ -198,3 +287,45 @@ def palette_sums_by_k_rgb(rgb, cand, centers_by_k, cfg):
                  _cuda.ptr(acc))
     _cuda.LAUNCHES["palette_sums_q8" if q <= 8 else "palette_sums_qfull"] += 1
     return sums
+
+
+def _check_candidates(cand, centers_by_k, b: int, c: int, like) -> int:
+    q = cand.shape[-1] if cand.dim() == 3 else 0
+    _check_table(cand, "cand", torch.int32, (b, c, q), like)
+    _check_table(centers_by_k, "centers_by_k", torch.float32, (b, c, 3), like)
+    return q
+
+
+def palette_sums_by_k_plain(h, s, v, cand, centers_by_k, cfg, *,
+                            fixed: bool = False):
+    """Plain version of K10: K4's plain version on flat HSV pixels, hue < 0
+    dropped."""
+    c = cfg.num_cells
+    cells, real = _flat_hsv_cells(h, s, v, cfg)
+    h = torch.where(real, h, 0.0)
+    slot, offset = _nearest_candidates(h, s, v, cells, cand, centers_by_k, c)
+    acc = _slot_sums_fixed(h, s, v, slot, offset, c)
+    return acc if fixed else palette_sums_from_fixed(acc)
+
+
+def palette_sums_by_k(h, s, v, cand, centers_by_k, cfg, *,
+                      fixed: bool = False):
+    """K10, q > 1 on flat HSV pixels: K4's per-pixel tie-break among the
+    cell's candidates and sums per valid-order slot, (B, C, 4) float32;
+    hue < 0 adds nothing.  With ``fixed`` the (B, C, 4) int64 accumulator
+    (``palette_sums_from_fixed`` converts it)."""
+    _check_hsv(h, s, v)
+    b, c = h.shape[0], cfg.num_cells
+    q = _check_candidates(cand, centers_by_k, b, c, h)
+    if h.device.type == "cpu":
+        return palette_sums_by_k_plain(h, s, v, cand, centers_by_k, cfg,
+                                       fixed=fixed)
+    sums = None if fixed else torch.empty((b, c, 4), dtype=torch.float32,
+                                          device=h.device)
+    acc = torch.empty((b, c, 4), dtype=torch.int64, device=h.device)
+    _cuda.launch("ph_palette_sums_hsv", h, *_hsv_launch_args(h, s, v, cfg),
+                 _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), _cuda.ptr(sums),
+                 _cuda.ptr(acc))
+    _cuda.LAUNCHES["palette_sums_flat_q8" if q <= 8
+                   else "palette_sums_flat_qfull"] += 1
+    return acc if fixed else sums

@@ -14,7 +14,9 @@ tensors with the batch dimension written out:
   4. Per-pixel parent resolution and palette sums in one pass over the
      pixels: K3 (q=1, no populated cell tied) or K4 (first minimum distance
      over at most q candidates, q = 8 or the config's q_full), picked per
-     batch from the tie structure as the JAX package's switch does.
+     batch from the tie structure as the JAX package's switch does; on
+     flat HSV pixels (the row-sharded report) K10 at q = 8 or q_full,
+     ``palette_sums_by_k_auto``.
   5. Palette averages with the hue-rotation offset (:510-576),
      ``palette_finalize_by_k``.
 """
@@ -201,6 +203,27 @@ def palette_tier(counts: torch.Tensor, assign: ParentAssignment,
     if q_needed <= 1:
         return 1
     return q_small if q_needed <= q_small else q_full
+
+
+def palette_sums_by_k_auto(h: torch.Tensor, s: torch.Tensor,
+                           v: torch.Tensor, assign: ParentAssignment,
+                           counts: torch.Tensor, cfg: ReportConfig,
+                           tables: OctreeTables, *, fixed: bool = False)\
+        -> torch.Tensor:
+    """The palette pixel pass on flat HSV pixels, (B, P) x3 -> (B, C, 4)
+    sums per valid-order slot, by K10 at candidate width q_small (8) or,
+    when a populated cell has more tie candidates, the config's q_full
+    (the JAX package's function of the same name; like it, no q=1 tier on
+    this route).  Hue < 0 marks pixels that add nothing.  ``fixed``
+    returns K10's int64 accumulator."""
+    from . import palette_kernels as pk
+
+    q_small, q_full = palette_widths(cfg)
+    q = q_small if palette_tier(counts, assign, cfg) <= q_small else q_full
+    cand, centers_by_k = pk.palette_candidate_table(assign, tables,
+                                                    cfg.num_cells, q)
+    return pk.palette_sums_by_k(h, s, v, cand, centers_by_k, cfg,
+                                fixed=fixed)
 
 
 def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,

@@ -5,27 +5,25 @@ reference: src/filtering.c:151-183 — for each crop box, crop the grayscale
 image, run the zero-padded 3x3 Laplacian over the *crop*, and report
 variance(response)/mean(response).
 
-This is the JAX package's route off the TPU (``variance_sharpness_batched``
-with its Pallas kernel off): one shared Laplacian per image with per-box sums
-and exact ring corrections (the fast route), the masked crop-then-filter
-form when any valid box is thinner than TINY_BOX_PX (the masked route), and
-no work at all when no box is valid.  The box sums are float32 batched
-matrix products: they need ``torch.backends.cuda.matmul.allow_tf32`` False,
-PyTorch's default, to stay in full float32 (the JAX package uses
-Precision.HIGHEST).
+The routes of the JAX package's ``variance_sharpness_batched``, picked on
+the host from the boxes alone: no work at all when no box is valid; the
+masked crop-then-filter form, plain PyTorch, when any valid box is thinner
+than TINY_BOX_PX (the masked route); otherwise the crop-box sums of K5
+(ops/sharpness_kernels.py, the JAX package's Pallas route) and
+``finish_sharpness``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .filtering import laplacian_3x3
+from .sharpness_kernels import box_tensor, sharpness_sums
 
 # Boxes under this many px in either dimension take the masked route: the
-# fast route assembles the crop's sum(resp^2) from terms ~1e3 larger than
-# a tiny crop's variance, leaving ~1e-6 absolute f32 cancellation noise.
+# kernel route's s2/n - mean^2 cancels terms ~1e3 larger than a tiny crop's
+# variance, leaving ~1e-6 absolute f32 cancellation noise.
 TINY_BOX_PX = 4
 
 
@@ -64,102 +62,20 @@ def _masked_sharpness(pgm, boxes, boxes_valid):
     return torch.stack(out, dim=1)
 
 
-def _box_ring_terms(pgm_pad, resp, boxes):
-    """Ring correction per box, batched: sum over the crop's border ring of
-    2*r*c + c^2, the difference between the crop's sum(resp^2) and the
-    shared response's (see the JAX package's ``_box_ring_terms``).  Index
-    clamping reproduces ``lax.dynamic_slice``'s."""
-    bsz, h, w = resp.shape
-    dev = resp.device
-    t, b, l, r = (boxes[..., i] for i in range(4))           # (B, K)
-    bi = torch.arange(bsz, device=dev)[:, None]
-    xs = torch.arange(w, device=dev)
-    ys = torch.arange(h, device=dev)
-
-    def clamp(i, hi):
-        return torch.clamp(i, 0, hi)
-
-    # Vertical: pixels in rows t and b-1; outside neighbours are rows t-1
-    # and b (padded coordinates shift by +1; image edges read zeros).
-    row_above = pgm_pad[bi, clamp(t, h + 1)]                  # (B, K, W+2)
-    row_below = pgm_pad[bi, clamp(b + 1, h + 1)]
-    cv_t = row_above[..., :-2] + row_above[..., 1:-1] + row_above[..., 2:]
-    cv_b = row_below[..., :-2] + row_below[..., 1:-1] + row_below[..., 2:]
-    resp_t = resp[bi, clamp(t, h - 1)]                        # (B, K, W)
-    resp_b = resp[bi, clamp(torch.clamp(b - 1, min=0), h - 1)]
-    xin = (xs >= l[..., None]) & (xs < r[..., None])
-    sum_v = torch.where(
-        xin, 2.0 * (resp_t * cv_t + resp_b * cv_b) + cv_t * cv_t
-        + cv_b * cv_b, 0.0).sum(dim=-1)
-
-    # Horizontal: pixels in columns l and r-1; outside neighbours are the
-    # columns l-1 and r restricted to rows inside the box.
-    pad_t = F.pad(resp, (1, 1, 1, 1)).transpose(1, 2)         # (B, W+2, H+2)
-    pgm_t = pgm_pad.transpose(1, 2)
-    col_left = pgm_t[bi, clamp(l, w + 1)]                     # (B, K, H+2)
-    col_right = pgm_t[bi, clamp(r + 1, w + 1)]
-
-    def ch_of(col):
-        # ch(y) = col[y-1]*[y-1>=t] + col[y] + col[y+1]*[y+1<b], y in [t,b)
-        mid = col[..., 1:-1]
-        up = torch.where(ys - 1 >= t[..., None], col[..., :-2], 0.0)
-        dn = torch.where(ys + 1 < b[..., None], col[..., 2:], 0.0)
-        return up + mid + dn                                  # (B, K, H)
-
-    ch_l = ch_of(col_left)
-    ch_r = ch_of(col_right)
-    resp_l = pad_t[bi, clamp(l + 1, w + 1)][..., 1:h + 1]
-    resp_r = pad_t[bi, clamp(torch.clamp(r, min=1), w + 1)][..., 1:h + 1]
-    yin = (ys >= t[..., None]) & (ys < b[..., None])
-    sum_h = torch.where(
-        yin, 2.0 * (resp_l * ch_l + resp_r * ch_r) + ch_l * ch_l
-        + ch_r * ch_r, 0.0).sum(dim=-1)
-
-    # Corner cross terms 2*cV*cH at the four ring intersections.
-    def at(vec, i):
-        i = clamp(torch.clamp(i, min=0), vec.shape[-1] - 1)
-        return torch.gather(vec, -1, i[..., None])[..., 0]
-
-    cross = 2.0 * (at(cv_t, l) * at(ch_l, t) + at(cv_t, r - 1) * at(ch_r, t)
-                   + at(cv_b, l) * at(ch_l, b - 1)
-                   + at(cv_b, r - 1) * at(ch_r, b - 1))
-    return sum_v + sum_h + cross
-
-
-def _fast_sharpness(pgm, boxes, boxes_valid):
-    """Shared-response route: (B, H, W) -> (B, K)."""
-    bsz, h, w = pgm.shape
-    dev = pgm.device
-    resp = laplacian_3x3(pgm)
-    resp2 = resp * resp
-    t, b = boxes[..., 0, None], boxes[..., 1, None]           # (B, K, 1)
-    l, r = boxes[..., 2, None], boxes[..., 3, None]
-    hidx = torch.arange(h, device=dev)
-    widx = torch.arange(w, device=dev)
-    rm = ((hidx >= t) & (hidx < b)).to(pgm.dtype)             # (B, K, H)
-    cm = ((widx >= l) & (widx < r)).to(pgm.dtype)             # (B, K, W)
-
-    def boxsum(a, row_mask, col_mask):
-        per_row = torch.bmm(a, col_mask.transpose(1, 2))      # (B, H, K)
-        return (per_row.transpose(1, 2) * row_mask).sum(dim=-1)
-
-    pgm_pad = F.pad(pgm, (1, 1, 1, 1))
-    s2 = boxsum(resp2, rm, cm) + _box_ring_terms(pgm_pad, resp, boxes)
-
-    # Exact response sum via the telescoped border-ring identity:
-    # sum(resp_crop) = sum(pgm * (9 - rows_in * cols_in)) over the box,
-    # with alpha = 3 - rows_in and beta = 3 - cols_in nonzero only on
-    # border rows/cols: 9 - ab = 3*alpha + 3*beta - alpha*beta.
-    alpha = rm * ((hidx - 1 < t).to(pgm.dtype) + (hidx + 1 >= b).to(pgm.dtype))
-    beta = cm * ((widx - 1 < l).to(pgm.dtype) + (widx + 1 >= r).to(pgm.dtype))
-    s1 = (3.0 * boxsum(pgm, alpha, cm) + 3.0 * boxsum(pgm, rm, beta)
-          - boxsum(pgm, alpha, beta))
-
-    n = torch.clamp((b - t) * (r - l), min=1)[..., 0].to(pgm.dtype)
-    mean = s1 / n
-    var = s2 / n - mean * mean
+def finish_sharpness(s1, s2, boxes: np.ndarray,
+                     boxes_valid: np.ndarray) -> torch.Tensor:
+    """K5's sums -> (B, K) float32 variance / mean, zero in invalid slots:
+    mean = s1/n and var = s2/n - mean^2 in float32, as the JAX package
+    finishes its kernel's sums."""
+    dev = s1.device
+    boxes = torch.as_tensor(boxes, device=dev)
+    n = torch.clamp((boxes[..., 1] - boxes[..., 0])
+                    * (boxes[..., 3] - boxes[..., 2]), min=1).float()
+    mean = s1.float() / n
+    var = s2.float() / n - mean * mean
     # Unguarded division like the reference (src/filtering.c:174).
-    return torch.where(boxes_valid, var / mean, torch.zeros_like(mean))
+    return torch.where(torch.as_tensor(boxes_valid, device=dev), var / mean,
+                       torch.zeros_like(mean))
 
 
 def variance_sharpness_batched(pgm: torch.Tensor, boxes,
@@ -177,10 +93,13 @@ def variance_sharpness_batched(pgm: torch.Tensor, boxes,
     if not boxes_valid.any():
         return torch.zeros(boxes_valid.shape, dtype=pgm.dtype,
                            device=pgm.device)
-    route = (_masked_sharpness if thin_boxes(boxes, boxes_valid).any()
-             else _fast_sharpness)
-    return route(pgm, torch.as_tensor(boxes, device=pgm.device),
-                 torch.as_tensor(boxes_valid, device=pgm.device))
+    if thin_boxes(boxes, boxes_valid).any():
+        return _masked_sharpness(pgm, torch.as_tensor(boxes, device=pgm.device),
+                                 torch.as_tensor(boxes_valid,
+                                                 device=pgm.device))
+    s1, s2 = sharpness_sums(pgm.contiguous(),
+                            box_tensor(boxes, boxes_valid, pgm.device))
+    return finish_sharpness(s1, s2, boxes, boxes_valid)
 
 
 def thin_boxes(boxes: np.ndarray, boxes_valid: np.ndarray) -> np.ndarray:

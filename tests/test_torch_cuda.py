@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1-K4, K6a/K6b, K7+K8) against their plain PyTorch
-versions on an NVIDIA GPU.  Every test here needs the card and nvcc and
+"""The CUDA kernels (K1-K5, K6a/K6b, K7+K8, K9, K10) against their plain
+PyTorch versions on an NVIDIA GPU, and the row-sharded report at world
+size 1 (NCCL) against the single-device path.  Every test here needs the card and nvcc and
 skips without them; this file imports no JAX, so the machine with the card
 runs it with
 
@@ -18,6 +19,7 @@ from photohive_dsp_tpu_torch.ops import fft_kernels as tfk
 from photohive_dsp_tpu_torch.ops import palette_kernels as tpk
 from photohive_dsp_tpu_torch.ops import polar_kernels as tpolar
 from photohive_dsp_tpu_torch.ops import quantize as tq
+from photohive_dsp_tpu_torch.ops import sharpness_kernels as tsk
 from photohive_dsp_tpu_torch.ops.blur import PolarTables, blur_bins_lognorm
 from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
 from photohive_dsp_tpu_torch.ops.margin_sort import (
@@ -194,3 +196,102 @@ def test_cuda_blur_route_matches_cpu(cuda_device):
     assert _snr_db(want.blur_bins, got.blur_bins) >= 60
     assert torch.equal(want.blur_vector_angles, got.blur_vector_angles.cpu())
     assert torch.equal(want.blur_vector_mags, got.blur_vector_mags.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_sharpness_kernel_matches_plain(cuda_device):
+    """K5 against its plain version within 1e-5 relative (the kernel's
+    float32 per-thread sums), bit-identical over two launches, with and
+    without a halo, at 1080 rows (not a multiple of the 32-row tile)."""
+    rng = np.random.default_rng(9)
+    b, h, w = 2, 1080, 1000
+    pgm = torch.from_numpy(rng.random((b, h, w), dtype=np.float32))
+    halo = torch.from_numpy(rng.random((b, 2, w), dtype=np.float32))
+    boxes = torch.zeros((b, 10, 4), dtype=torch.int32)
+    boxes[:, 0] = torch.tensor([0, 1080, 0, 1000])     # the whole frame
+    boxes[:, 1] = torch.tensor([31, 65, 127, 129 + 4])  # across tile seams
+    boxes[:, 4] = torch.tensor([1040, 1080, 900, 1000])
+    boxes[1, 9] = torch.tensor([-3, 20, 5, 400])       # spans the halo row
+    for hl in (None, halo):
+        for row_offset in (0, 3):
+            args = (boxes.to(cuda_device), None if hl is None
+                    else hl.to(cuda_device), row_offset)
+            got = tsk.sharpness_sums(pgm.to(cuda_device), *args)
+            again = tsk.sharpness_sums(pgm.to(cuda_device), *args)
+            want = tsk.sharpness_sums_plain(pgm, boxes, hl, row_offset)
+            for g, a, wt in zip(got, again, want):
+                assert torch.equal(g, a)
+                g = g.cpu()
+                assert bool(((g - wt).abs() <= 1e-5 * wt.abs()).all())
+                assert torch.equal(g == 0, wt == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_cuda_flat_hsv_kernels_match_plain(name, cuda_device):
+    """K9 and K10 on flat HSV with a sentinel tail: counts exact and equal
+    to K1's on the same pixels, sums within 1e-5 relative of plain, and the
+    tail changes nothing."""
+    from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_hsv
+
+    rgb, _ = IMAGES[name]
+    x = torch.from_numpy(rgb).to(cuda_device)
+    b, p = x.shape[0], x.shape[2] * x.shape[3]
+    flat = x.reshape(b, 3, p)
+    real = list(rgb_to_hsv(flat[:, 0], flat[:, 1], flat[:, 2]))
+    tail = torch.rand((3, b, 777), device=cuda_device)
+    tail[0] = -1.0
+    hsv = [torch.cat([r, t], dim=1).contiguous() for r, t in zip(real, tail)]
+    real = [r.contiguous() for r in real]
+    counts = tpk.cell_counts_from_hsv(*hsv, TCFG)
+    assert torch.equal(counts, tpk.cell_counts_from_hsv_plain(*hsv, TCFG))
+    assert torch.equal(counts, tpk.cell_counts_s_from_rgb(x, TCFG)[0])
+    tt = tq.OctreeTables.for_config(TCFG, cuda_device)
+    assign = tq.parent_assignment_from_order(
+        counts, margin_sort(tq.saliency_f32(counts, tt.s_v_f32, TCFG)), p,
+        TCFG, tt)
+    for q in (8, 40):
+        tabs = tpk.palette_candidate_table(assign, tt, C, q)
+        got = tpk.palette_sums_by_k(*hsv, *tabs, TCFG)
+        want = tpk.palette_sums_by_k_plain(*hsv, *tabs, TCFG)
+        assert torch.equal(got, tpk.palette_sums_by_k(*real, *tabs, TCFG))
+        assert torch.equal(got[..., 3], want[..., 3])
+        assert bool(((got - want).abs() <= 1e-5 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_cuda_spatial_report_world_size_1(cuda_device, tmp_path):
+    """build_spatial_report on one rank (NCCL) launches K5, K9 and K10 and
+    gives the single-device report: the palette bit for bit."""
+    import torch.distributed as dist
+
+    from photohive_dsp_tpu_torch.parallel import mesh, spatial
+
+    h, w = 487, 640
+    cfg = ReportConfig()
+    img = np.round(smooth_rgb(1, h, w)[0] * 255).astype(np.uint8)
+    boxes, valid = pt.set_bounding_boxes([
+        dict(top=40, bottom=200, left=60, right=300),
+        dict(top=300, bottom=487, left=100, right=630)])
+    group = mesh.init_spatial_group(0, 1, f"file://{tmp_path}/rendezvous",
+                                    device=cuda_device)
+    try:
+        _cuda.reset_launch_counts()
+        got = spatial.build_spatial_report(group, h, w, cfg, cuda_device)(
+            img, boxes, valid)
+        torch.cuda.synchronize()
+        for name in ("sharpness_sums", "cell_counts_hsv",
+                     "palette_sums_flat_q8", "polar_bins"):
+            assert _cuda.LAUNCHES[name] == 1, name
+    finally:
+        dist.destroy_process_group()
+    ref = pt.full_report_batched(
+        torch.from_numpy(img)[None].to(cuda_device), boxes[None], valid[None],
+        pt.ReportTables.build(h, w, cfg, cuda_device), cfg)
+    for k in ("palette_n", "palette_ids", "palette_pct", "palette_hsv",
+              "average_saturation", "blur_vector_angles"):
+        assert torch.equal(got._asdict()[k], getattr(ref, k)[0]), k
+    assert torch.allclose(got.sharpness, ref.sharpness[0], rtol=1e-5, atol=0)
+    assert torch.allclose(got.rgb_stats, ref.rgb_stats[0], rtol=2e-5,
+                          atol=1e-6)
+    assert _snr_db(ref.blur_bins[0], got.blur_bins) >= 55

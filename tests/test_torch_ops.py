@@ -164,9 +164,17 @@ def test_sharpness_routes_match(route):
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, photohive_dsp_tpu_torch, "
-            "photohive_dsp_tpu_torch.ops.palette_kernels, "
-            "photohive_dsp_tpu_torch.ops.margin_sort; "
+    """Every module of the port, kernels and parallel.* included, imports
+    without pulling in JAX or the JAX package."""
+    code = ("import importlib, pkgutil, sys, photohive_dsp_tpu_torch as p; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "p.__name__ + '.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "need = {'ops.sharpness_kernels', 'ops.palette_kernels', "
+            "'ops.polar_kernels', 'ops.fft_kernels', 'ops.margin_sort', "
+            "'parallel.mesh', 'parallel.spatial', 'models.pipeline'}; "
+            "missing = need - {n.split('.', 1)[1] for n in names}; "
+            "assert not missing, missing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'photohive_dsp_tpu')]; "
             "assert not bad, bad; print('clean')")
