@@ -24,7 +24,9 @@ raises on failure:
   5. spatial path: build_spatial_report at world size 1 on 4320x7680 frames
      (boxes, a thin box, a full-width tie tier) against the single-device
      full_report_batched on the card, with the launch counts of that run
-     (K9 and K10 at both widths at least once);
+     (K9 and K10 at both widths at least once); then K5, K7+K8, K9 and K10
+     against their plain versions on the inputs the rank hands them there
+     (33 MP of flat HSV, the luma with its halo, the rank's |X|^2);
   6. timing: warm get_report latency, batch-8 throughput, the spatial
      call's wall time, the blur and sharpness stages by their plain routes
      and by the kernels at B=1 and B=8, and each kernel's time beside its
@@ -393,50 +395,59 @@ def flat_hsv(x: torch.Tensor, tail: int):
     return [torch.cat([c, t], dim=1).contiguous() for c, t in zip(hsv, pad)]
 
 
-def phase_flat_kernels(kin, cfg, tables):
-    """K9 and K10 (q=8 and q_full) against their plain versions at
-    1080x1920 B=4 on flat HSV with a sentinel tail: counts and percentages
-    exact, sums within SUMS_RTOL, the run on the real pixels alone
-    bit-identical; returns max abs errors and the timing phase's inputs."""
+def check_flat_kernels(hsv, assign, octree, cfg, label: str,
+                       real=None) -> None:
+    """K9 and K10 (q=8 and q_full) against their plain versions on flat HSV
+    pixels: the int64 accumulators (counts and fixed-point sums) equal bit
+    for bit, which also makes the percentages exact; with ``real`` (the
+    pixels without their sentinel tail) both kernels equal their run on
+    the real pixels alone."""
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import quantize as qz
 
     c = cfg.num_cells
     _, q_full = qz.palette_widths(cfg)
+    runs = [("K9", pk.cell_counts_from_hsv, pk.cell_counts_from_hsv_plain,
+             ())]
+    runs += [(f"K10 q={q}", pk.palette_sums_by_k, pk.palette_sums_by_k_plain,
+              pk.palette_candidate_table(assign, octree, c, q))
+             for q in (8, q_full)]
+    for key, kern, plain, tabs in runs:
+        got = kern(*hsv, *tabs, cfg)
+        want = plain(*hsv, *tabs, cfg)
+        sync()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{key} {label}: differs from plain, max "
+                                 f"abs err {float((got - want).abs().max())}"
+                                 f" (fixed-point units)")
+        if real is not None and not torch.equal(got, kern(*real, *tabs,
+                                                          cfg)):
+            raise AssertionError(f"{key} {label}: the sentinel tail changes "
+                                 f"the result")
+
+
+def phase_flat_kernels(kin, cfg, tables):
+    """K9 and K10 (q=8 and q_full) against their plain versions at
+    1080x1920 B=4 on flat HSV with a sentinel tail (check_flat_kernels),
+    and K9's counts against K1's on the same frames; returns max abs errors
+    and the timing phase's inputs."""
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops import quantize as qz
+
+    _, q_full = qz.palette_widths(cfg)
     x = kin["u8"]
     p = x.shape[2] * x.shape[3]
     hsv = flat_hsv(x, SENTINEL_TAIL)
     real = [t[:, :p].contiguous() for t in hsv]
-    counts = pk.cell_counts_from_hsv(*hsv, cfg)
-    sync()
-    for label, other in (("plain", pk.cell_counts_from_hsv_plain(*hsv, cfg)),
-                         ("real pixels alone",
-                          pk.cell_counts_from_hsv(*real, cfg)),
-                         ("K1 on the RGB frames", kin["counts"])):
-        if not torch.equal(counts, other):
-            raise AssertionError(f"K9: counts differ from {label}")
-    err = {"K9": 0.0}
-    assign = kin["assign"]
-    for key, q in (("K10q8", 8), ("K10qfull", q_full)):
-        tabs = pk.palette_candidate_table(assign, tables.octree, c, q)
-        got = pk.palette_sums_by_k(*hsv, *tabs, cfg)
-        alone = pk.palette_sums_by_k(*real, *tabs, cfg)
-        want = pk.palette_sums_by_k_plain(*hsv, *tabs, cfg)
-        sync()
-        if not torch.equal(got, alone):
-            raise AssertionError(f"{key}: the sentinel tail changes the sums")
-        pct = [qz.palette_finalize_by_k(t, assign, p, tables.octree)
-               .percentages for t in (got, want)]
-        if not (torch.equal(got[..., 3], want[..., 3])
-                and torch.equal(*pct)):
-            raise AssertionError(f"{key}: counts or percentages differ")
-        if bool(((got - want).abs() > SUMS_RTOL * want.abs()).any()):
-            raise AssertionError(f"{key}: sums rel err {rel_err(got, want)}")
-        err[key] = float((got - want).abs().max())
+    check_flat_kernels(hsv, kin["assign"], tables.octree, cfg,
+                       f"1080x1920 B={x.shape[0]}", real)
+    counts, _ = pk.counts_s_from_fixed(pk.cell_counts_from_hsv(*hsv, cfg))
+    if not torch.equal(counts, kin["counts"]):
+        raise AssertionError("K9: counts differ from K1's on the RGB frames")
     log(f"  K9, K10 (q=8, q={q_full}) B={x.shape[0]} + {SENTINEL_TAIL} "
-        f"sentinel px: match their plain versions, K9 = K1's counts, the "
-        f"tail changes nothing")
-    return err, dict(hsv=hsv, p=p)
+        f"sentinel px: accumulators equal their plain versions', K9 = K1's "
+        f"counts, the tail changes nothing")
+    return {"K9": 0.0, "K10q8": 0.0, "K10qfull": 0.0}, dict(hsv=hsv, p=p)
 
 
 def phase_blur_kernels(images, cfg):
@@ -584,12 +595,83 @@ def spatial_frames():
             "hue wheel": planar(hue_wheel_image(rng, SH, SW))}
 
 
+def spatial_kernels(group, frames, box_sets, cfg) -> dict:
+    """The spatial path's kernels against their plain versions on the
+    inputs its one rank hands them, built by parallel/spatial's own steps
+    at 4320x7680: K9 and K10 (q=8 and q_full) on the frame's flat HSV
+    (33 MP, accumulators bit-equal), K5 on its luma with the zero halo and
+    each box set (within SHARP_RTOL), K7+K8 on the rank's |X|^2 and bin ids
+    (within POLAR_RTOL).  Returns max abs errors."""
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops import polar_kernels as pol
+    from photohive_dsp_tpu_torch.ops import quantize as qz
+    from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
+    from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_pgm
+    from photohive_dsp_tpu_torch.ops.fixed_point import from_fixed
+    from photohive_dsp_tpu_torch.ops.margin_sort import margin_sort
+    from photohive_dsp_tpu_torch.parallel import spatial
+
+    dev = torch.device(DEVICE, torch.cuda.current_device()) \
+        if DEVICE == "cuda" else torch.device(DEVICE)
+    nb = cfg.angle_partitions * cfg.radius_partitions
+    octree = qz.OctreeTables.for_config(cfg, dev)
+    tabs = spatial.sharded_polar_tables(SH, SW, cfg.angle_partitions,
+                                        cfg.radius_partitions, 1)
+    ids = torch.as_tensor(tabs.flat_ids[0], device=dev)
+    err = {"K5": 0.0, "K7+K8": 0.0}
+    for name, frame in frames.items():
+        rgb = spatial.own_rows(torch.as_tensor(frame), 0, SH, dev)
+        hsv = spatial.masked_hsv(rgb, 0, SH)
+        counts, _ = pk.counts_s_from_fixed(pk.cell_counts_from_hsv(*hsv, cfg))
+        order = margin_sort(qz.saliency_f32(counts, octree.s_v_f32, cfg))
+        assign = qz.parent_assignment_from_order(counts, order, SH * SW, cfg,
+                                                 octree)
+        check_flat_kernels(hsv, assign, octree, cfg, f"spatial {name}")
+
+        pgm = rgb_to_pgm(rgb[0], rgb[1], rgb[2])
+        halo = spatial.halo_rows(pgm, group)[None].contiguous()
+        rel5 = 0.0
+        for label, (bx, vd) in box_sets.items():
+            bt = sk.box_tensor(bx[None], vd[None], dev)
+            got = sk.sharpness_sums(pgm[None].contiguous(), bt, halo, 0)
+            want = sk.sharpness_sums_plain(pgm[None], bt, halo, 0)
+            sync()
+            on = torch.as_tensor(vd[None], device=dev)
+            for g, w in zip(got, want):
+                rel = rel_err(g[on], w[on])
+                if not rel <= SHARP_RTOL or bool(g[~on].any()):
+                    raise AssertionError(f"K5 spatial {name} {label}: rel "
+                                         f"err {rel}, or an empty slot not 0")
+                rel5 = max(rel5, rel)
+                err["K5"] = max(err["K5"], float((g - w).abs().max()))
+
+        stats = spatial.rgb_stats(rgb, 0, SH, SW, group)
+        dc = (stats[0] + stats[1] + stats[2]) / 3.0
+        mag2 = spatial.power_spectrum(pgm, dc, tabs.wc, SH, SW, group)
+        got = from_fixed(pol.polar_bin_sums_lognorm(mag2, ids, nb,
+                                                    fixed=True))
+        want = from_fixed(pol.polar_bin_sums_lognorm_plain(mag2, ids, nb,
+                                                           fixed=True))
+        sync()
+        if bool(((got - want).abs() > POLAR_RTOL * want.abs()).any()):
+            raise AssertionError(f"K7+K8 spatial {name}: rel err "
+                                 f"{rel_err(got, want)}")
+        err["K7+K8"] = max(err["K7+K8"], float((got - want).abs().max()))
+        log(f"  spatial {name} {SH}x{SW}, the rank's inputs: K9, K10 (q=8, "
+            f"q_full) accumulators equal plain; K5 ({', '.join(box_sets)}) "
+            f"rel err {rel5:.2e}; K7+K8 on {tuple(mag2.shape)} |X|^2 rel err "
+            f"{rel_err(got, want):.2e}")
+    return err
+
+
 def phase_spatial(cfg):
     """build_spatial_report on one NCCL rank against the single-device
     full_report_batched on the card, at 4320x7680: the noise frame with
-    main_boxes, then with a thin box, the hue-wheel frame with main_boxes.
-    Returns the launch counts of those calls, the spatial call's warm wall
-    time and the inputs of the timing phase."""
+    main_boxes, then with a thin box, the hue-wheel frame with main_boxes;
+    then the path's kernels against their plain versions on the rank's own
+    inputs (spatial_kernels).  Returns the launch counts of the report
+    calls, the spatial call's warm wall time and the kernels' max abs
+    errors."""
     import tempfile
 
     import torch.distributed as dist
@@ -623,6 +705,8 @@ def phase_spatial(cfg):
             fn(frames["noise"], *boxes)
             sync()
             wall.append(time.perf_counter() - t0)
+        err = spatial_kernels(group, frames, {"3 boxes": boxes,
+                                              "thin box": thin}, cfg)
     finally:
         dist.destroy_process_group()
     for (label, f, (bx, vd)), got in zip(calls, out):
@@ -636,7 +720,7 @@ def phase_spatial(cfg):
     wall_ms = 1e3 * float(np.median(wall))
     log(f"  build_spatial_report {SH}x{SW} u8, 1 rank, 3 boxes, warm: "
         f"median {wall_ms:.1f} ms (min {1e3 * min(wall):.1f}, n=3)")
-    return launches, wall_ms
+    return launches, wall_ms, err
 
 
 def bound(nbytes: float, ops: float):
@@ -893,15 +977,16 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main):
     work["K5"] = (sb * dilated_area(skin["boxes"], skin["valid"], H, W) * 4
                   + skin["bt"].numel() * 4 + sb * 10 * 2 * 8,
                   sb * sum(areas) * OPS_SHARP_PX)
-    # K9/K10: h of every pixel, s and v of the real ones.
+    # K9/K10: h of every pixel, s and v of the real ones; out, the int64
+    # accumulators.
     real_px = b * fkin["p"]
     hsv_bytes = real_px * 12 + b * SENTINEL_TAIL * 4
-    work["K9"] = (hsv_bytes + b * c * 4, real_px * OPS_CELL_ID)
+    work["K9"] = (hsv_bytes + b * (c + 1) * 8, real_px * OPS_CELL_ID)
     for key, (cand_t, centres) in (("K10q8", c8), ("K10qfull", cf)):
         per_cell = (cand_t < c).sum(dim=-1).long()
         n_cand = int((counts * per_cell).sum())
         work[key] = (hsv_bytes + cand_t.numel() * 4 + centres.numel() * 4
-                     + b * c * 16,
+                     + b * c * 32,
                      real_px * (OPS_CELL_ID + OPS_SLOT_PX)
                      + n_cand * OPS_CANDIDATE)
     bounds = {k: bound(*v) for k, v in work.items()}
@@ -991,7 +1076,9 @@ def main() -> int:
     main_out = phase_main_path(images, cfg)
     launches = main_out[0]
     log("phase 5: spatial path")
-    spatial_launches, spatial_ms = phase_spatial(cfg)
+    spatial_launches, spatial_ms, spatial_err = phase_spatial(cfg)
+    for key, e in spatial_err.items():
+        err[key] = max(err[key], e)
     # K9 and K10 run on the spatial path only.
     for counter in ("cell_counts_hsv", "palette_sums_flat_q8",
                     "palette_sums_flat_qfull"):

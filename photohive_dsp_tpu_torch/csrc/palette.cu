@@ -30,7 +30,8 @@
 // memory too.  A block covers a contiguous run of one image's pixels
 // (grid = pixel runs x images); it flushes its nonzero table entries into a
 // per-image accumulator in device memory with 64-bit integer atomics, and
-// a second small kernel converts the accumulator to the outputs.
+// for K1, K3 and K4 a second small kernel converts the accumulator to the
+// outputs; K9 and K10 return the accumulator itself.
 //
 // The flat-HSV kernels read 12 B per real pixel (4 B per sentinel pixel)
 // and skip the HSV arithmetic; they stay bound by the cell-id divisions
@@ -153,7 +154,7 @@ __global__ void cell_counts_s_finish(const u64* __restrict__ acc, int c,
   for (int i = threadIdx.x; i < c; i += blockDim.x) {
     counts[static_cast<long long>(b) * c + i] = static_cast<int>(row[i]);
   }
-  if (threadIdx.x == 0 && s_sum) s_sum[b] = from_fixed(row[c]);
+  if (threadIdx.x == 0) s_sum[b] = from_fixed(row[c]);
 }
 
 // ------------------------------------------------------- K3 / K4 / K10 -
@@ -276,8 +277,7 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// sums_out == nullptr leaves the result in acc (fixed point), for a caller
-// that adds accumulators across ranks before converting them.
+// sums_out == nullptr (K10) leaves the result in acc (fixed point).
 template <typename Src, bool kQ1>
 cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
                                 const int* cell_tab, const float* val_tab,
@@ -301,8 +301,7 @@ cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
   return cudaGetLastError();
 }
 
-// counts == nullptr leaves the result in acc (fixed point); s_sum ==
-// nullptr writes the counts only.
+// counts == nullptr (K9) leaves the result in acc (fixed point).
 template <typename Src>
 cudaError_t launch_cell_counts_s(Src src, int batch, const CellParams& p,
                                  int* counts, float* s_sum, u64* acc,
@@ -353,14 +352,15 @@ extern "C" int ph_cell_counts_s(const void* rgb, int is_u8, int batch,
                                       *p, cnt, ss, a, st);
 }
 
-// counts: (B, C) int32, or nullptr to leave the (B, C + 1) accumulator.
+// K9 and K10 leave their results in the accumulators (fixed point), which
+// the row-sharded report adds across ranks before converting them.
+// acc: (B, C + 1) u64, the counts, then the saturation sum.
 extern "C" int ph_cell_counts_hsv(const void* h, const void* s, const void* v,
                                   int batch, long long pixels,
-                                  const CellParams* p, void* counts, void* acc,
+                                  const CellParams* p, void* acc,
                                   void* stream) {
-  return launch_cell_counts_s(hsv_pixels(h, s, v, pixels), batch, *p,
-                              static_cast<int*>(counts), nullptr,
-                              static_cast<u64*>(acc),
+  return launch_cell_counts_s(hsv_pixels(h, s, v, pixels), batch, *p, nullptr,
+                              nullptr, static_cast<u64*>(acc),
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -400,14 +400,14 @@ extern "C" int ph_palette_sums(const void* rgb, int is_u8, int batch,
                      out, a, st);
 }
 
-// sums: (B, C, 4) float32, or nullptr to leave the (B, C, 4) accumulator.
+// acc: (B, C, 4) u64.
 extern "C" int ph_palette_sums_hsv(const void* h, const void* s, const void* v,
                                    int batch, long long pixels,
                                    const CellParams* p, const void* cand, int q,
-                                   const void* centers_by_k, void* sums,
-                                   void* acc, void* stream) {
+                                   const void* centers_by_k, void* acc,
+                                   void* stream) {
   return launch_palette_sums<HsvPixels, false>(
       hsv_pixels(h, s, v, pixels), batch, *p, static_cast<const int*>(cand),
-      static_cast<const float*>(centers_by_k), q, static_cast<float*>(sums),
+      static_cast<const float*>(centers_by_k), q, nullptr,
       static_cast<u64*>(acc), static_cast<cudaStream_t>(stream));
 }

@@ -111,11 +111,10 @@ _SIGNATURES = {
     # (rgb, is_u8, batch, pixels, params, cand, q, centers_by_k,
     #  sums_out, acc, stream)
     "ph_palette_sums": [_P, _I, _I, _LL, _PARAMS, _P, _I, _P, _P, _P, _P],
-    # (h, s, v, batch, pixels, params, counts_out, acc, stream)
-    "ph_cell_counts_hsv": [_P, _P, _P, _I, _LL, _PARAMS, _P, _P, _P],
-    # (h, s, v, batch, pixels, params, cand, q, centers_by_k, sums_out,
-    #  acc, stream)
-    "ph_palette_sums_hsv": [_P, _P, _P, _I, _LL, _PARAMS, _P, _I, _P, _P, _P,
+    # (h, s, v, batch, pixels, params, acc, stream)
+    "ph_cell_counts_hsv": [_P, _P, _P, _I, _LL, _PARAMS, _P, _P],
+    # (h, s, v, batch, pixels, params, cand, q, centers_by_k, acc, stream)
+    "ph_palette_sums_hsv": [_P, _P, _P, _I, _LL, _PARAMS, _P, _I, _P, _P,
                             _P],
     # (pgm, halo, batch, height, width, row_offset, boxes, partial,
     #  sums_out, stream)

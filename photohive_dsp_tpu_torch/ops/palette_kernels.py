@@ -17,9 +17,10 @@ flat-HSV input is three (B, P) float32 planes; a hue below 0 marks a pixel
 that counts for nothing (the row-sharded report's padded rows).
 
 Saturation and palette sums are exact on 64-bit fixed point
-(ops/fixed_point.py), in the kernels and in the plain versions alike.  With
-``fixed=True`` the flat-HSV wrappers return the int64 accumulators instead
-of their float conversion, for a caller that adds them across ranks first.
+(ops/fixed_point.py), in the kernels and in the plain versions alike.  The
+flat-HSV wrappers return the int64 accumulators themselves, which the
+row-sharded report adds across ranks before ``counts_s_from_fixed`` /
+``palette_sums_from_fixed`` convert them.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from .quantize import ParentAssignment, OctreeTables, assign_cells, \
     candidate_slots
 
 _RGB_DTYPES = (torch.float32, torch.uint8)
+# Pixels per step of the plain K4/K10 tie-break (its (P, q) temporaries).
+_CHUNK_PX = 1 << 22
 
 
 def _check_rgb(rgb: torch.Tensor) -> None:
@@ -136,31 +139,26 @@ def cell_counts_s_from_rgb(rgb: torch.Tensor, cfg):
     return counts, s_sum
 
 
-def cell_counts_from_hsv_plain(h, s, v, cfg, *, fixed: bool = False):
-    """Plain version of K9: (B, C) int32 counts of the real pixels, or with
-    ``fixed`` the (B, C + 1) int64 accumulator whose last column is their
-    saturation sum on the fixed point."""
+def cell_counts_from_hsv_plain(h, s, v, cfg):
+    """Plain version of K9 (its accumulator, see ``cell_counts_from_hsv``)."""
     cells, _ = _flat_hsv_cells(h, s, v, cfg)
-    acc = _counts_s_fixed(cells, s, cfg.num_cells)
-    return acc if fixed else counts_s_from_fixed(acc)[0]
+    return _counts_s_fixed(cells, s, cfg.num_cells)
 
 
-def cell_counts_from_hsv(h, s, v, cfg, *, fixed: bool = False):
-    """K9: exact per-image cell histogram of flat HSV pixels, (B, P) float32
-    x3 -> (B, C) int32, hue < 0 counting for nothing; with ``fixed`` the
-    (B, C + 1) int64 accumulator (counts, then the fixed-point saturation
-    sum of the real pixels)."""
+def cell_counts_from_hsv(h, s, v, cfg):
+    """K9: exact per-image cell histogram of flat HSV pixels, hue < 0
+    counting for nothing: (B, P) float32 x3 -> (B, C + 1) int64, the counts,
+    then the fixed-point saturation sum of the real pixels
+    (``counts_s_from_fixed`` converts it)."""
     _check_hsv(h, s, v)
     if h.device.type == "cpu":
-        return cell_counts_from_hsv_plain(h, s, v, cfg, fixed=fixed)
-    b, c = h.shape[0], cfg.num_cells
-    counts = None if fixed else torch.empty((b, c), dtype=torch.int32,
-                                            device=h.device)
-    acc = torch.empty((b, c + 1), dtype=torch.int64, device=h.device)
+        return cell_counts_from_hsv_plain(h, s, v, cfg)
+    acc = torch.empty((h.shape[0], cfg.num_cells + 1), dtype=torch.int64,
+                      device=h.device)
     _cuda.launch("ph_cell_counts_hsv", h, *_hsv_launch_args(h, s, v, cfg),
-                 _cuda.ptr(counts), _cuda.ptr(acc))
+                 _cuda.ptr(acc))
     _cuda.LAUNCHES["cell_counts_hsv"] += 1
-    return acc if fixed else counts
+    return acc
 
 
 # ------------------------------------------------------------ tables ----
@@ -248,20 +246,25 @@ def _nearest_candidates(h, s, v, cells, cand, centers_by_k, c: int):
     (quantize.palette_pixel_sums); the first minimum wins.  Returns the
     slot (B, P) and the hue offset 180 - centre hue of that slot."""
     slots, offsets = [], []
-    for i in range(h.shape[0]):      # one image at a time bounds (P, q) temps
-        cand_p = cand[i].long()[torch.clamp(cells[i], max=c - 1)]  # (P, q)
-        ctr = centers_by_k[i][torch.clamp(cand_p, max=c - 1)]  # (P, q, 3)
-        hd = torch.abs(h[i][:, None] - ctr[..., 0])
-        hd = torch.where(hd > 180.0, 360.0 - hd, hd) * (1.0 / 360.0)
-        sd = s[i][:, None] - ctr[..., 1]
-        vd = v[i][:, None] - ctr[..., 2]
-        d = hd * hd + sd * sd + vd * vd
-        d = torch.where(cand_p < c, d, float("inf"))
-        slot = torch.gather(cand_p, 1, d.argmin(dim=1, keepdim=True))[:, 0]
-        slots.append(torch.where(cells[i] < c, slot, c))
-        safe = torch.clamp(slot, max=c - 1)
-        offsets.append(180.0 - centers_by_k[i][safe, 0])
-    return torch.stack(slots), torch.stack(offsets)
+    # One image and _CHUNK_PX pixels at a time bound the (P, q) temporaries.
+    for i in range(h.shape[0]):
+        for j in range(0, h.shape[1], _CHUNK_PX):
+            px = slice(j, j + _CHUNK_PX)
+            cell = cells[i, px]
+            cand_p = cand[i].long()[torch.clamp(cell, max=c - 1)]  # (P, q)
+            ctr = centers_by_k[i][torch.clamp(cand_p, max=c - 1)]  # (P, q, 3)
+            hd = torch.abs(h[i, px][:, None] - ctr[..., 0])
+            hd = torch.where(hd > 180.0, 360.0 - hd, hd) * (1.0 / 360.0)
+            sd = s[i, px][:, None] - ctr[..., 1]
+            vd = v[i, px][:, None] - ctr[..., 2]
+            d = hd * hd + sd * sd + vd * vd
+            d = torch.where(cand_p < c, d, float("inf"))
+            slot = torch.gather(cand_p, 1, d.argmin(dim=1, keepdim=True))[:, 0]
+            slots.append(torch.where(cell < c, slot, c))
+            safe = torch.clamp(slot, max=c - 1)
+            offsets.append(180.0 - centers_by_k[i][safe, 0])
+    return (torch.cat(slots).reshape(h.shape),
+            torch.cat(offsets).reshape(h.shape))
 
 
 def palette_sums_by_k_rgb_plain(rgb, cand, centers_by_k, cfg):
@@ -296,36 +299,29 @@ def _check_candidates(cand, centers_by_k, b: int, c: int, like) -> int:
     return q
 
 
-def palette_sums_by_k_plain(h, s, v, cand, centers_by_k, cfg, *,
-                            fixed: bool = False):
+def palette_sums_by_k_plain(h, s, v, cand, centers_by_k, cfg):
     """Plain version of K10: K4's plain version on flat HSV pixels, hue < 0
-    dropped."""
+    dropped, on the fixed point."""
     c = cfg.num_cells
     cells, real = _flat_hsv_cells(h, s, v, cfg)
     h = torch.where(real, h, 0.0)
     slot, offset = _nearest_candidates(h, s, v, cells, cand, centers_by_k, c)
-    acc = _slot_sums_fixed(h, s, v, slot, offset, c)
-    return acc if fixed else palette_sums_from_fixed(acc)
+    return _slot_sums_fixed(h, s, v, slot, offset, c)
 
 
-def palette_sums_by_k(h, s, v, cand, centers_by_k, cfg, *,
-                      fixed: bool = False):
+def palette_sums_by_k(h, s, v, cand, centers_by_k, cfg):
     """K10, q > 1 on flat HSV pixels: K4's per-pixel tie-break among the
-    cell's candidates and sums per valid-order slot, (B, C, 4) float32;
-    hue < 0 adds nothing.  With ``fixed`` the (B, C, 4) int64 accumulator
-    (``palette_sums_from_fixed`` converts it)."""
+    cell's candidates and sums per valid-order slot, hue < 0 adding
+    nothing: -> (B, C, 4) int64 accumulator [hue, s, v on the fixed point,
+    count] (``palette_sums_from_fixed`` converts it)."""
     _check_hsv(h, s, v)
     b, c = h.shape[0], cfg.num_cells
     q = _check_candidates(cand, centers_by_k, b, c, h)
     if h.device.type == "cpu":
-        return palette_sums_by_k_plain(h, s, v, cand, centers_by_k, cfg,
-                                       fixed=fixed)
-    sums = None if fixed else torch.empty((b, c, 4), dtype=torch.float32,
-                                          device=h.device)
+        return palette_sums_by_k_plain(h, s, v, cand, centers_by_k, cfg)
     acc = torch.empty((b, c, 4), dtype=torch.int64, device=h.device)
     _cuda.launch("ph_palette_sums_hsv", h, *_hsv_launch_args(h, s, v, cfg),
-                 _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), _cuda.ptr(sums),
-                 _cuda.ptr(acc))
+                 _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), _cuda.ptr(acc))
     _cuda.LAUNCHES["palette_sums_flat_q8" if q <= 8
                    else "palette_sums_flat_qfull"] += 1
-    return acc if fixed else sums
+    return acc

@@ -208,22 +208,20 @@ def palette_tier(counts: torch.Tensor, assign: ParentAssignment,
 def palette_sums_by_k_auto(h: torch.Tensor, s: torch.Tensor,
                            v: torch.Tensor, assign: ParentAssignment,
                            counts: torch.Tensor, cfg: ReportConfig,
-                           tables: OctreeTables, *, fixed: bool = False)\
-        -> torch.Tensor:
+                           tables: OctreeTables) -> torch.Tensor:
     """The palette pixel pass on flat HSV pixels, (B, P) x3 -> (B, C, 4)
-    sums per valid-order slot, by K10 at candidate width q_small (8) or,
-    when a populated cell has more tie candidates, the config's q_full
-    (the JAX package's function of the same name; like it, no q=1 tier on
-    this route).  Hue < 0 marks pixels that add nothing.  ``fixed``
-    returns K10's int64 accumulator."""
+    int64 accumulator per valid-order slot (palette_kernels.
+    palette_sums_from_fixed converts it), by K10 at candidate width q_small
+    (8) or, when a populated cell has more tie candidates, the config's
+    q_full (the JAX package's function of the same name; like it, no q=1
+    tier on this route).  Hue < 0 marks pixels that add nothing."""
     from . import palette_kernels as pk
 
     q_small, q_full = palette_widths(cfg)
     q = q_small if palette_tier(counts, assign, cfg) <= q_small else q_full
     cand, centers_by_k = pk.palette_candidate_table(assign, tables,
                                                     cfg.num_cells, q)
-    return pk.palette_sums_by_k(h, s, v, cand, centers_by_k, cfg,
-                                fixed=fixed)
+    return pk.palette_sums_by_k(h, s, v, cand, centers_by_k, cfg)
 
 
 def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,

@@ -93,7 +93,49 @@ def sharded_polar_tables(height: int, width: int, num_angle_bins: int,
                               counts=geom.bin_counts.astype(np.int32), wc=wc)
 
 
-def _halo_rows(x: torch.Tensor, group) -> torch.Tensor:
+def own_rows(x: torch.Tensor, rank: int, rows: int,
+             device: torch.device) -> torch.Tensor:
+    """(3, H, W) whole image, uint8 or float32 in [0, 1] -> (3, rows, W)
+    float32 on ``device``: rows rank*rows onwards, zero rows past H."""
+    part = x[:, rank * rows:(rank + 1) * rows].to(device)
+    part = u8_to_unit_f32(part) if part.dtype == torch.uint8 else part.float()
+    pad = rows - part.shape[1]
+    if pad:
+        part = torch.cat([part, part.new_zeros((3, pad, x.shape[2]))], dim=1)
+    return part.contiguous()
+
+
+def rgb_stats(rgb_local: torch.Tensor, row_offset: int, height: int,
+              width: int, group) -> torch.Tensor:
+    """(6,) float32 means and standard deviations of R, G, B over the whole
+    image, two-pass like the reference's reducers; padded rows are zero, so
+    the means need no mask and the deviations do."""
+    total = height * width
+    local_h = rgb_local.shape[1]
+    sums = rgb_local.sum(dim=(1, 2), dtype=torch.float64)
+    dist.all_reduce(sums, SUM, group=group)
+    means = (sums / total).float()
+    real_rows = (row_offset
+                 + torch.arange(local_h, device=rgb_local.device)) < height
+    dev2 = (torch.square(rgb_local - means[:, None, None])
+            * real_rows[:, None]).sum(dim=(1, 2), dtype=torch.float64)
+    dist.all_reduce(dev2, SUM, group=group)
+    return torch.cat([means, torch.sqrt(dev2 / total).float()])
+
+
+def masked_hsv(down_local: torch.Tensor, rank: int, d_h: int) -> list:
+    """(3, d_lh, W') decimated rows -> [h, s, v], each (1, d_lh * W')
+    float32, the hue -1 (K9's and K10's sentinel) on the padded rows past
+    the decimated height d_h."""
+    d_local_h = down_local.shape[1]
+    h, s, v = rgb_to_hsv(down_local[0], down_local[1], down_local[2])
+    real = (rank * d_local_h
+            + torch.arange(d_local_h, device=down_local.device)) < d_h
+    return [torch.where(real[:, None], h, -1.0).reshape(1, -1),
+            s.reshape(1, -1), v.reshape(1, -1)]
+
+
+def halo_rows(x: torch.Tensor, group) -> torch.Tensor:
     """(lh, W) -> (2, W): the row just above the rank's rows and the row
     just below, from the neighbouring ranks; zeros at the image's edges,
     the reference's zero padding (src/filtering.c:96)."""
@@ -116,7 +158,7 @@ def _sharded_sharpness(pgm_local: torch.Tensor, boxes: np.ndarray,
     dev = pgm_local.device
     if not boxes_valid.any():
         return torch.zeros(boxes_valid.shape, dtype=torch.float32, device=dev)
-    halo = _halo_rows(pgm_local, group)[None].contiguous()
+    halo = halo_rows(pgm_local, group)[None].contiguous()
     pgm = pgm_local[None].contiguous()
     bt = box_tensor(boxes[None], boxes_valid[None], dev)
     s1, s2 = sharpness_sums(pgm, bt, halo, row_offset)
@@ -139,12 +181,11 @@ def _sharded_sharpness(pgm_local: torch.Tensor, boxes: np.ndarray,
                        torch.zeros_like(mean))
 
 
-def _sharded_blur_bins(pgm_local: torch.Tensor, dc: torch.Tensor,
-                       flat_ids: torch.Tensor, bin_counts: torch.Tensor,
-                       wc: int, height: int, width: int, cfg: ReportConfig,
-                       group) -> torch.Tensor:
-    """Distributed 2-D rFFT of the DC-removed luma -> (A, R) normalised
-    bin means, the same on every rank."""
+def power_spectrum(pgm_local: torch.Tensor, dc: torch.Tensor, wc: int,
+                   height: int, width: int, group) -> torch.Tensor:
+    """Distributed 2-D rFFT of the DC-removed luma -> (1, H * wc) float32
+    |X|^2 of the rank's wc spectrum columns, all rows, row-major (the
+    layout of sharded_polar_tables' flat_ids)."""
     n = dist.get_world_size(group)
     lh = pgm_local.shape[0]
     wf = width // 2 + 1
@@ -159,11 +200,20 @@ def _sharded_blur_bins(pgm_local: torch.Tensor, dc: torch.Tensor,
     cols = torch.view_as_complex(recv.reshape(n * lh, wc, 2))[:height]
     col_spec = torch.fft.fft(cols, dim=0)
     mag2 = torch.square(col_spec.real) + torch.square(col_spec.imag)
+    return mag2.reshape(1, -1)
+
+
+def _sharded_blur_bins(pgm_local: torch.Tensor, dc: torch.Tensor,
+                       flat_ids: torch.Tensor, bin_counts: torch.Tensor,
+                       wc: int, height: int, width: int, cfg: ReportConfig,
+                       group) -> torch.Tensor:
+    """Distributed 2-D rFFT of the DC-removed luma -> (A, R) normalised
+    bin means, the same on every rank."""
+    mag2 = power_spectrum(pgm_local, dc, wc, height, width, group)
     mx = mag2.amax()
     dist.all_reduce(mx, dist.ReduceOp.MAX, group=group)
     a, r = cfg.angle_partitions, cfg.radius_partitions
-    acc = polar_bin_sums_lognorm(mag2.reshape(1, -1), flat_ids, a * r,
-                                 fixed=True)
+    acc = polar_bin_sums_lognorm(mag2, flat_ids, a * r, fixed=True)
     dist.all_reduce(acc, SUM, group=group)
     return bin_means(from_fixed(acc) * lognorm_gain(mx), bin_counts, a,
                      r)[0]
@@ -189,40 +239,22 @@ def spatial_report_body(rgb_local: torch.Tensor, down_local: torch.Tensor,
     rank = dist.get_rank(group)
     boxes = np.asarray(boxes, np.int64)
     boxes_valid = np.asarray(boxes_valid, bool)
-    dev = rgb_local.device
-    total = height * width
     rate = cfg.downsample_rate
     d_h = height // rate if rate > 1 else height
     d_total = d_h * (width // rate if rate > 1 else width)
-    local_h, d_local_h = rgb_local.shape[1], down_local.shape[1]
-    row_offset = rank * local_h
-
-    # Statistics, two-pass like the reference's reducers; padded rows are
-    # zero, so the means need no mask and the deviations do.
-    sums = rgb_local.sum(dim=(1, 2), dtype=torch.float64)
-    dist.all_reduce(sums, SUM, group=group)
-    means = (sums / total).float()
-    real_rows = (row_offset + torch.arange(local_h, device=dev)) < height
-    dev2 = (torch.square(rgb_local - means[:, None, None])
-            * real_rows[:, None]).sum(dim=(1, 2), dtype=torch.float64)
-    dist.all_reduce(dev2, SUM, group=group)
-    stats = torch.cat([means, torch.sqrt(dev2 / total).float()])
+    row_offset = rank * rgb_local.shape[1]
+    stats = rgb_stats(rgb_local, row_offset, height, width, group)
 
     # Palette: K9 -> replicated selection -> K10, on the fixed point.
-    h, s, v = rgb_to_hsv(down_local[0], down_local[1], down_local[2])
-    d_real = (rank * d_local_h
-              + torch.arange(d_local_h, device=dev)) < d_h
-    hsv = [torch.where(d_real[:, None], h, -1.0).reshape(1, -1),
-           s.reshape(1, -1), v.reshape(1, -1)]
-    acc = pk.cell_counts_from_hsv(*hsv, cfg, fixed=True)
+    hsv = masked_hsv(down_local, rank, d_h)
+    acc = pk.cell_counts_from_hsv(*hsv, cfg)
     dist.all_reduce(acc, SUM, group=group)
     counts, s_sum = pk.counts_s_from_fixed(acc)
     s_bar = div_const(s_sum, d_total)[0]
     order = margin_sort(saliency_f32(counts, octree.s_v_f32, cfg))
     assign = parent_assignment_from_order(counts, order, d_total, cfg,
                                           octree)
-    acc = palette_sums_by_k_auto(*hsv, assign, counts, cfg, octree,
-                                 fixed=True)
+    acc = palette_sums_by_k_auto(*hsv, assign, counts, cfg, octree)
     dist.all_reduce(acc, SUM, group=group)
     palette = palette_finalize_by_k(pk.palette_sums_from_fixed(acc), assign,
                                     d_total, octree)
@@ -267,24 +299,15 @@ def build_spatial_report(group, height: int, width: int, cfg: ReportConfig,
     bin_counts = torch.as_tensor(tabs.counts, device=dev)
     octree = OctreeTables.for_config(cfg, dev)
 
-    def own_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
-        part = x[:, rank * rows:(rank + 1) * rows].to(dev)
-        part = u8_to_unit_f32(part) if part.dtype == torch.uint8 \
-            else part.float()
-        pad = rows - part.shape[1]
-        if pad:
-            part = torch.cat([part, part.new_zeros((3, pad, x.shape[2]))],
-                             dim=1)
-        return part.contiguous()
-
     def run(rgb, boxes, valid) -> ReportData:
         rgb = torch.as_tensor(rgb)
         if tuple(rgb.shape) != (3, height, width):
             raise ValueError(f"rgb: expected {(3, height, width)}, got "
                              f"{tuple(rgb.shape)}")
-        down = downsample_rgb(rgb, rate)
-        return spatial_report_body(own_rows(rgb, local_h),
-                                   own_rows(down, d_local_h), boxes, valid,
+        rgb_local = own_rows(rgb, rank, local_h, dev)
+        down_local = rgb_local if rate == 1 else \
+            own_rows(downsample_rgb(rgb, rate), rank, d_local_h, dev)
+        return spatial_report_body(rgb_local, down_local, boxes, valid,
                                    flat_ids, bin_counts, octree, tabs.wc,
                                    height, width, cfg, group)
 

@@ -229,9 +229,9 @@ def test_cuda_sharpness_kernel_matches_plain(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(IMAGES))
 def test_cuda_flat_hsv_kernels_match_plain(name, cuda_device):
-    """K9 and K10 on flat HSV with a sentinel tail: counts exact and equal
-    to K1's on the same pixels, sums within 1e-5 relative of plain, and the
-    tail changes nothing."""
+    """K9 and K10 on flat HSV with a sentinel tail: their int64
+    accumulators equal their plain versions' bit for bit, K9's counts equal
+    K1's on the same pixels, and the tail changes nothing."""
     from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_hsv
 
     rgb, _ = IMAGES[name]
@@ -243,8 +243,10 @@ def test_cuda_flat_hsv_kernels_match_plain(name, cuda_device):
     tail[0] = -1.0
     hsv = [torch.cat([r, t], dim=1).contiguous() for r, t in zip(real, tail)]
     real = [r.contiguous() for r in real]
-    counts = tpk.cell_counts_from_hsv(*hsv, TCFG)
-    assert torch.equal(counts, tpk.cell_counts_from_hsv_plain(*hsv, TCFG))
+    acc = tpk.cell_counts_from_hsv(*hsv, TCFG)
+    assert torch.equal(acc, tpk.cell_counts_from_hsv_plain(*hsv, TCFG))
+    assert torch.equal(acc, tpk.cell_counts_from_hsv(*real, TCFG))
+    counts, _ = tpk.counts_s_from_fixed(acc)
     assert torch.equal(counts, tpk.cell_counts_s_from_rgb(x, TCFG)[0])
     tt = tq.OctreeTables.for_config(TCFG, cuda_device)
     assign = tq.parent_assignment_from_order(
@@ -253,10 +255,9 @@ def test_cuda_flat_hsv_kernels_match_plain(name, cuda_device):
     for q in (8, 40):
         tabs = tpk.palette_candidate_table(assign, tt, C, q)
         got = tpk.palette_sums_by_k(*hsv, *tabs, TCFG)
-        want = tpk.palette_sums_by_k_plain(*hsv, *tabs, TCFG)
+        assert torch.equal(got, tpk.palette_sums_by_k_plain(*hsv, *tabs,
+                                                            TCFG))
         assert torch.equal(got, tpk.palette_sums_by_k(*real, *tabs, TCFG))
-        assert torch.equal(got[..., 3], want[..., 3])
-        assert bool(((got - want).abs() <= 1e-5 * want.abs()).all())
 
 
 @pytest.mark.cuda

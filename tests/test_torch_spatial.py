@@ -66,7 +66,8 @@ def test_cell_counts_from_hsv_plain_matches_pallas_interpret():
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jpk.cell_counts_from_hsv(
             *(jnp.asarray(x) for x in hsv), JCFG))
-    got = tpk.cell_counts_from_hsv(*(torch.from_numpy(x) for x in hsv), TCFG)
+    acc = tpk.cell_counts_from_hsv(*(torch.from_numpy(x) for x in hsv), TCFG)
+    got, _ = tpk.counts_s_from_fixed(acc)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want)
     assert int(got.sum()) == b * p_real
@@ -103,37 +104,44 @@ def test_palette_sums_by_k_plain_matches_pallas_interpret(q):
         want = np.asarray(jpk.palette_sums_by_k(
             *(jnp.asarray(x) for x in hsv), luts, C, q, JCFG))
     cand, centers = tpk.palette_candidate_table(tassign, ttables, C, q)
-    got = tpk.palette_sums_by_k(*(torch.from_numpy(x) for x in hsv), cand,
+    acc = tpk.palette_sums_by_k(*(torch.from_numpy(x) for x in hsv), cand,
                                 centers, TCFG)
     alone = tpk.palette_sums_by_k(*(torch.from_numpy(x) for x in real),
                                   cand, centers, TCFG)
-    assert torch.equal(got, alone)
+    assert torch.equal(acc, alone)
+    got = tpk.palette_sums_from_fixed(acc)
     assert np.array_equal(got[..., 3].numpy(), want[..., 3])
     assert np.abs(got.numpy() - want).max() < 0.5
     assert int(got[..., 3].sum()) == p_real
 
 
 def test_fixed_accumulators_convert_to_the_outputs():
-    """The int64 accumulators ``fixed=True`` returns convert to the plain
-    outputs, and split pixel sets add up to the whole exactly."""
+    """K9's and K10's int64 accumulators convert to the counts, the
+    saturation sum and the palette sums, and split pixel sets add up to
+    the whole exactly (what the ranks' all_reduce relies on)."""
     p = 3000
     hsv = [torch.from_numpy(x) for x in _flat_hsv(4, 1, p, 100)]
     _, _, ttables, tassign, counts = _assignment(
         *(x[:, :p].numpy() for x in hsv), p)
     counts_t = torch.from_numpy(counts)
+    halves = [slice(0, 1234), slice(1234, None)]
     whole = tq.palette_sums_by_k_auto(*hsv, tassign, counts_t, TCFG,
-                                      ttables, fixed=True)
-    halves = [tq.palette_sums_by_k_auto(*(x[:, sl] for x in hsv), tassign,
-                                        counts_t, TCFG, ttables, fixed=True)
-              for sl in (slice(0, 1234), slice(1234, None))]
+                                      ttables)
+    parts = [tq.palette_sums_by_k_auto(*(x[:, sl] for x in hsv), tassign,
+                                       counts_t, TCFG, ttables)
+             for sl in halves]
     assert whole.dtype == torch.int64
-    assert torch.equal(halves[0] + halves[1], whole)
-    assert torch.equal(tpk.palette_sums_from_fixed(whole),
-                       tq.palette_sums_by_k_auto(*hsv, tassign, counts_t,
-                                                 TCFG, ttables))
-    acc = tpk.cell_counts_from_hsv(*hsv, TCFG, fixed=True)
+    assert torch.equal(parts[0] + parts[1], whole)
+    sums = tpk.palette_sums_from_fixed(whole)
+    assert sums.dtype == torch.float32
+    assert torch.equal(sums[..., 3].long(), whole[..., 3])
+    assert int(whole[..., 3].sum()) == p
+    acc = tpk.cell_counts_from_hsv(*hsv, TCFG)
+    parts = [tpk.cell_counts_from_hsv(*(x[:, sl] for x in hsv), TCFG)
+             for sl in halves]
+    assert torch.equal(parts[0] + parts[1], acc)
     got_counts, s_sum = tpk.counts_s_from_fixed(acc)
-    assert torch.equal(got_counts, tpk.cell_counts_from_hsv(*hsv, TCFG))
+    assert np.array_equal(got_counts.numpy(), counts)
     want_s = hsv[1][:, :p].double().sum(dim=1)
     assert torch.allclose(s_sum.double(), want_s, rtol=1e-7, atol=0)
 
