@@ -2,35 +2,49 @@
 
 Drives photohive_dsp_tpu_torch's paths through their CUDA kernels — the
 main path (get_report on 1080x1920 frames and full_report_batched on a
-batch of 8, with and without crop boxes) and the row-sharded report
-(parallel/spatial.build_spatial_report, one NCCL rank, a 4320x7680 frame)
-— and checks every result against a reference.  Phases, each of which
-raises on failure:
+batch of 8, with and without crop boxes), the corpus path (run_corpus over
+config #3's 256 frames under each PHOTOHIVE_PALETTE_KERNEL variant, the
+streaming runner, process_corpus with a crash and a resume) and the
+row-sharded report (parallel/spatial.build_spatial_report, one NCCL rank, a
+4320x7680 frame) — and checks every result against a reference.  Phases,
+each of which raises on failure:
 
   1. device: a CUDA device must be present; prints its name and power limit;
   2. build: compiles the kernels from photohive_dsp_tpu_torch/csrc;
   3. kernels against their plain versions on the card: the palette kernels
-     (K1-K4) at 1080x1920, B=4, float32 and uint8 input; the crop-box
-     sharpness kernel (K5) at 1080x1920 B=4 with three boxes, one on the
-     image's edge (twice, bit-identical); the flat-HSV palette kernels (K9,
-     K10) at 1080x1920 B=4 with a sentinel tail (which must change
-     nothing); the FFT kernels (K6a, K6b) and the polar kernel (K7+K8) at
+     at 1080x1920, B=4, uint8 input (K1-K4) and float32 input (K11-K13);
+     the crop-box sharpness kernel (K5) at 1080x1920 B=4 with three boxes,
+     one on the image's edge (twice, bit-identical); the flat-HSV palette
+     kernels (K9, K10, K14) at 1080x1920 B=4 with a sentinel tail (which
+     must change nothing), K14 also against K10 on a noise batch (q=8) and
+     a hue-wheel batch (q_full), and the cell-id histogram (K15) against
+     K9's counts; the FFT kernels (K6a, K6b) and the polar kernel (K7+K8) at
      1080x1920 B=4, 2160x3840 B=1 and 1092x1001 B=2, the FFT also against
      float64 rfft2 (>= 90 dB), the polar sums twice (bit-identical), a zero
      frame, and a 360x100-bin table (the polar kernel's global-atomics
      branch);
   4. main path against the CPU path, with the kernel launch counts of that
      run (each of its kernels at least once, K5 included);
-  5. spatial path: build_spatial_report at world size 1 on 4320x7680 frames
+  5. corpus path: run_corpus over 256 uint8 frames of 720x1280, 1080x1920
+     and 480x640 (bench.py's config #3), batch 16 with padded tails, under
+     bf16, candidate and cwide: every report equal across the variants,
+     each bucket's first batch and tail equal to get_report of the image,
+     and each variant's kernels launched (K1/K3/K4; K11-K13; K9 and K14);
+     run_stream_u8 with and without prefetch (equal results); then
+     process_corpus on 8 .txt frames with a crash after the first flush
+     and a resume: every key once, the reports run_corpus's;
+  6. spatial path: build_spatial_report at world size 1 on 4320x7680 frames
      (boxes, a thin box, a full-width tie tier) against the single-device
      full_report_batched on the card, with the launch counts of that run
-     (K9 and K10 at both widths at least once); then K5, K7+K8, K9 and K10
-     against their plain versions on the inputs the rank hands them there
-     (33 MP of flat HSV, the luma with its halo, the rank's |X|^2);
-  6. timing: warm get_report latency, batch-8 throughput, the spatial
-     call's wall time, the blur and sharpness stages by their plain routes
-     and by the kernels at B=1 and B=8, and each kernel's time beside its
-     plain version's, its bound and a library call's.
+     (K9 and K10 at both widths at least once), and one call under cwide
+     (K14) against the bf16 one; then K5, K7+K8, K9 and K10 against their
+     plain versions on the inputs the rank hands them there (33 MP of flat
+     HSV, the luma with its halo, the rank's |X|^2);
+  7. timing: warm get_report latency, batch-8 throughput, the corpus
+     path's MP/s, the spatial call's wall time, the blur and sharpness
+     stages by their plain routes and by the kernels at B=1 and B=8, and
+     each kernel's time beside its plain version's, its bound and a library
+     call's.
 
 Prints the kernels' JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  Exits nonzero without that line when a
@@ -63,6 +77,14 @@ POLAR_RTOL = 1e-6         # polar sums vs plain: logf rounding only
 SHARP_RTOL = 1e-5
 SENTINEL_TAIL = 4096      # hue-sentinel pixels after K9/K10's real ones
 BLUR_SHAPES = [(1080, 1920, 4), (2160, 3840, 1), (1092, 1001, 2)]
+# bench.py's config #3 (bench.py:438-452): 256 frames, image i of shape
+# i % 3, batch 16.
+CORPUS_SHAPES = [(720, 1280), (1080, 1920), (480, 640)]
+CORPUS_IMAGES = 256
+CORPUS_BATCH = 16
+CORPUS_KINDS = ("noise", "structured", "hue wheel")   # q=8, q=1, q_full
+TXT_FRAMES = 8            # process_corpus's .txt frames, 720x1280
+VARIANTS = ("bf16", "candidate", "cwide")
 # Peak rates of an H100 SXM (NVIDIA data sheet): HBM3 bytes/s and float32
 # operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -107,20 +129,20 @@ def noise_image(rng, h=H, w=W) -> np.ndarray:
     return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
 
 
-def structured_image(rng) -> np.ndarray:
+def structured_image(rng, h=H, w=W) -> np.ndarray:
     """Gradient + four flat colour blobs + mild noise: few populated cells,
     none of them tied, so the palette takes the q=1 tier."""
-    y, x = np.mgrid[0:H, 0:W].astype(np.float64)
-    r = 0.25 + 0.5 * (x / W)
-    g = 0.25 + 0.5 * (y / H)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    r = 0.25 + 0.5 * (x / w)
+    g = 0.25 + 0.5 * (y / h)
     b = 0.35 + 0.25 * np.sin(2 * np.pi * x / 97) * np.cos(2 * np.pi * y / 61)
     for cy, cx, rad, col in [(0.3, 0.3, 0.11, (0.9, 0.1, 0.1)),
                              (0.7, 0.6, 0.15, (0.1, 0.8, 0.2)),
                              (0.4, 0.8, 0.09, (0.15, 0.2, 0.9)),
                              (0.8, 0.2, 0.07, (0.95, 0.85, 0.1))]:
-        m = (y - cy * H) ** 2 + (x - cx * W) ** 2 < (rad * H) ** 2
+        m = (y - cy * h) ** 2 + (x - cx * w) ** 2 < (rad * h) ** 2
         r[m], g[m], b[m] = col
-    rgb = np.stack([r, g, b], axis=-1) + rng.normal(0, 0.01, (H, W, 3))
+    rgb = np.stack([r, g, b], axis=-1) + rng.normal(0, 0.01, (h, w, 3))
     return np.round(np.clip(rgb, 0, 1) * 255).astype(np.uint8)
 
 
@@ -278,9 +300,15 @@ def phase_build() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s -> {path}")
 
 
+# The float32 instantiations of K1, K3 and K4 stand for the TPU's float32
+# candidate kernels K11, K12 and K13.
+F32_IDS = {"K1": "K11", "K3": "K12", "K4q8": "K13q8", "K4qfull": "K13qfull"}
+
+
 def phase_kernels(images, cfg, tables):
-    """Each kernel against its plain version on the card; returns per-kernel
-    max abs error and the inputs the timing phase reuses."""
+    """The RGB palette kernels (K1-K4 on uint8, K11-K13 on float32) and K2
+    against their plain versions on the card; returns per-kernel max abs
+    error and the inputs the timing phase reuses."""
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import quantize as qz
     from photohive_dsp_tpu_torch.ops.margin_sort import (
@@ -291,17 +319,18 @@ def phase_kernels(images, cfg, tables):
     u8 = torch.as_tensor(np.stack([planar(im) for im in images]),
                          device=DEVICE)
     f32 = (u8.float() / 255.0).contiguous()
-    err = {k: 0.0 for k in ("K1", "K2", "K3", "K4q8", "K4qfull")}
+    err = {"K2": 0.0}
     for name, x in (("f32", f32), ("u8", u8)):
+        ids = F32_IDS if name == "f32" else {k: k for k in F32_IDS}
         counts, s_sum = pk.cell_counts_s_from_rgb(x, cfg)
         counts0, s_sum0 = pk.cell_counts_s_from_rgb_plain(x, cfg)
         sync()
         if not torch.equal(counts, counts0):
-            raise AssertionError(f"K1 {name}: counts differ")
+            raise AssertionError(f"{ids['K1']} {name}: counts differ")
         if not rel_err(s_sum, s_sum0) < K1_S_RTOL:
-            raise AssertionError(f"K1 {name}: s_sum rel err "
+            raise AssertionError(f"{ids['K1']} {name}: s_sum rel err "
                                  f"{rel_err(s_sum, s_sum0)}")
-        err["K1"] = max(err["K1"], float((s_sum - s_sum0).abs().max()))
+        err[ids["K1"]] = float((s_sum - s_sum0).abs().max())
 
         sal = qz.saliency_f32(counts, tables.octree.s_v_f32, cfg)
         order = margin_sort(sal)
@@ -318,6 +347,7 @@ def phase_kernels(images, cfg, tables):
                          pk.palette_candidate_table(assign, tables.octree,
                                                     c, q)))
         for key, kern, plain, tabs in runs:
+            key = ids[key]
             got = kern(x, *tabs, cfg)
             want = plain(x, *tabs, cfg)
             sync()
@@ -327,8 +357,9 @@ def phase_kernels(images, cfg, tables):
             if bool(bad.any()):
                 raise AssertionError(f"{key} {name}: sums rel err "
                                      f"{rel_err(got, want)}")
-            err[key] = max(err[key], float((got - want).abs().max()))
-        log(f"  kernels {name}: K1-K4 match their plain versions")
+            err[key] = float((got - want).abs().max())
+        log(f"  kernels {name}: {', '.join(ids.values())} match their "
+            f"plain versions")
     rng = np.random.default_rng(SEED + 1)
     big = torch.as_tensor(np.round(rng.random((4, 2164)) * 30)
                           + rng.random((4, 2164)) * 0.6, dtype=torch.float32,
@@ -336,8 +367,8 @@ def phase_kernels(images, cfg, tables):
     if not torch.equal(margin_sort(big), margin_insertion_argsort(big)):
         raise AssertionError("K2: order differs at C=2164")
     log("  K2 exact at C=112 and C=2164")
-    return err, dict(u8=u8, slot=slot, off=off, sal=sal, assign=assign,
-                     counts=counts)
+    return err, dict(u8=u8, f32=f32, slot=slot, off=off, sal=sal,
+                     assign=assign, counts=counts)
 
 
 def luma(images) -> torch.Tensor:
@@ -426,13 +457,54 @@ def check_flat_kernels(hsv, assign, octree, cfg, label: str,
                                  f"the result")
 
 
+def cell_ids(hsv, cfg) -> torch.Tensor:
+    """(B, P) int32 cell ids of flat HSV pixels, C for the sentinels."""
+    from photohive_dsp_tpu_torch.ops.quantize import assign_cells
+
+    real = hsv[0] >= 0.0
+    ids = assign_cells(torch.where(real, hsv[0], 0.0), hsv[1], hsv[2], cfg)
+    return torch.where(real, ids, cfg.num_cells).contiguous()
+
+
+def check_cwide(hsv, assign, octree, cfg, label: str, real=None) -> None:
+    """K14 against its plain version and against K10 at the width the
+    batch needs (q=8 or q_full): the int64 accumulators equal bit for bit;
+    with ``real``, K14 equals its run on the real pixels alone."""
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops import quantize as qz
+
+    tabs = pk.cwide_tables(assign, octree)
+    got = pk.palette_sums_by_k_cwide(*hsv, *tabs, cfg)
+    want = pk.palette_sums_by_k_cwide_plain(*hsv, *tabs, cfg)
+    counts, _ = pk.counts_s_from_fixed(pk.cell_counts_from_hsv(*hsv, cfg))
+    q = max(qz.palette_tier(counts, assign, cfg), 8)
+    k10 = pk.palette_sums_by_k(*hsv, *pk.palette_candidate_table(
+        assign, octree, cfg.num_cells, q), cfg)
+    sync()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K14 {label}: differs from plain, max abs err "
+                             f"{float((got - want).abs().max())} "
+                             f"(fixed-point units)")
+    if not torch.equal(got, k10):
+        raise AssertionError(f"K14 {label}: differs from K10 at q={q}")
+    if real is not None and not torch.equal(
+            got, pk.palette_sums_by_k_cwide(*real, *tabs, cfg)):
+        raise AssertionError(f"K14 {label}: the sentinel tail changes the "
+                             f"result")
+    log(f"  K14 {label}: accumulator equals its plain version's and K10's "
+        f"at q={q}" + (", the tail changes nothing" if real else ""))
+
+
 def phase_flat_kernels(kin, cfg, tables):
     """K9 and K10 (q=8 and q_full) against their plain versions at
     1080x1920 B=4 on flat HSV with a sentinel tail (check_flat_kernels),
-    and K9's counts against K1's on the same frames; returns max abs errors
-    and the timing phase's inputs."""
+    and K9's counts against K1's on the same frames; K15 against its plain
+    version and K9's counts; K14 against its plain version and K10
+    (check_cwide) on those frames and on a noise batch and a hue-wheel
+    batch.  Returns max abs errors and the timing phase's inputs."""
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import quantize as qz
+    from photohive_dsp_tpu_torch.ops.margin_sort import margin_sort
 
     _, q_full = qz.palette_widths(cfg)
     x = kin["u8"]
@@ -447,7 +519,34 @@ def phase_flat_kernels(kin, cfg, tables):
     log(f"  K9, K10 (q=8, q={q_full}) B={x.shape[0]} + {SENTINEL_TAIL} "
         f"sentinel px: accumulators equal their plain versions', K9 = K1's "
         f"counts, the tail changes nothing")
-    return {"K9": 0.0, "K10q8": 0.0, "K10qfull": 0.0}, dict(hsv=hsv, p=p)
+    ids = cell_ids(hsv, cfg)
+    k15 = pk.cell_counts_batched(ids, cfg.num_cells)
+    if not torch.equal(k15, pk.cell_counts_batched_plain(ids, cfg.num_cells)):
+        raise AssertionError("K15: differs from its plain version")
+    if not torch.equal(k15, counts):
+        raise AssertionError("K15: differs from K9's counts")
+    log(f"  K15 on the same pixels' cell ids (sentinels -> C): equals its "
+        f"plain version and K9's counts")
+    cw_tabs = pk.cwide_tables(kin["assign"], tables.octree)
+    check_cwide(hsv, kin["assign"], tables.octree, cfg, "1080x1920 B=4 "
+                f"(q={q_full} batch)", real)
+    rng = np.random.default_rng(SEED + 5)
+    for label, make in (("noise", noise_image), ("hue wheel",
+                                                 hue_wheel_image)):
+        frames = torch.as_tensor(np.stack([planar(make(rng))
+                                           for _ in range(x.shape[0])]),
+                                 device=DEVICE)
+        f_hsv = flat_hsv(frames, SENTINEL_TAIL)
+        f_counts, _ = pk.counts_s_from_fixed(pk.cell_counts_from_hsv(*f_hsv,
+                                                                     cfg))
+        f_assign = qz.parent_assignment_from_order(
+            f_counts, margin_sort(qz.saliency_f32(f_counts,
+                                                  tables.octree.s_v_f32,
+                                                  cfg)), p, cfg, tables.octree)
+        check_cwide(f_hsv, f_assign, tables.octree, cfg,
+                    f"{label} 1080x1920 B={x.shape[0]}")
+    return ({"K9": 0.0, "K10q8": 0.0, "K10qfull": 0.0, "K14": 0.0,
+             "K15": 0.0}, dict(hsv=hsv, p=p, ids=ids, cw_tabs=cw_tabs))
 
 
 def phase_blur_kernels(images, cfg):
@@ -587,6 +686,294 @@ def phase_main_path(images, cfg):
     return launches, tables_gpu, batch_gpu, bboxes, bvalid
 
 
+# The kernels each palette variant must launch on the corpus path, and
+# those of the other variants, which it must not.
+CORPUS_COUNTERS = {
+    "bf16": ("cell_counts_s", "palette_sums_q1", "palette_sums_q8",
+             "palette_sums_qfull"),
+    "candidate": ("cell_counts_s_f32", "palette_sums_q1_f32",
+                  "palette_sums_q8_f32", "palette_sums_qfull_f32"),
+    "cwide": ("cell_counts_hsv", "palette_sums_cwide"),
+}
+CORPUS_SHARED = ("margin_sort", "fft_rows", "fft_cols", "polar_bins")
+
+
+def corpus_images():
+    """Config #3's corpus: CORPUS_IMAGES uint8 (H, W, 3) frames, image i of
+    CORPUS_SHAPES[i % 3].  Within a shape the kind changes with each batch
+    of CORPUS_BATCH: noise (q=8), structured (q=1), hue wheel (q_full),
+    over again, so every palette tier runs under every variant; structured
+    and wheel frames are their shape's one frame rolled by a random
+    offset."""
+    rng = np.random.default_rng(SEED + 4)
+    bases = {hw: {"structured": structured_image(rng, *hw),
+                  "hue wheel": hue_wheel_image(rng, *hw)}
+             for hw in CORPUS_SHAPES}
+    items = []
+    for i in range(CORPUS_IMAGES):
+        hw = CORPUS_SHAPES[i % len(CORPUS_SHAPES)]
+        kind = CORPUS_KINDS[(i // len(CORPUS_SHAPES) // CORPUS_BATCH)
+                            % len(CORPUS_KINDS)]
+        img = noise_image(rng, *hw) if kind == "noise" else np.roll(
+            bases[hw][kind], int(rng.integers(hw[1])), axis=1)
+        items.append((i, img))
+    return items
+
+
+def row_report(data, img):
+    """A Report from one image's row of run_corpus's output."""
+    import photohive_dsp_tpu_torch as pt
+
+    return pt.Report(data, img.shape[0], img.shape[1])
+
+
+def compare_variants(got: dict, ref: dict, label: str) -> None:
+    """One image's report under two palette variants: ids, n and
+    percentages equal, HSV < 5e-3, saturation rel < 1e-6, the rest
+    equal."""
+    for f in ("palette_ids", "palette_n", "palette_pct", "rgb_stats",
+              "sharpness", "blur_bins", "blur_vector_angles",
+              "blur_vector_mags"):
+        if not np.array_equal(got[f], ref[f]):
+            raise AssertionError(f"{label}: {f} differs")
+    hsv = np.abs(got["palette_hsv"] - ref["palette_hsv"]).max(initial=0.0)
+    sat = abs(got["average_saturation"] / ref["average_saturation"] - 1)
+    if not (hsv < 5e-3 and sat < 1e-6):
+        raise AssertionError(f"{label}: hsv {hsv}, saturation rel err {sat}")
+
+
+def corpus_subset(items) -> set:
+    """Keys of each bucket's first batch and its padded tail."""
+    keys = set()
+    for j in range(len(CORPUS_SHAPES)):
+        bucket = [k for k, _ in items[j::len(CORPUS_SHAPES)]]
+        tail = len(bucket) % CORPUS_BATCH
+        keys.update(bucket[:CORPUS_BATCH] + (bucket[-tail:] if tail else []))
+    return keys
+
+
+def phase_corpus(cfg, smi: str):
+    """run_corpus over config #3 under each palette variant (timed, each
+    with its launch counts), the variants' reports against each other and,
+    on corpus_subset, against get_report; run_stream_u8 with and without
+    prefetch; process_corpus with a crash and a resume.  Returns the launch
+    counts by variant and the MP/s measured."""
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.models import batch
+    from photohive_dsp_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    items = corpus_images()
+    images = dict(items)
+    mp = sum(im.shape[0] * im.shape[1] for _, im in items) / 1e6
+    batch.warmup(CORPUS_SHAPES, cfg, CORPUS_BATCH, DEVICE)
+    log(f"  {len(items)} frames, {mp:.1f} MP, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reports, launches, mps = {}, {}, {}
+    try:
+        for variant in VARIANTS:
+            os.environ["PHOTOHIVE_PALETTE_KERNEL"] = variant
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            reports[variant] = dict(batch.run_corpus(
+                iter(items), cfg, CORPUS_BATCH, DEVICE))
+            sync()
+            dt = time.perf_counter() - t0
+            launches[variant] = dict(_cuda.LAUNCHES)
+            mps[variant] = mp / dt
+            log(f"  run_corpus {variant}: {dt:.3f} s, {mps[variant]:.1f} "
+                f"MP/s ({smi}); launches "
+                f"{ {k: v for k, v in launches[variant].items() if v} }")
+    finally:
+        os.environ.pop("PHOTOHIVE_PALETTE_KERNEL", None)
+    for variant in VARIANTS:
+        if sorted(reports[variant]) != sorted(images):
+            raise AssertionError(f"run_corpus {variant}: keys differ from "
+                                 f"the corpus")
+        others = [k for v in VARIANTS if v != variant
+                  for k in CORPUS_COUNTERS[v]
+                  if k not in CORPUS_COUNTERS[variant]]
+        check_launches(launches[variant],
+                       CORPUS_COUNTERS[variant] + CORPUS_SHARED,
+                       f"corpus path ({variant})")
+        stray = [k for k in others if launches[variant][k]]
+        if stray:
+            raise AssertionError(f"corpus path ({variant}) launched another "
+                                 f"variant's kernels: {stray}")
+    fields = {v: {k: report_fields(row_report(d, images[k]))
+                  for k, d in reports[v].items()} for v in VARIANTS}
+    for key in images:
+        for variant in VARIANTS[1:]:
+            compare_variants(fields[variant][key], fields["bf16"][key],
+                             f"corpus image {key} {variant} vs bf16")
+    log(f"  every report equal across {', '.join(VARIANTS)}")
+    subset = sorted(corpus_subset(items))
+    for key in subset:
+        ref = pt.get_report(images[key], device=DEVICE)
+        compare_reports(fields["bf16"][key], report_fields(ref),
+                        f"corpus image {key}", "get_report")
+    log(f"  {len(subset)} images (each bucket's first batch and tail) equal "
+        f"get_report's")
+    stream = stream_times(cfg, items, smi)
+    corpus_breakdown(cfg, items, smi)
+    txt = corpus_txt_resume(cfg, images)
+    return launches, dict(mps, **stream, txt_mps=txt)
+
+
+def corpus_breakdown(cfg, items, smi: str) -> None:
+    """Where one run_corpus batch's time goes, each of its steps timed
+    alone on the host clock, synchronised, on the 1080x1920 bucket's first
+    batch: np.stack of the frames, their pageable copy to the card,
+    full_report_batched there (BatchRunner.run_u8 on the device tensor),
+    the copy of the reports to the host.  Medians of 3."""
+    from photohive_dsp_tpu_torch.models import batch
+    from photohive_dsp_tpu_torch.models.pipeline import ReportData
+
+    runner = batch.BatchRunner(cfg, DEVICE)
+    hw = CORPUS_SHAPES[1]
+    frames = [img for _, img in items if img.shape[:2] == hw][:CORPUS_BATCH]
+    steps = {"stack": [], "copy in": [], "report": [], "copy out": []}
+    for _ in range(3):
+        t = [time.perf_counter()]
+        arr = np.stack(frames)
+        t.append(time.perf_counter())
+        x = torch.as_tensor(arr).to(DEVICE)
+        sync()
+        t.append(time.perf_counter())
+        out = runner.run_u8(x)
+        sync()
+        t.append(time.perf_counter())
+        ReportData(*(v.cpu() for v in out))
+        t.append(time.perf_counter())
+        for k, a, b in zip(steps, t, t[1:]):
+            steps[k].append(1e3 * (b - a))
+    med = {k: float(np.median(v)) for k, v in steps.items()}
+    log(f"  one run_corpus batch, B={CORPUS_BATCH} {hw[0]}x{hw[1]} u8, "
+        f"median of 3 ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                        med.items())
+        + f"; sum {sum(med.values()):.3f} ({smi})")
+
+
+def stream_times(cfg, items, smi: str) -> dict:
+    """run_stream_u8 over the 1080x1920 bucket's full batches, without and
+    with prefetch (in turns 0, 2, 2, 0): results equal, MP/s of each."""
+    from photohive_dsp_tpu_torch.models import batch
+
+    runner = batch.BatchRunner(cfg, DEVICE)
+    hh, ww = CORPUS_SHAPES[1]
+    frames = [img for _, img in items if img.shape[:2] == (hh, ww)]
+    n = len(frames) // CORPUS_BATCH
+    boxes, valid = (np.zeros((CORPUS_BATCH, 10, 4), np.int32),
+                    np.zeros((CORPUS_BATCH, 10), bool))
+    batches = [(np.stack(frames[i * CORPUS_BATCH:(i + 1) * CORPUS_BATCH]),
+                boxes, valid) for i in range(n)]
+    mp = n * CORPUS_BATCH * hh * ww / 1e6
+    out, rates = {}, {0: [], 2: []}
+    for prefetch in (0, 2, 2, 0):
+        t0 = time.perf_counter()
+        out[prefetch] = list(runner.run_stream_u8(iter(batches), prefetch))
+        sync()
+        rates[prefetch].append(mp / (time.perf_counter() - t0))
+    for a, b in zip(out[0], out[2]):
+        for x, y in zip(a, b):
+            if not torch.equal(x, y):
+                raise AssertionError("run_stream_u8: prefetch changes the "
+                                     "reports")
+    res = {f"stream_prefetch{k}_mps": float(np.mean(v))
+           for k, v in rates.items()}
+    log(f"  run_stream_u8 {n} x B={CORPUS_BATCH} {hh}x{ww} u8 (host "
+        f"arrays): prefetch 0 {res['stream_prefetch0_mps']:.1f} MP/s "
+        f"({rates[0][0]:.1f}, {rates[0][1]:.1f}), prefetch 2 "
+        f"{res['stream_prefetch2_mps']:.1f} MP/s ({rates[2][0]:.1f}, "
+        f"{rates[2][1]:.1f}) ({smi}); results equal")
+    return res
+
+
+def same_report_dict(got: dict, want: dict, label: str) -> None:
+    """Two JSONL reports of one image: the same keys in order; integers
+    equal (a colour channel, an HSV average truncated to an int, may move
+    by one); floats within 1e-5 relative."""
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: keys differ")
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, int) and not isinstance(w, bool):
+            ok = g == w or (k.startswith("Color") and abs(g - w) <= 1)
+        else:
+            ok = abs(g - w) <= 1e-5 * abs(w)
+        if not ok:
+            raise AssertionError(f"{label}: {k} {g} vs {w}")
+
+
+def corpus_txt_resume(cfg, images) -> float:
+    """process_corpus on TXT_FRAMES 720x1280 .txt frames (the port's native
+    writer), batch 4, flushing every 4: a crash after the fifth report,
+    then a resume; every key appears once and every report equals
+    run_corpus's.  Returns the resumed run's MP/s."""
+    import json
+    import tempfile
+
+    from photohive_dsp_tpu_torch import runtime as native_rt
+    from photohive_dsp_tpu_torch.models import batch
+    from photohive_dsp_tpu_torch.utils import io as phio
+
+    hh, ww = CORPUS_SHAPES[0]
+    frames = [img for img in images.values() if img.shape[:2] == (hh, ww)]
+    frames = frames[:TXT_FRAMES]
+    with tempfile.TemporaryDirectory() as d:
+        paths = [os.path.join(d, f"frame_{i}.txt") for i in range(len(frames))]
+        for p, img in zip(paths, frames):
+            if not native_rt.write_txt_u8(p, img):
+                raise AssertionError("the native .txt writer did not build")
+        real = phio.run_corpus
+
+        def crashing(*args, **kw):
+            for n, item in enumerate(real(*args, **kw)):
+                yield item
+                if n == 4:
+                    raise RuntimeError("injected crash")
+
+        out_dir = os.path.join(d, "out")
+        phio.run_corpus = crashing
+        try:
+            phio.process_corpus(paths, out_dir, cfg, batch_size=4,
+                                flush_every=4, device=DEVICE)
+            raise AssertionError("the injected crash did not happen")
+        except RuntimeError as e:
+            if str(e) != "injected crash":
+                raise
+        finally:
+            phio.run_corpus = real
+        t0 = time.perf_counter()
+        n = phio.process_corpus(paths, out_dir, cfg, batch_size=4,
+                                flush_every=4, device=DEVICE)
+        dt = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "reports.0.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        with open(os.path.join(out_dir, "watermark.0")) as f:
+            marked = [line.strip() for line in f if line.strip()]
+    # The fifth report was written but not watermarked before the crash:
+    # the resume finds it in the shard, so it is neither redone nor marked.
+    keys = [ln["key"] for ln in lines]
+    if n != len(paths) - 5 or sorted(keys) != sorted(paths) \
+            or len(set(marked)) != len(marked) or len(marked) != n + 4:
+        raise AssertionError(f"process_corpus resume: {n} processed, keys "
+                             f"{len(keys)} ({len(set(keys))} distinct), "
+                             f"watermark {len(marked)}")
+    want = dict(batch.run_corpus(zip(paths, frames), cfg, 4, DEVICE))
+    for ln in lines:
+        img = frames[paths.index(ln["key"])]
+        same_report_dict(ln["report"], row_report(want[ln["key"]],
+                                                  img).to_dict(),
+                         f"process_corpus {os.path.basename(ln['key'])}")
+    mp = n * hh * ww / 1e6
+    log(f"  process_corpus {len(paths)} x {hh}x{ww} .txt: crash after 5 "
+        f"reports (4 watermarked), resume processed {n} in {dt:.3f} s "
+        f"({mp / dt:.1f} MP/s, .txt parse included); every key once, "
+        f"reports equal run_corpus's")
+    return mp / dt
+
+
 def spatial_frames():
     """The spatial path's 4320x7680 uint8 frames, planar (3, H, W): noise
     (the palette's q=8 tier) and the hue wheel (q_full)."""
@@ -668,10 +1055,11 @@ def phase_spatial(cfg):
     """build_spatial_report on one NCCL rank against the single-device
     full_report_batched on the card, at 4320x7680: the noise frame with
     main_boxes, then with a thin box, the hue-wheel frame with main_boxes;
-    then the path's kernels against their plain versions on the rank's own
-    inputs (spatial_kernels).  Returns the launch counts of the report
-    calls, the spatial call's warm wall time and the kernels' max abs
-    errors."""
+    then one call under the cwide variant (K14) against the bf16 one; then
+    the path's kernels against their plain versions on the rank's own
+    inputs (spatial_kernels).  Returns the launch counts of the bf16
+    report calls, the spatial call's warm wall time and the kernels' max
+    abs errors."""
     import tempfile
 
     import torch.distributed as dist
@@ -699,6 +1087,14 @@ def phase_spatial(cfg):
         sync()
         launches = dict(_cuda.LAUNCHES)
         log(f"  launch counts in the spatial-path run: {launches}")
+        os.environ["PHOTOHIVE_PALETTE_KERNEL"] = "cwide"
+        try:
+            _cuda.reset_launch_counts()
+            cwide = fn(frames["noise"], *boxes)
+            sync()
+            cw_launches = dict(_cuda.LAUNCHES)
+        finally:
+            os.environ.pop("PHOTOHIVE_PALETTE_KERNEL", None)
         wall = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -717,6 +1113,19 @@ def phase_spatial(cfg):
                         data_fields(ref, 0), f"spatial {SH}x{SW} {label}",
                         "the single-device path")
     check_launches(launches, SPATIAL_COUNTERS, "spatial path")
+    check_launches(cw_launches, ("cell_counts_hsv", "palette_sums_cwide"),
+                   "spatial path under cwide")
+    if cw_launches["palette_sums_flat_q8"] or \
+            cw_launches["palette_sums_flat_qfull"]:
+        raise AssertionError("spatial path under cwide launched K10")
+    bf16 = {k: v[None] for k, v in out[0]._asdict().items()}
+    cw = {k: v[None] for k, v in cwide._asdict().items()}
+    compare_variants(data_fields(pt.ReportData(**cw), 0),
+                     data_fields(pt.ReportData(**bf16), 0),
+                     f"spatial {SH}x{SW} noise+3 boxes, cwide vs bf16")
+    log(f"  spatial {SH}x{SW} noise+3 boxes under cwide (K14 launched "
+        f"{cw_launches['palette_sums_cwide']}x, K10 0x): equals the bf16 "
+        f"call")
     wall_ms = 1e3 * float(np.median(wall))
     log(f"  build_spatial_report {SH}x{SW} u8, 1 rank, 3 boxes, warm: "
         f"median {wall_ms:.1f} ms (min {1e3 * min(wall):.1f}, n=3)")
@@ -827,6 +1236,11 @@ def dilated_area(boxes, valid, h: int, w: int) -> int:
     return int(mask.sum())
 
 
+# Launches of each plain version timed (3 by default): K14's builds a
+# (1 M px, C) distance matrix a chunk.
+PLAIN_ITERS = {"K14": 1}
+
+
 def phase_timing(images, cfg, kin, bkin, skin, fkin, main):
     import photohive_dsp_tpu_torch as pt
     from photohive_dsp_tpu_torch.ops import fft_kernels as fk
@@ -866,13 +1280,17 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main):
 
     c = cfg.num_cells
     _, q_full = qz.palette_widths(cfg)
-    x = kin["u8"]
+    x, xf = kin["u8"], kin["f32"]
     assign = kin["assign"]
     cand = {"K4q8": pk.palette_candidate_table(assign, tables.octree, c, 8),
             "K4qfull": pk.palette_candidate_table(assign, tables.octree, c,
                                                   q_full)}
     c8, cf = cand["K4q8"], cand["K4qfull"]
-    hsv = fkin["hsv"]
+    hsv, cw, cells = fkin["hsv"], fkin["cw_tabs"], fkin["ids"]
+    cells_l = cells.long()
+    ones_l = torch.ones_like(cells_l)
+    acc15 = torch.zeros((cells.shape[0], c + 1), dtype=torch.int64,
+                        device=DEVICE)
     fx, plan, spec, flat = bkin["x"], bkin["plan"], bkin["spec"], bkin["flat"]
     ids = bkin["polar"].bin_ids
     nb = cfg.angle_partitions * cfg.radius_partitions
@@ -907,23 +1325,38 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main):
                   lambda: pk.palette_sums_by_k_plain(*hsv, *c8, cfg)),
         "K10qfull": (lambda: pk.palette_sums_by_k(*hsv, *cf, cfg),
                      lambda: pk.palette_sums_by_k_plain(*hsv, *cf, cfg)),
+        "K11": (lambda: pk.cell_counts_s_from_rgb(xf, cfg),
+                lambda: pk.cell_counts_s_from_rgb_plain(xf, cfg)),
+        "K12": (lambda: pk.palette_sums_by_k_rgb_q1(xf, kin["slot"],
+                                                    kin["off"], cfg),
+                lambda: pk.palette_sums_by_k_rgb_q1_plain(
+                    xf, kin["slot"], kin["off"], cfg)),
+        "K13q8": (lambda: pk.palette_sums_by_k_rgb(xf, *c8, cfg),
+                  lambda: pk.palette_sums_by_k_rgb_plain(xf, *c8, cfg)),
+        "K13qfull": (lambda: pk.palette_sums_by_k_rgb(xf, *cf, cfg),
+                     lambda: pk.palette_sums_by_k_rgb_plain(xf, *cf, cfg)),
+        "K14": (lambda: pk.palette_sums_by_k_cwide(*hsv, *cw, cfg),
+                lambda: pk.palette_sums_by_k_cwide_plain(*hsv, *cw, cfg)),
+        "K15": (lambda: pk.cell_counts_batched(cells, c),
+                lambda: pk.cell_counts_batched_plain(cells, c)),
     }
     # One PyTorch call computing the same function, where there is one.
     library = {
         "K6a": lambda: torch.fft.rfft(fx, dim=-1),
         "K6b": lambda: torch.fft.fft(zc, dim=1).abs().square(),
         "K7+K8": lambda: acc.index_add_(1, ids_l, gated),
+        "K15": lambda: acc15.scatter_add_(1, cells_l, ones_l),
     }
     times = {}
     for key, (kern, plain) in pairs.items():
         # plain, library, kernel, kernel, library, plain; the mean of each
         lib = library.get(key)
-        p1 = cuda_ms(plain, 3)
+        p1 = cuda_ms(plain, PLAIN_ITERS.get(key, 3))
         l1 = cuda_ms(lib, 20) if lib else None
         k1 = cuda_ms(kern, 20)
         k2 = cuda_ms(kern, 20)
         l2 = cuda_ms(lib, 20) if lib else None
-        p2 = cuda_ms(plain, 3)
+        p2 = cuda_ms(plain, PLAIN_ITERS.get(key, 3))
         times[key] = ((k1 + k2) / 2, (p1 + p2) / 2,
                       (l1 + l2) / 2 if lib else None)
         log(f"  {key}: kernel {times[key][0]:.4f} ms, plain "
@@ -946,6 +1379,10 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main):
         "K3": (x_bytes + b * c * 8 + b * c * 16,
                px * (OPS_CELL_PX + OPS_SLOT_PX)),
     }
+    xf_bytes = xf.numel() * xf.element_size()
+    for key in ("K1", "K3"):
+        work[F32_IDS[key]] = (work[key][0] - x_bytes + xf_bytes,
+                              work[key][1])
     for key, (cand_t, centres) in cand.items():
         per_cell = (cand_t < c).sum(dim=-1).long()
         n_cand = int((counts * per_cell).sum())
@@ -953,6 +1390,8 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main):
                      + b * c * 16,
                      px * (OPS_CELL_PX + OPS_SLOT_PX)
                      + n_cand * OPS_CANDIDATE)
+        work[F32_IDS[key]] = (work[key][0] - x_bytes + xf_bytes,
+                              work[key][1])
     fb, fh, fw = fx.shape
     half = fw // 2 + 1
     spec_bytes = fb * fh * half * 8
@@ -989,6 +1428,15 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main):
                      + b * c * 32,
                      real_px * (OPS_CELL_ID + OPS_SLOT_PX)
                      + n_cand * OPS_CANDIDATE)
+    # K14: the flat HSV, the bitmask and the centres in, the accumulator
+    # out; every allowed parent of each pixel's cell is one candidate.
+    n_allowed = int((counts * assign.allowed.sum(dim=-1)).sum())
+    work["K14"] = (hsv_bytes + cw[0].numel() * 4 + cw[1].numel() * 4
+                   + b * c * 32,
+                   real_px * (OPS_CELL_ID + OPS_SLOT_PX)
+                   + n_allowed * OPS_CANDIDATE)
+    # K15: the ids in (one range check each), the int32 counts out.
+    work["K15"] = (cells.numel() * 4 + b * c * 4, cells.numel())
     bounds = {k: bound(*v) for k, v in work.items()}
     for k, (ms, by) in bounds.items():
         log(f"  {k}: bound {ms:.5f} ms ({by}; {work[k][0] / 1e6:.2f} MB, "
@@ -1033,7 +1481,36 @@ KERNELS = [
     ("K10qfull", "palette_sums_by_k (q=q_full)", "palette_sums_flat_qfull",
      "photohive_dsp_tpu_torch/csrc/palette.cu",
      "photohive_dsp_tpu/ops/pallas_kernels.py:627"),
+    ("K11", "cell_counts_s (float32)", "cell_counts_s_f32",
+     "photohive_dsp_tpu_torch/csrc/palette.cu",
+     "photohive_dsp_tpu/ops/pallas_kernels.py:763"),
+    ("K12", "palette_sums_q1 (float32)", "palette_sums_q1_f32",
+     "photohive_dsp_tpu_torch/csrc/palette.cu",
+     "photohive_dsp_tpu/ops/pallas_kernels.py:872"),
+    ("K13q8", "palette_sums (float32, q=8)", "palette_sums_q8_f32",
+     "photohive_dsp_tpu_torch/csrc/palette.cu",
+     "photohive_dsp_tpu/ops/pallas_kernels.py:967"),
+    ("K13qfull", "palette_sums (float32, q=q_full)", "palette_sums_qfull_f32",
+     "photohive_dsp_tpu_torch/csrc/palette.cu",
+     "photohive_dsp_tpu/ops/pallas_kernels.py:967"),
+    ("K14", "palette_sums_by_k_cwide", "palette_sums_cwide",
+     "photohive_dsp_tpu_torch/csrc/palette.cu",
+     "photohive_dsp_tpu/ops/pallas_kernels_cwide.py:139"),
+    ("K15", "cell_counts_batched", "cell_counts_ids",
+     "photohive_dsp_tpu_torch/csrc/palette.cu",
+     "photohive_dsp_tpu/ops/pallas_kernels.py:299"),
 ]
+
+# Which run each kernel's launch count comes from.  K15 is on no path:
+# the JAX package calls it from tests and tools only.
+LAUNCHES_FROM = {"K9": "spatial path", "K10q8": "spatial path",
+                 "K10qfull": "spatial path",
+                 "K11": "corpus path (candidate)",
+                 "K12": "corpus path (candidate)",
+                 "K13q8": "corpus path (candidate)",
+                 "K13qfull": "corpus path (candidate)",
+                 "K14": "corpus path (cwide)",
+                 "K15": "none: tests and tools only, as in the JAX package"}
 
 # The library call timed beside each kernel, or why there is none.
 LIBRARY = {
@@ -1049,6 +1526,13 @@ LIBRARY = {
     "K9": "none: no PyTorch call computes the sentinel HSV cell histogram",
     "K10q8": "none: no PyTorch call computes the tie-broken palette sums",
     "K10qfull": "none: no PyTorch call computes the tie-broken palette sums",
+    "K11": "none, as K1",
+    "K12": "none, as K3",
+    "K13q8": "none, as K3",
+    "K13qfull": "none, as K3",
+    "K14": "none, as K3",
+    "K15": "Tensor.scatter_add_ of ones into (B, C + 1), ids outside [0, C) "
+           "mapped to column C",
 }
 
 
@@ -1074,26 +1558,30 @@ def main() -> int:
     err.update(blur_err)
     log("phase 4: main path")
     main_out = phase_main_path(images, cfg)
-    launches = main_out[0]
-    log("phase 5: spatial path")
-    spatial_launches, spatial_ms, spatial_err = phase_spatial(cfg)
+    launches = {"main path": main_out[0]}
+    log("phase 5: corpus path (bench.py config #3)")
+    by_variant, corpus_mps = phase_corpus(cfg, smi)
+    launches["corpus path (candidate)"] = by_variant["candidate"]
+    launches["corpus path (cwide)"] = by_variant["cwide"]
+    log("phase 6: spatial path")
+    launches["spatial path"], spatial_ms, spatial_err = phase_spatial(cfg)
     for key, e in spatial_err.items():
         err[key] = max(err[key], e)
-    # K9 and K10 run on the spatial path only.
-    for counter in ("cell_counts_hsv", "palette_sums_flat_q8",
-                    "palette_sums_flat_qfull"):
-        launches[counter] = spatial_launches[counter]
-    log("phase 6: timing (B=4 1080x1920: u8 for K1-K4, f32 luma for K5-K8, "
-        "flat HSV for K9-K10)")
+    log("phase 7: timing (B=4 1080x1920: u8 for K1-K4, f32 for K11-K13, "
+        "f32 luma for K5-K8, flat HSV for K9, K10, K14 and its cell ids for "
+        "K15)")
     times, bounds, lat_ms, mps = phase_timing(images, cfg, kin, bkin, skin,
                                               fkin, main_out)
 
     kernels = [dict(id=key, name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[counter], max_abs_err=err[key],
-                    ms=times[key][0], plain_ms=times[key][1],
-                    bound_ms=bounds[key][0], bound_by=bounds[key][1],
-                    library_ms=times[key][2], library=LIBRARY[key])
-               for key, name, counter, src, rep in KERNELS]
+                    launches=launches.get(path, {}).get(counter, 0),
+                    launches_from=path,
+                    max_abs_err=err[key], ms=times[key][0],
+                    plain_ms=times[key][1], bound_ms=bounds[key][0],
+                    bound_by=bounds[key][1], library_ms=times[key][2],
+                    library=LIBRARY[key])
+               for key, name, counter, src, rep in KERNELS
+               for path in [LAUNCHES_FROM.get(key, "main path")]]
     for entry in kernels:
         if entry["id"] in ("K6a", "K6b"):
             entry.update(k6_ms=times["K6"][0], k6_bound_ms=bounds["K6"][0],
@@ -1103,6 +1591,14 @@ def main() -> int:
         f"({times['K6'][0] / bounds['K6'][0]:.1f}x)")
     log(f"get_report warm median {lat_ms:.3f} ms; full_report_batched B=8 "
         f"{mps:.1f} MP/s; build_spatial_report {SH}x{SW} {spatial_ms:.1f} ms")
+    log(f"corpus path (config #3, {CORPUS_IMAGES} u8 frames, batch "
+        f"{CORPUS_BATCH}): run_corpus "
+        + ", ".join(f"{v} {corpus_mps[v]:.1f}" for v in VARIANTS)
+        + f" MP/s; run_stream_u8 {'x'.join(map(str, CORPUS_SHAPES[1]))} "
+        f"prefetch 0 "
+        f"{corpus_mps['stream_prefetch0_mps']:.1f}, prefetch 2 "
+        f"{corpus_mps['stream_prefetch2_mps']:.1f} MP/s; process_corpus "
+        f"resume {corpus_mps['txt_mps']:.1f} MP/s ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

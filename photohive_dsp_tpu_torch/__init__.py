@@ -9,18 +9,21 @@ Public API:
     get_report(image, boxes=None, *, config=None, device="cuda", **knobs)
     set_bounding_boxes(list_of_dicts) -> crop-box arrays
     ReportConfig, Report, ReportData, ReportTables, full_report_batched
+
+The batch and corpus layer: ``models.batch`` (BatchRunner, warmup,
+run_corpus) and ``utils.io`` (process_corpus, image IO).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .config import MAX_CROP_BOXES, ReportConfig, check_image_dims
-from .models.pipeline import ReportData, ReportTables, full_report_batched
+from .models.pipeline import (ReportData, ReportTables, cached_tables,
+                              full_report_batched, resolve_device)
 from .report import Report
 
 __version__ = "0.1.0"
@@ -62,15 +65,6 @@ def _image_to_planar(image) -> np.ndarray:
     return np.ascontiguousarray(np.moveaxis(arr, -1, 0))
 
 
-def _resolve_device(device) -> torch.device:
-    """The torch device to compute on; raises if CUDA is asked for and is
-    not there (no silent fallback to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but CUDA is not available")
-    return dev
-
-
 def get_report(image, boxes=None, *, config: Optional[ReportConfig] = None,
                device="cuda", **knobs) -> Optional[Report]:
     """Compute the full photo report for one image.
@@ -82,7 +76,7 @@ def get_report(image, boxes=None, *, config: Optional[ReportConfig] = None,
 
     Returns None (with a message) on invalid input, like the reference's
     NULL-report path (core.py:476-478, src/utilities.c:64-87)."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     cfg = config if config is not None else ReportConfig(**knobs)
     cfg.validate()
     planar = _image_to_planar(image)
@@ -97,7 +91,7 @@ def get_report(image, boxes=None, *, config: Optional[ReportConfig] = None,
         valid = np.zeros((MAX_CROP_BOXES,), bool)
     else:
         box_arr, valid = boxes
-    tables = _tables(height, width, cfg, dev)
+    tables = cached_tables(height, width, cfg, dev)
     # uint8 frames travel to the device as uint8 (4x fewer bytes); the
     # pipeline decodes them exactly.
     rgb = torch.from_numpy(planar)[None].to(dev)
@@ -106,10 +100,3 @@ def get_report(image, boxes=None, *, config: Optional[ReportConfig] = None,
     data = ReportData(*(x[0] for x in data))
     return Report(data, height, width, num_boxes=int(np.sum(valid)),
                   config=cfg)
-
-
-@functools.lru_cache(maxsize=16)
-def _tables(height: int, width: int, cfg: ReportConfig,
-            device: torch.device) -> ReportTables:
-    """ReportTables per (shape, config, device), built once."""
-    return ReportTables.build(height, width, cfg, device)

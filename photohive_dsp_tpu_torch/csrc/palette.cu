@@ -1,6 +1,7 @@
 // Palette kernels: the cell histogram with the saturation sum (K1, and K9
-// on flat HSV) and the per-slot palette sums at q=1 (K3) and q>1 (K4, and
-// K10 on flat HSV).
+// on flat HSV, K15 on precomputed cell ids) and the per-slot palette sums at
+// q=1 (K3), q>1 (K4, and K10 on flat HSV) and over each cell's allowed
+// parents (K14, C-wide, flat HSV).
 //
 // Replace (photohive_dsp_tpu/ops/pallas_kernels_bf16.py):
 //   K1 cell_counts_s_from_rgb   (_cell_counts_rgb_kernel_bf16)
@@ -9,11 +10,32 @@
 // and (photohive_dsp_tpu/ops/pallas_kernels.py):
 //   K9  cell_counts_from_hsv    (_cell_counts_hsv_kernel)
 //   K10 palette_sums_by_k       (_palette_kernel)
-// K9 and K10 are the same kernels as K1 and K4 fed by a flat-HSV pixel
-// source (HsvPixels below): (B, P) float32 h, s, v planes in which a hue
-// below 0 marks a pixel that counts for nothing (the row-sharded report's
-// padded rows).  Such a pixel is skipped before any table is touched, so a
-// sentinel tail changes no bit of the outputs.
+//   K11 cell_counts_s_from_rgb  (_cell_counts_rgb_kernel, float32 RGB)
+//   K12 palette_sums_by_k_rgb_q1 (_palette_rgb_q1_kernel, float32 RGB)
+//   K13 palette_sums_by_k_rgb   (_palette_rgb_kernel, float32 RGB)
+//   K15 cell_counts_batched     (_cell_counts_kernel)
+// and (photohive_dsp_tpu/ops/pallas_kernels_cwide.py):
+//   K14 palette_sums_by_k_cwide (_palette_kernel_cwide)
+// The TPU's "candidate" kernels K11-K13 and its bf16 kernels K1, K3 and K4
+// have one specification (exact counts, first-minimum tie-breaks) and
+// differ only in how they split MXU operands; here both are the float32
+// instantiations (RgbPixels<float>) of the one kernel per function, which
+// also takes uint8.  K9 and K10 are the same kernels as K1 and K4 fed by a
+// flat-HSV pixel source (HsvPixels below): (B, P) float32 h, s, v planes in
+// which a hue below 0 marks a pixel that counts for nothing (the
+// row-sharded report's padded rows).  Such a pixel is skipped before any
+// table is touched, so a sentinel tail changes no bit of the outputs.  K15
+// is K1's kernel fed precomputed cell ids (CellIdPixels); an id outside
+// [0, C) counts for nothing.
+//
+// K14 is K10 with the candidate table replaced by each cell's allowed
+// parents as a bitmask (ceil(C/32) words per cell): a pixel walks the set
+// bits of its cell's row in ascending slot order, so it needs no q tier
+// and no tier read on the host.  Where K10 and K14 see the same candidates
+// their accumulators are equal bit for bit.  A cell with no allowed parent
+// (which parent_assignment_from_order never makes for a populated cell)
+// sends its pixels to slot 0, as the TPU kernel's finite masking does;
+// K10 drops them.
 //
 // What bounds them on an H100: each pixel costs three loads (3 B as u8,
 // 12 B as f32), then ~60 float ops including four IEEE divisions for HSV and
@@ -35,7 +57,10 @@
 //
 // The flat-HSV kernels read 12 B per real pixel (4 B per sentinel pixel)
 // and skip the HSV arithmetic; they stay bound by the cell-id divisions
-// and the shared-memory atomics.
+// and the shared-memory atomics.  K14's bitmask is C * ceil(C/32) words
+// (1.8 KB at C=112) and sits in shared memory like K4's candidate table;
+// past kSharedBudget (C=2164: 585 KB) it is read from device memory, as
+// K4's table is.  K15 reads 4 B per id and does one atomic.
 //
 // Every sum is exact and order-free: counts are integers, and hue, s and v
 // (all >= 0 and <= 360) are added as 64-bit fixed point with 28 fraction
@@ -55,9 +80,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr long long kPixelsPerBlock = kThreads * 32;
 constexpr double kFixedOne = 268435456.0;  // 2^28
-// Shared memory a block may take for K4's candidate table before the
-// table is read from device memory instead (huge configs: C=2164 has up to
-// 728 candidates per cell).
+// Shared memory a block may take for K4's candidate table (or K14's
+// bitmask) before the table is read from device memory instead (huge
+// configs: C=2164 has up to 728 candidates per cell).
 constexpr size_t kSharedBudget = 160 * 1024;
 
 typedef unsigned long long u64;
@@ -112,7 +137,21 @@ struct HsvPixels {
   }
 };
 
-// ----------------------------------------------------------- K1 / K9 ---
+// Precomputed cell ids, (B, P) int32: an id outside [0, C) counts for
+// nothing.  No saturation (s = 0).
+struct CellIdPixels {
+  const int* ids;
+  long long pixels;
+  __device__ __forceinline__ bool load(int b, long long i, const CellParams& p,
+                                       float& h, float& s, float& v,
+                                       int& cell) const {
+    cell = ids[static_cast<long long>(b) * pixels + i];
+    h = s = v = 0.0f;
+    return cell >= 0 && cell < p.num_cells;
+  }
+};
+
+// ----------------------------------------------------- K1 / K9 / K15 ---
 // acc: (B, C + 1) u64 = [count per cell..., fixed-point sum of s].
 template <typename Src>
 __global__ void cell_counts_s_kernel(Src src, CellParams p,
@@ -154,20 +193,25 @@ __global__ void cell_counts_s_finish(const u64* __restrict__ acc, int c,
   for (int i = threadIdx.x; i < c; i += blockDim.x) {
     counts[static_cast<long long>(b) * c + i] = static_cast<int>(row[i]);
   }
-  if (threadIdx.x == 0) s_sum[b] = from_fixed(row[c]);
+  if (threadIdx.x == 0 && s_sum) s_sum[b] = from_fixed(row[c]);
 }
 
-// ------------------------------------------------------- K3 / K4 / K10 -
+// ------------------------------------------------- K3 / K4 / K10 / K14 -
 // acc: (B, C, 4) u64 = per valid-order slot [hue, s, v, count], the first
-// three in fixed point.  kQ1 selects K3 (slot and offset are functions of
-// the cell) or K4 / K10 (first minimum distance over the cell's
-// candidates).
-template <typename Src, bool kQ1>
+// three in fixed point.  How a pixel finds its slot:
+enum SlotRule {
+  kSlotOfCell,  // K3: slot and hue offset are functions of the cell
+  kCandidates,  // K4 / K10: first minimum over the cell's q candidates
+  kAllowedBits  // K14: first minimum over the set bits of the cell's row
+};
+
+template <typename Src, int kRule>
 __global__ void palette_sums_kernel(Src src, CellParams p,
                                     const int* __restrict__ cell_tab,
                                     const float* __restrict__ val_tab, int q,
                                     bool tab_in_shared,
                                     u64* __restrict__ acc) {
+  constexpr bool kQ1 = kRule == kSlotOfCell;
   extern __shared__ u64 smem[];
   const int c = p.num_cells;
   const int b = blockIdx.y;
@@ -175,7 +219,8 @@ __global__ void palette_sums_kernel(Src src, CellParams p,
   u64* sums = smem;
   unsigned int* cnt = reinterpret_cast<unsigned int*>(sums + 3 * c);
   float* vals = reinterpret_cast<float*>(cnt + c);
-  // K3: vals = hue offset per cell (C); K4: centres by slot (h | s | v).
+  // K3: vals = hue offset per cell (C); else centres by slot (h | s | v).
+  // The cell table has q entries a cell (K14: q bitmask words).
   const int n_vals = kQ1 ? c : 3 * c;
   int* tab_sh = reinterpret_cast<int*>(vals + n_vals);
   const int tab_len = kQ1 ? c : c * q;
@@ -213,15 +258,12 @@ __global__ void palette_sums_kernel(Src src, CellParams p,
       off = vals[cell];
     } else {
       // Distance in the exact float32 op order of
-      // photohive_dsp_tpu/ops/quantize.py:364-371; candidates ascend in
-      // valid order with sentinels (>= C) last, so the strict < keeps the
-      // first minimum, the reference's tie rule.
-      const int* row = tab + static_cast<long long>(cell) * q;
+      // photohive_dsp_tpu/ops/quantize.py:364-371; slots are visited in
+      // ascending valid order, so the strict < keeps the first minimum,
+      // the reference's tie rule.
       float best = INFINITY;
       k = c;
-      for (int j = 0; j < q; ++j) {
-        const int kk = row[j];
-        if (kk >= c) break;
+      auto visit = [&](int kk) {
         float hd = fabsf(__fsub_rn(h, vals[kk]));
         hd = hd > 180.0f ? __fsub_rn(360.0f, hd) : hd;
         hd = __fmul_rn(hd, p.inv360);
@@ -233,6 +275,24 @@ __global__ void palette_sums_kernel(Src src, CellParams p,
           best = d;
           k = kk;
         }
+      };
+      const int* row = tab + static_cast<long long>(cell) * q;
+      if (kRule == kCandidates) {
+        // Candidates ascend with sentinels (>= C) last.
+        for (int j = 0; j < q; ++j) {
+          const int kk = row[j];
+          if (kk >= c) break;
+          visit(kk);
+        }
+      } else {
+        for (int w = 0; w < q; ++w) {
+          for (unsigned int bits = static_cast<unsigned int>(row[w]); bits;
+               bits &= bits - 1u) {
+            visit(32 * w + __ffs(static_cast<int>(bits)) - 1);
+          }
+        }
+        // An empty row: slot 0, as the TPU kernel's finite mask gives.
+        if (k == c) k = 0;
       }
       off = k < c ? __fsub_rn(180.0f, vals[k]) : 0.0f;
     }
@@ -277,19 +337,20 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// sums_out == nullptr (K10) leaves the result in acc (fixed point).
-template <typename Src, bool kQ1>
+// sums_out == nullptr (K10, K14) leaves the result in acc (fixed point).
+template <typename Src, int kRule>
 cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
                                 const int* cell_tab, const float* val_tab,
                                 int q, float* sums_out, u64* acc,
                                 cudaStream_t stream) {
+  constexpr bool kQ1 = kRule == kSlotOfCell;
   const int c = p.num_cells;
   const size_t base = 3 * c * sizeof(u64) + c * sizeof(unsigned int) +
                       (kQ1 ? c : 3 * c) * sizeof(float);
   const size_t tab = (kQ1 ? c : static_cast<size_t>(c) * q) * sizeof(int);
   const bool tab_in_shared = base + tab <= kSharedBudget;
   const size_t bytes = base + (tab_in_shared ? tab : 0);
-  auto kernel = palette_sums_kernel<Src, kQ1>;
+  auto kernel = palette_sums_kernel<Src, kRule>;
   cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(acc, 0, static_cast<size_t>(batch) * c * 4 * sizeof(u64),
@@ -301,7 +362,8 @@ cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
   return cudaGetLastError();
 }
 
-// counts == nullptr (K9) leaves the result in acc (fixed point).
+// counts == nullptr (K9) leaves the result in acc (fixed point); s_sum ==
+// nullptr (K15) writes the counts alone.
 template <typename Src>
 cudaError_t launch_cell_counts_s(Src src, int batch, const CellParams& p,
                                  int* counts, float* s_sum, u64* acc,
@@ -374,10 +436,10 @@ extern "C" int ph_palette_sums_q1(const void* rgb, int is_u8, int batch,
   const float* off = static_cast<const float*>(offset_of_cell);
   float* out = static_cast<float*>(sums);
   u64* a = static_cast<u64*>(acc);
-  return is_u8 ? launch_palette_sums<RgbPixels<uint8_t>, true>(
+  return is_u8 ? launch_palette_sums<RgbPixels<uint8_t>, kSlotOfCell>(
                      rgb_pixels<uint8_t>(rgb, pixels), batch, *p, tab, off, 1,
                      out, a, st)
-               : launch_palette_sums<RgbPixels<float>, true>(
+               : launch_palette_sums<RgbPixels<float>, kSlotOfCell>(
                      rgb_pixels<float>(rgb, pixels), batch, *p, tab, off, 1,
                      out, a, st);
 }
@@ -392,10 +454,10 @@ extern "C" int ph_palette_sums(const void* rgb, int is_u8, int batch,
   const float* ctr = static_cast<const float*>(centers_by_k);
   float* out = static_cast<float*>(sums);
   u64* a = static_cast<u64*>(acc);
-  return is_u8 ? launch_palette_sums<RgbPixels<uint8_t>, false>(
+  return is_u8 ? launch_palette_sums<RgbPixels<uint8_t>, kCandidates>(
                      rgb_pixels<uint8_t>(rgb, pixels), batch, *p, tab, ctr, q,
                      out, a, st)
-               : launch_palette_sums<RgbPixels<float>, false>(
+               : launch_palette_sums<RgbPixels<float>, kCandidates>(
                      rgb_pixels<float>(rgb, pixels), batch, *p, tab, ctr, q,
                      out, a, st);
 }
@@ -406,8 +468,35 @@ extern "C" int ph_palette_sums_hsv(const void* h, const void* s, const void* v,
                                    const CellParams* p, const void* cand, int q,
                                    const void* centers_by_k, void* acc,
                                    void* stream) {
-  return launch_palette_sums<HsvPixels, false>(
+  return launch_palette_sums<HsvPixels, kCandidates>(
       hsv_pixels(h, s, v, pixels), batch, *p, static_cast<const int*>(cand),
       static_cast<const float*>(centers_by_k), q, nullptr,
       static_cast<u64*>(acc), static_cast<cudaStream_t>(stream));
+}
+
+// K14: allowed: (B, C, words) int32, bit k of word k / 32 of row cell set
+// when slot k is an allowed parent of the cell.  acc: (B, C, 4) u64.
+extern "C" int ph_palette_sums_cwide(const void* h, const void* s,
+                                     const void* v, int batch,
+                                     long long pixels, const CellParams* p,
+                                     const void* allowed, int words,
+                                     const void* centers_by_k, void* acc,
+                                     void* stream) {
+  return launch_palette_sums<HsvPixels, kAllowedBits>(
+      hsv_pixels(h, s, v, pixels), batch, *p, static_cast<const int*>(allowed),
+      static_cast<const float*>(centers_by_k), words, nullptr,
+      static_cast<u64*>(acc), static_cast<cudaStream_t>(stream));
+}
+
+// K15: cells: (B, pixels) int32; counts: (B, C) int32; acc: (B, C + 1) u64
+// scratch.
+extern "C" int ph_cell_counts_ids(const void* cells, int batch,
+                                  long long pixels, int num_cells,
+                                  void* counts, void* acc, void* stream) {
+  CellParams p{};
+  p.num_cells = num_cells;
+  return launch_cell_counts_s(
+      CellIdPixels{static_cast<const int*>(cells), pixels}, batch, p,
+      static_cast<int*>(counts), nullptr, static_cast<u64*>(acc),
+      static_cast<cudaStream_t>(stream));
 }

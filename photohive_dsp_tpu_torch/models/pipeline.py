@@ -4,7 +4,8 @@
 Mirrors the reference orchestrator get_full_report_data
 (src/interface.c:20-94) stage for stage:
 
-  downsample -> palette + mean saturation (downsampled, K1-K4)
+  downsample -> palette + mean saturation (downsampled; K1-K4, K11-K13
+  or, under PHOTOHIVE_PALETTE_KERNEL=cwide, flat HSV with K9/K14)
   -> rgb2pgm and rgb statistics (full res) -> crop sharpness (pre-DC
   removal) -> DC removal with the RGB brightness mean -> blur bins (FFT
   kernels K6a/K6b + log-gated polar kernel K7+K8 on shapes inside
@@ -18,6 +19,7 @@ sharpness comes before DC removal; the DC removed is (Br+Bg+Bb)/3.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -26,12 +28,15 @@ import torch
 from ..config import ReportConfig
 from ..ops.blur import (PolarTables, blur_bins_lognorm, blur_profile_bins,
                         vectorize_blur_profile)
-from ..ops.colorspace import downsample_rgb, rgb_to_pgm, u8_to_unit_f32
+from ..ops.colorspace import (downsample_rgb, rgb_to_hsv, rgb_to_pgm,
+                               u8_to_unit_f32)
 from ..ops.fft import magnitude_fft_normalized
 from ..ops.fft_plan import FftPlan, fft_kernel_eligible
-from ..ops.quantize import OctreeTables, color_palette_batched_from_rgb
+from ..ops.quantize import (OctreeTables, color_palette_batched,
+                             color_palette_batched_from_rgb,
+                             use_rgb_palette_path)
 from ..ops.sharpness import variance_sharpness_batched
-from ..ops.stats import div_const, rgb_statistics
+from ..ops.stats import div_const, mean_saturation, rgb_statistics
 
 
 class ReportData(NamedTuple):
@@ -77,6 +82,27 @@ class ReportTables(NamedTuple):
                                            np.asarray(oc.dist_ranks), device))
 
 
+def resolve_device(device) -> torch.device:
+    """The torch device to compute on; raises if CUDA is asked for and is
+    not there (no silent fallback to the CPU).  A bare "cuda" becomes the
+    current card, so caches keyed on the device see one name for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but CUDA is not "
+                               "available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@functools.lru_cache(maxsize=16)
+def cached_tables(height: int, width: int, cfg: ReportConfig,
+                  device: torch.device) -> ReportTables:
+    """ReportTables per (shape, config, device), built once."""
+    return ReportTables.build(height, width, cfg, device)
+
+
 def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
                         tables: ReportTables,
                         cfg: ReportConfig) -> ReportData:
@@ -88,9 +114,10 @@ def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
                  a host array.
     boxes_valid: (B, MAX_CROP_BOXES) bool, a host array.
 
-    The routes are picked on the host from the shape, the boxes and, once
-    per batch,
-    from one scalar of the palette's tie structure read from the device."""
+    The routes are picked on the host from the shape, the boxes, the
+    palette variant (``quantize.palette_kernel_variant``) and, once per
+    batch on the RGB palette routes, from one scalar of the palette's tie
+    structure read from the device."""
     # uint8 frames feed the palette kernels directly when no decimation is
     # configured (in-kernel x/255, bit-identical to the float planes).
     pal_in = rgb
@@ -98,10 +125,18 @@ def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
         rgb = u8_to_unit_f32(rgb)
     if pal_in.dtype != torch.uint8 or cfg.downsample_rate != 1:
         pal_in = downsample_rgb(rgb, cfg.downsample_rate)
-    pal_in = pal_in.contiguous()
-    palette, s_sum = color_palette_batched_from_rgb(pal_in, cfg,
-                                                    tables.octree)
-    s_bar = div_const(s_sum, pal_in.shape[2] * pal_in.shape[3])
+    if use_rgb_palette_path(pal_in.shape[2], pal_in.shape[3]):
+        pal_in = pal_in.contiguous()
+        palette, s_sum = color_palette_batched_from_rgb(pal_in, cfg,
+                                                        tables.octree)
+        s_bar = div_const(s_sum, pal_in.shape[2] * pal_in.shape[3])
+    else:
+        # The cwide route: flat HSV planes (12 B a pixel), K9 and K14.
+        if pal_in.dtype == torch.uint8:
+            pal_in = rgb
+        h, s, v = rgb_to_hsv(pal_in[:, 0], pal_in[:, 1], pal_in[:, 2])
+        s_bar = mean_saturation(s)
+        palette = color_palette_batched(h, s, v, cfg, tables.octree)
 
     pgm = rgb_to_pgm(rgb[:, 0], rgb[:, 1], rgb[:, 2])
     stats = rgb_statistics(rgb)

@@ -14,7 +14,10 @@ also spell their bit-critical arithmetic with the ``__f*_rn`` intrinsics.
 
 ``LAUNCHES`` counts kernel launches by name.  A wrapper adds one exactly
 where it launches its kernel, so a run can show which kernels it went
-through; ``reset_launch_counts`` zeroes the counts.
+through; ``reset_launch_counts`` zeroes the counts.  The RGB palette
+kernels count their uint8 launches (K1, K3, K4) and their float32 launches
+(``*_f32``: K11, K12, K13, which the ``candidate`` palette route takes)
+apart.
 """
 
 from __future__ import annotations
@@ -41,7 +44,10 @@ LAUNCHES = {"cell_counts_s": 0, "margin_sort": 0, "palette_sums_q1": 0,
             "palette_sums_q8": 0, "palette_sums_qfull": 0,
             "sharpness_sums": 0, "fft_rows": 0, "fft_cols": 0,
             "polar_bins": 0, "cell_counts_hsv": 0, "palette_sums_flat_q8": 0,
-            "palette_sums_flat_qfull": 0}
+            "palette_sums_flat_qfull": 0, "cell_counts_s_f32": 0,
+            "palette_sums_q1_f32": 0, "palette_sums_q8_f32": 0,
+            "palette_sums_qfull_f32": 0, "palette_sums_cwide": 0,
+            "cell_counts_ids": 0}
 
 _lib = None
 
@@ -116,6 +122,12 @@ _SIGNATURES = {
     # (h, s, v, batch, pixels, params, cand, q, centers_by_k, acc, stream)
     "ph_palette_sums_hsv": [_P, _P, _P, _I, _LL, _PARAMS, _P, _I, _P, _P,
                             _P],
+    # (h, s, v, batch, pixels, params, allowed, words, centers_by_k, acc,
+    #  stream)
+    "ph_palette_sums_cwide": [_P, _P, _P, _I, _LL, _PARAMS, _P, _I, _P, _P,
+                              _P],
+    # (cells, batch, pixels, num_cells, counts_out, acc, stream)
+    "ph_cell_counts_ids": [_P, _I, _LL, _I, _P, _P, _P],
     # (pgm, halo, batch, height, width, row_offset, boxes, partial,
     #  sums_out, stream)
     "ph_sharpness_sums": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],

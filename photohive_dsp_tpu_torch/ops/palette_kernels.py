@@ -1,20 +1,26 @@
-"""K1, K3, K4, K9 and K10: the palette's pixel passes, their plain
-versions and the per-image tables they read.
+"""K1, K3, K4, K9-K15: the palette's pixel passes, their plain versions and
+the per-image tables they read.
 
 Counterparts of ``photohive_dsp_tpu/ops/pallas_kernels_bf16.py``
 (``cell_counts_s_from_rgb``, ``palette_sums_by_k_rgb_q1``,
-``palette_sums_by_k_rgb``), of the flat-HSV kernels of
-``photohive_dsp_tpu/ops/pallas_kernels.py`` (``cell_counts_from_hsv``,
-``palette_sums_by_k``) and of its LUT builders (``palette_offset_lut``,
-``palette_candidate_lut``).  The CUDA kernels are csrc/palette.cu; each
-wrapper launches its kernel for CUDA tensors and takes the plain PyTorch
-version for CPU tensors.
+``palette_sums_by_k_rgb``), of the kernels of
+``photohive_dsp_tpu/ops/pallas_kernels.py`` (the flat-HSV
+``cell_counts_from_hsv`` and ``palette_sums_by_k``, the float32 "candidate"
+RGB kernels of the same names as the bf16 ones, ``cell_counts_batched``)
+and of its LUT builders (``palette_offset_lut``, ``palette_candidate_lut``),
+and of ``photohive_dsp_tpu/ops/pallas_kernels_cwide.py``
+(``palette_sums_by_k_cwide``, ``cwide_tables``).  The CUDA kernels are
+csrc/palette.cu; each wrapper launches its kernel for CUDA tensors and
+takes the plain PyTorch version for CPU tensors.
 
 The RGB input is (B, 3, H, W), float32 in [0, 1] or uint8, any H and W.
 Both forms give the same results: uint8 decodes to the correctly rounded
 x/255 (colorspace.u8_to_unit_f32 here, ``__fdiv_rn`` in the kernels).  The
-flat-HSV input is three (B, P) float32 planes; a hue below 0 marks a pixel
-that counts for nothing (the row-sharded report's padded rows).
+TPU's bf16 kernels (K1, K3, K4) and its float32 candidate kernels (K11,
+K12, K13) are one kernel each here; the launch counters tell uint8 launches
+(K1, K3, K4) from float32 ones (K11, K12, K13).  The flat-HSV input is
+three (B, P) float32 planes; a hue below 0 marks a pixel that counts for
+nothing (the row-sharded report's padded rows).
 
 Saturation and palette sums are exact on 64-bit fixed point
 (ops/fixed_point.py), in the kernels and in the plain versions alike.  The
@@ -37,8 +43,13 @@ from .quantize import ParentAssignment, OctreeTables, assign_cells, \
     candidate_slots
 
 _RGB_DTYPES = (torch.float32, torch.uint8)
-# Pixels per step of the plain K4/K10 tie-break (its (P, q) temporaries).
+# Pixels per step of the plain K4/K10 tie-break (its (P, q) temporaries)
+# and of the plain K14 (its (P, C) temporaries).
 _CHUNK_PX = 1 << 22
+_CWIDE_CHUNK_PX = 1 << 20
+# K14's mask value for slots outside a cell's allowed row: finite, as in
+# the JAX kernel (pallas_kernels._BIG), so an empty row picks slot 0.
+_BIG = 3.0e38
 
 
 def _check_rgb(rgb: torch.Tensor) -> None:
@@ -92,12 +103,18 @@ def _launch_args(rgb: torch.Tensor, cfg):
             ctypes.byref(_cuda.CellParams.for_config(cfg)))
 
 
+def _count(name: str, rgb: torch.Tensor) -> None:
+    """Count a launch of an RGB palette kernel: K1/K3/K4 for uint8 input,
+    K11/K12/K13 (``*_f32``) for float32."""
+    _cuda.LAUNCHES[name if rgb.dtype == torch.uint8 else name + "_f32"] += 1
+
+
 def _hsv_launch_args(h, s, v, cfg):
     return (_cuda.ptr(h), _cuda.ptr(s), _cuda.ptr(v), h.shape[0], h.shape[1],
             ctypes.byref(_cuda.CellParams.for_config(cfg)))
 
 
-# ----------------------------------------------------------- K1 / K9 ---
+# ----------------------------------------------------- K1 / K9 / K15 ---
 
 def _counts_s_fixed(cells: torch.Tensor, s: torch.Tensor, c: int):
     """(B, C + 1) int64 [count per cell, fixed-point sum of s] over the
@@ -135,7 +152,7 @@ def cell_counts_s_from_rgb(rgb: torch.Tensor, cfg):
     acc = torch.empty((b, c + 1), dtype=torch.int64, device=rgb.device)
     _cuda.launch("ph_cell_counts_s", rgb, *_launch_args(rgb, cfg),
                  _cuda.ptr(counts), _cuda.ptr(s_sum), _cuda.ptr(acc))
-    _cuda.LAUNCHES["cell_counts_s"] += 1
+    _count("cell_counts_s", rgb)
     return counts, s_sum
 
 
@@ -161,6 +178,37 @@ def cell_counts_from_hsv(h, s, v, cfg):
     return acc
 
 
+def cell_counts_batched_plain(cells: torch.Tensor, num_cells: int):
+    """Plain version of K15."""
+    c = num_cells
+    idx = torch.where((cells >= 0) & (cells < c), cells.long(), c)
+    acc = torch.zeros((cells.shape[0], c + 1), dtype=torch.int64,
+                      device=cells.device)
+    acc.scatter_add_(1, idx, torch.ones_like(idx))
+    return acc[:, :c].to(torch.int32)
+
+
+def cell_counts_batched(cells: torch.Tensor, num_cells: int):
+    """K15: histogram of precomputed cell ids, (B, P) int32 -> (B, C)
+    int32; an id outside [0, C) counts for nothing.  Counts are 64-bit in
+    the kernel, so the TPU kernel's 2^24-per-cell limit does not apply.
+    No product path calls it (the JAX package's tests and tools do)."""
+    _cuda.require(cells, "cells", (torch.int32,), 2)
+    if cells.shape[1] >= 1 << 31:
+        raise ValueError("cells: 2^31 or more ids per image")
+    if cells.device.type == "cpu":
+        return cell_counts_batched_plain(cells, num_cells)
+    b, p = cells.shape
+    counts = torch.empty((b, num_cells), dtype=torch.int32,
+                         device=cells.device)
+    acc = torch.empty((b, num_cells + 1), dtype=torch.int64,
+                      device=cells.device)
+    _cuda.launch("ph_cell_counts_ids", cells, _cuda.ptr(cells), b, p,
+                 num_cells, _cuda.ptr(counts), _cuda.ptr(acc))
+    _cuda.LAUNCHES["cell_counts_ids"] += 1
+    return counts
+
+
 # ------------------------------------------------------------ tables ----
 
 def palette_offset_table(assign: ParentAssignment, tables: OctreeTables,
@@ -184,7 +232,40 @@ def palette_candidate_table(assign: ParentAssignment, tables: OctreeTables,
             tables.centers[assign.order].contiguous())
 
 
-# ------------------------------------------------------- K3 / K4 / K10 -
+def allowed_bitmask(allowed: torch.Tensor) -> torch.Tensor:
+    """(B, C, C) bool -> (B, C, ceil(C/32)) int32: bit k % 32 of word
+    k // 32 of row ``cell`` is set when slot k is an allowed parent of the
+    cell (K14's table)."""
+    b, c, _ = allowed.shape
+    words = -(-c // 32)
+    bits = torch.zeros((b, c, words * 32), dtype=torch.int64,
+                       device=allowed.device)
+    bits[..., :c] = allowed
+    weights = torch.ones(32, dtype=torch.int64,
+                         device=allowed.device) << torch.arange(
+                             32, device=allowed.device)
+    packed = (bits.reshape(b, c, words, 32) * weights).sum(dim=-1)
+    return torch.where(packed >= 1 << 31, packed - (1 << 32),
+                       packed).to(torch.int32).contiguous()
+
+
+def unpack_allowed(bits: torch.Tensor, num_cells: int) -> torch.Tensor:
+    """Inverse of ``allowed_bitmask``: (B, C, words) int32 -> (B, C, C)
+    bool."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    unpacked = (bits[..., None] >> shifts) & 1
+    return unpacked.reshape(*bits.shape[:-1], -1)[..., :num_cells].bool()
+
+
+def cwide_tables(assign: ParentAssignment, tables: OctreeTables):
+    """K14's per-image tables (the JAX package's ``cwide_tables``): the
+    allowed parents of each cell as a bitmask (B, C, ceil(C/32)) int32 and
+    the cell centres in valid order (B, C, 3) float32."""
+    return (allowed_bitmask(assign.allowed),
+            tables.centers[assign.order].contiguous())
+
+
+# ------------------------------------------------- K3 / K4 / K10 / K14 -
 
 def _slot_sums_fixed(h, s, v, slot, offset, c: int) -> torch.Tensor:
     """[sum wrapped hue + offset, sum s, sum v, count] per slot, (B, C, 4)
@@ -236,7 +317,7 @@ def palette_sums_by_k_rgb_q1(rgb, slot_of_cell, offset_of_cell, cfg):
     _cuda.launch("ph_palette_sums_q1", rgb, *_launch_args(rgb, cfg),
                  _cuda.ptr(slot_of_cell), _cuda.ptr(offset_of_cell),
                  _cuda.ptr(sums), _cuda.ptr(acc))
-    _cuda.LAUNCHES["palette_sums_q1"] += 1
+    _count("palette_sums_q1", rgb)
     return sums
 
 
@@ -288,7 +369,7 @@ def palette_sums_by_k_rgb(rgb, cand, centers_by_k, cfg):
     _cuda.launch("ph_palette_sums", rgb, *_launch_args(rgb, cfg),
                  _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), _cuda.ptr(sums),
                  _cuda.ptr(acc))
-    _cuda.LAUNCHES["palette_sums_q8" if q <= 8 else "palette_sums_qfull"] += 1
+    _count("palette_sums_q8" if q <= 8 else "palette_sums_qfull", rgb)
     return sums
 
 
@@ -324,4 +405,60 @@ def palette_sums_by_k(h, s, v, cand, centers_by_k, cfg):
                  _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), _cuda.ptr(acc))
     _cuda.LAUNCHES["palette_sums_flat_q8" if q <= 8
                    else "palette_sums_flat_qfull"] += 1
+    return acc
+
+
+def palette_sums_by_k_cwide_plain(h, s, v, allowed, centers_by_k, cfg):
+    """Plain version of K14, the JAX kernel's formulation
+    (pallas_kernels_cwide.py:63-87): the float32 distance of each pixel to
+    every slot's centre, masked by its cell's allowed row with a finite
+    big value, first minimum (slot 0 for an empty row), sums on the fixed
+    point; hue < 0 dropped."""
+    c = cfg.num_cells
+    cells, real = _flat_hsv_cells(h, s, v, cfg)
+    h = torch.where(real, h, 0.0)
+    mask = unpack_allowed(allowed, c)
+    slots, offsets = [], []
+    # One image and _CWIDE_CHUNK_PX pixels at a time bound the (P, C)
+    # temporaries.
+    for i in range(h.shape[0]):
+        ctr = centers_by_k[i]
+        for j in range(0, h.shape[1], _CWIDE_CHUNK_PX):
+            px = slice(j, j + _CWIDE_CHUNK_PX)
+            cell = cells[i, px]
+            hd = torch.abs(h[i, px][:, None] - ctr[:, 0])
+            hd = torch.where(hd > 180.0, 360.0 - hd, hd) * (1.0 / 360.0)
+            sd = s[i, px][:, None] - ctr[:, 1]
+            vd = v[i, px][:, None] - ctr[:, 2]
+            d = hd * hd + sd * sd + vd * vd
+            d = torch.where(mask[i][torch.clamp(cell, max=c - 1)], d, _BIG)
+            slot = d.argmin(dim=1)
+            slots.append(torch.where(cell < c, slot, c))
+            offsets.append(180.0 - ctr[slot, 0])
+    slot = torch.cat(slots).reshape(h.shape)
+    offset = torch.cat(offsets).reshape(h.shape)
+    return _slot_sums_fixed(h, s, v, slot, offset, c)
+
+
+def palette_sums_by_k_cwide(h, s, v, allowed, centers_by_k, cfg):
+    """K14, C-wide on flat HSV pixels: per pixel the first minimum distance
+    over its cell's allowed parents (the bitmask of ``cwide_tables``), no
+    candidate width, sums per valid-order slot, hue < 0 adding nothing:
+    -> (B, C, 4) int64 accumulator, K10's layout (``palette_sums_from_fixed``
+    converts it).  Equal to K10's wherever K10's candidates hold every
+    allowed parent; a cell with an empty row sends its pixels to slot 0
+    (K10 drops them)."""
+    _check_hsv(h, s, v)
+    b, c = h.shape[0], cfg.num_cells
+    words = -(-c // 32)
+    _check_table(allowed, "allowed", torch.int32, (b, c, words), h)
+    _check_table(centers_by_k, "centers_by_k", torch.float32, (b, c, 3), h)
+    if h.device.type == "cpu":
+        return palette_sums_by_k_cwide_plain(h, s, v, allowed, centers_by_k,
+                                             cfg)
+    acc = torch.empty((b, c, 4), dtype=torch.int64, device=h.device)
+    _cuda.launch("ph_palette_sums_cwide", h, *_hsv_launch_args(h, s, v, cfg),
+                 _cuda.ptr(allowed), words, _cuda.ptr(centers_by_k),
+                 _cuda.ptr(acc))
+    _cuda.LAUNCHES["palette_sums_cwide"] += 1
     return acc

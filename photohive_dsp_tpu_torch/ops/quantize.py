@@ -15,15 +15,24 @@ tensors with the batch dimension written out:
      pixels: K3 (q=1, no populated cell tied) or K4 (first minimum distance
      over at most q candidates, q = 8 or the config's q_full), picked per
      batch from the tie structure as the JAX package's switch does; on
-     flat HSV pixels (the row-sharded report) K10 at q = 8 or q_full,
+     flat HSV pixels (the row-sharded report, the ``cwide`` route) K10 at
+     q = 8 or q_full, or K14 over each cell's allowed parents,
      ``palette_sums_by_k_auto``.
   5. Palette averages with the hue-rotation offset (:510-576),
      ``palette_finalize_by_k``.
+
+``PHOTOHIVE_PALETTE_KERNEL`` picks the route, read at each call
+(``palette_kernel_variant``): ``bf16`` (the default) and ``candidate`` run
+``color_palette_batched_from_rgb`` (the latter on float32 planes, K11-K13),
+``cwide`` runs ``color_palette_batched`` on flat HSV planes with K9 and
+K14.  All three give the same palette.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
+
+import os
 
 import numpy as np
 import torch
@@ -205,6 +214,29 @@ def palette_tier(counts: torch.Tensor, assign: ParentAssignment,
     return q_small if q_needed <= q_small else q_full
 
 
+PALETTE_KERNEL_VARIANTS = ("bf16", "candidate", "cwide")
+
+
+def palette_kernel_variant() -> str:
+    """The palette route ``PHOTOHIVE_PALETTE_KERNEL`` selects, read at each
+    call: ``bf16`` (the default), ``candidate`` or ``cwide``.  Any other
+    value raises (the JAX package takes it as ``candidate``)."""
+    variant = os.environ.get("PHOTOHIVE_PALETTE_KERNEL", "bf16")
+    if variant not in PALETTE_KERNEL_VARIANTS:
+        raise ValueError(f"PHOTOHIVE_PALETTE_KERNEL={variant!r}: expected "
+                         f"one of {PALETTE_KERNEL_VARIANTS}")
+    return variant
+
+
+def use_rgb_palette_path(hh: int, ww: int) -> bool:
+    """Route to color_palette_batched_from_rgb?  True for the ``bf16`` and
+    ``candidate`` variants (``cwide`` has only a flat-HSV formulation).
+    The port's RGB kernels take any shape, so unlike the JAX package's
+    gate the image shape does not matter."""
+    del hh, ww
+    return palette_kernel_variant() in ("bf16", "candidate")
+
+
 def palette_sums_by_k_auto(h: torch.Tensor, s: torch.Tensor,
                            v: torch.Tensor, assign: ParentAssignment,
                            counts: torch.Tensor, cfg: ReportConfig,
@@ -214,9 +246,15 @@ def palette_sums_by_k_auto(h: torch.Tensor, s: torch.Tensor,
     palette_sums_from_fixed converts it), by K10 at candidate width q_small
     (8) or, when a populated cell has more tie candidates, the config's
     q_full (the JAX package's function of the same name; like it, no q=1
-    tier on this route).  Hue < 0 marks pixels that add nothing."""
+    tier on this route); under the ``cwide`` variant by K14, which needs
+    no width and so no tier read from the device.  Hue < 0 marks pixels
+    that add nothing."""
     from . import palette_kernels as pk
 
+    if palette_kernel_variant() == "cwide":
+        return pk.palette_sums_by_k_cwide(h, s, v,
+                                          *pk.cwide_tables(assign, tables),
+                                          cfg)
     q_small, q_full = palette_widths(cfg)
     q = q_small if palette_tier(counts, assign, cfg) <= q_small else q_full
     cand, centers_by_k = pk.palette_candidate_table(assign, tables,
@@ -228,10 +266,15 @@ def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,
                                    tables: OctreeTables):
     """(B, 3, H, W) float32 in [0, 1] or uint8 -> (PaletteResult, (B,) f32
     sums of the saturation channel).  HSV lives only inside the kernels;
-    K1 also returns mean saturation's numerator."""
+    K1 also returns mean saturation's numerator.  Under the ``candidate``
+    variant uint8 decodes to float32 first, as the JAX package's
+    candidate kernels need, so K11-K13 run."""
     from . import palette_kernels as pk
+    from .colorspace import u8_to_unit_f32
     from .margin_sort import margin_sort
 
+    if down.dtype == torch.uint8 and palette_kernel_variant() == "candidate":
+        down = u8_to_unit_f32(down)
     _, _, hh, ww = down.shape
     total_pixels = hh * ww
     c = cfg.num_cells
@@ -248,3 +291,26 @@ def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,
         cand, centers_by_k = pk.palette_candidate_table(assign, tables, c, q)
         sums = pk.palette_sums_by_k_rgb(down, cand, centers_by_k, cfg)
     return palette_finalize_by_k(sums, assign, total_pixels, tables), s_sum
+
+
+def color_palette_batched(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor,
+                          cfg: ReportConfig,
+                          tables: OctreeTables) -> PaletteResult:
+    """The flat-HSV palette (the JAX package's single-device flat route):
+    (B, H, W) float32 HSV planes -> PaletteResult.  K9, saliency, K2, the
+    parent assignment, the pixel pass (``palette_sums_by_k_auto``: K14
+    under ``cwide``, else K10) and the finish."""
+    from . import palette_kernels as pk
+    from .margin_sort import margin_sort
+
+    b = h.shape[0]
+    total_pixels = int(np.prod(h.shape[1:]))
+    hf, sf, vf = (x.reshape(b, -1).contiguous() for x in (h, s, v))
+    counts, _ = pk.counts_s_from_fixed(pk.cell_counts_from_hsv(hf, sf, vf,
+                                                               cfg))
+    order = margin_sort(saliency_f32(counts, tables.s_v_f32, cfg))
+    assign = parent_assignment_from_order(counts, order, total_pixels, cfg,
+                                          tables)
+    acc = palette_sums_by_k_auto(hf, sf, vf, assign, counts, cfg, tables)
+    return palette_finalize_by_k(pk.palette_sums_from_fixed(acc), assign,
+                                 total_pixels, tables)

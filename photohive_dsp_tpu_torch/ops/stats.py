@@ -33,3 +33,11 @@ def rgb_statistics(rgb: torch.Tensor) -> torch.Tensor:
     reference: src/image_processing.c:543-553."""
     mean, std = mean_and_std(rgb)
     return torch.cat([mean, std], dim=-1)
+
+
+def mean_saturation(s: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) saturation planes -> (B,) mean (reference
+    src/image_processing.c:533-540).  The sum runs in float64, then the
+    division by the pixel count as XLA lowers it (``div_const``)."""
+    total = s.sum(dim=(-2, -1), dtype=torch.float64).float()
+    return div_const(total, s.shape[-2] * s.shape[-1])

@@ -1,6 +1,6 @@
-"""The CUDA kernels (K1-K5, K6a/K6b, K7+K8, K9, K10) against their plain
-PyTorch versions on an NVIDIA GPU, and the row-sharded report at world
-size 1 (NCCL) against the single-device path.  Every test here needs the card and nvcc and
+"""The CUDA kernels (K1-K15) against their plain PyTorch versions on an
+NVIDIA GPU, the row-sharded report at world size 1 (NCCL) against the
+single-device path, and BatchRunner on the card against the CPU path.  Every test here needs the card and nvcc and
 skips without them; this file imports no JAX, so the machine with the card
 runs it with
 
@@ -296,3 +296,116 @@ def test_cuda_spatial_report_world_size_1(cuda_device, tmp_path):
     assert torch.allclose(got.rgb_stats, ref.rgb_stats[0], rtol=2e-5,
                           atol=1e-6)
     assert _snr_db(ref.blur_bins[0], got.blur_bins) >= 55
+
+
+def _flat_hsv_with_tail(rgb, device, tail=777):
+    from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_hsv
+
+    x = torch.from_numpy(rgb).to(device)
+    b, p = x.shape[0], x.shape[2] * x.shape[3]
+    flat = x.reshape(b, 3, p)
+    real = rgb_to_hsv(flat[:, 0], flat[:, 1], flat[:, 2])
+    pad = torch.rand((3, b, tail), device=device)
+    pad[0] = -1.0
+    return [torch.cat([r, t], dim=1).contiguous() for r, t in zip(real, pad)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_cuda_cwide_kernel_matches_plain_and_k10(name, cuda_device):
+    """K14's accumulator equals its plain version's and K10's at q_full
+    bit for bit; with a populated cell's row emptied it still equals its
+    plain version (that cell's pixels go to slot 0)."""
+    hsv = _flat_hsv_with_tail(IMAGES[name][0], cuda_device)
+    p = IMAGES[name][0].shape[2] * IMAGES[name][0].shape[3]
+    tt = tq.OctreeTables.for_config(TCFG, cuda_device)
+    counts, _ = tpk.counts_s_from_fixed(tpk.cell_counts_from_hsv(*hsv, TCFG))
+    assign = tq.parent_assignment_from_order(
+        counts, margin_sort(tq.saliency_f32(counts, tt.s_v_f32, TCFG)), p,
+        TCFG, tt)
+    bits, ctr = tpk.cwide_tables(assign, tt)
+    got = tpk.palette_sums_by_k_cwide(*hsv, bits, ctr, TCFG)
+    assert torch.equal(got, tpk.palette_sums_by_k_cwide_plain(*hsv, bits,
+                                                              ctr, TCFG))
+    _, q_full = tq.palette_widths(TCFG)
+    assert torch.equal(got, tpk.palette_sums_by_k(
+        *hsv, *tpk.palette_candidate_table(assign, tt, C, q_full), TCFG))
+    allowed = assign.allowed.clone()
+    allowed[0, int(counts[0].argmax())] = False
+    bits = tpk.allowed_bitmask(allowed)
+    assert torch.equal(tpk.palette_sums_by_k_cwide(*hsv, bits, ctr, TCFG),
+                       tpk.palette_sums_by_k_cwide_plain(*hsv, bits, ctr,
+                                                         TCFG))
+
+
+@pytest.mark.cuda
+def test_cuda_cwide_kernel_global_table(cuda_device):
+    """At C=2164 (h_partitions=360, s 2, v 3) K14's bitmask (585 KB) does
+    not fit in shared memory and is read from device memory."""
+    cfg = ReportConfig(h_partitions=360)
+    c = cfg.num_cells
+    hsv = _flat_hsv_with_tail(noise_rgb(1, 64, 256, seed=2), cuda_device)
+    tt = tq.OctreeTables.for_config(cfg, cuda_device)
+    counts, _ = tpk.counts_s_from_fixed(tpk.cell_counts_from_hsv(*hsv, cfg))
+    assign = tq.parent_assignment_from_order(
+        counts, margin_sort(tq.saliency_f32(counts, tt.s_v_f32, cfg)),
+        64 * 256, cfg, tt)
+    bits, ctr = tpk.cwide_tables(assign, tt)
+    assert bits.shape == (1, c, -(-c // 32))
+    assert torch.equal(tpk.palette_sums_by_k_cwide(*hsv, bits, ctr, cfg),
+                       tpk.palette_sums_by_k_cwide_plain(*hsv, bits, ctr,
+                                                         cfg))
+
+
+@pytest.mark.cuda
+def test_cuda_cell_id_histogram_matches_plain(cuda_device):
+    """K15 against its plain version, ids outside [0, C) included, and
+    against K9's counts on the same pixels' cell ids."""
+    rng = np.random.default_rng(6)
+    cells = torch.from_numpy(rng.integers(-3, C + 3, (3, 100_003)).astype(
+        np.int32)).to(cuda_device)
+    got = tpk.cell_counts_batched(cells, C)
+    assert torch.equal(got, tpk.cell_counts_batched_plain(cells, C))
+    hsv = _flat_hsv_with_tail(IMAGES["noise"][0], cuda_device)
+    real = hsv[0] >= 0
+    ids = tq.assign_cells(torch.where(real, hsv[0], 0.0), hsv[1], hsv[2],
+                          TCFG)
+    ids = torch.where(real, ids, C).contiguous()
+    k9, _ = tpk.counts_s_from_fixed(tpk.cell_counts_from_hsv(*hsv, TCFG))
+    assert torch.equal(tpk.cell_counts_batched(ids, C), k9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bf16", "candidate", "cwide"])
+def test_cuda_batch_runner_matches_cpu(variant, cuda_device, monkeypatch):
+    """BatchRunner.run_u8 on the card (and with prefetch) against the CPU
+    path, under each palette variant, with the variant's kernels
+    launched."""
+    from photohive_dsp_tpu_torch.models import batch as tbatch
+
+    monkeypatch.setenv("PHOTOHIVE_PALETTE_KERNEL", variant)
+    u8 = np.round(np.concatenate([wheel_rgb(1, 360, 512),
+                                  noise_rgb(2, 360, 512, seed=8)])
+                  * 255).astype(np.uint8)
+    images = np.ascontiguousarray(np.moveaxis(u8, 1, -1))
+    boxes, valid = pt.set_bounding_boxes([dict(top=10, bottom=300, left=20,
+                                               right=480)])
+    bx, vd = np.stack([boxes] * 3), np.stack([valid] * 3)
+    _cuda.reset_launch_counts()
+    got = tbatch.BatchRunner(TCFG).run_u8(images, bx, vd)
+    torch.cuda.synchronize()
+    want = {"bf16": "palette_sums_qfull", "candidate": "palette_sums_qfull_f32",
+            "cwide": "palette_sums_cwide"}[variant]
+    assert _cuda.LAUNCHES[want] == 1
+    ref = tbatch.BatchRunner(TCFG, "cpu").run_u8(images, bx, vd)
+    for k in ("palette_n", "palette_ids", "palette_pct", "blur_vector_angles",
+              "blur_vector_mags"):
+        assert torch.equal(getattr(got, k).cpu(), getattr(ref, k)), k
+    assert float((got.palette_hsv.cpu() - ref.palette_hsv).abs().max()) < 5e-3
+    assert torch.allclose(got.average_saturation.cpu(),
+                          ref.average_saturation, rtol=1e-6, atol=0)
+    stream = tbatch.BatchRunner(TCFG).run_stream_u8(
+        iter([(images, bx, vd)] * 2), prefetch=1)
+    for out in stream:
+        for x, y in zip(out, got):
+            assert torch.equal(x, y)
