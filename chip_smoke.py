@@ -457,6 +457,16 @@ def check_flat_kernels(hsv, assign, octree, cfg, label: str,
                                  f"the result")
 
 
+def assignment(counts, p: int, cfg, octree):
+    """The parent assignment the palette routes derive from cell counts:
+    saliency, K2's order, then parent_assignment_from_order."""
+    from photohive_dsp_tpu_torch.ops import quantize as qz
+    from photohive_dsp_tpu_torch.ops.margin_sort import margin_sort
+
+    order = margin_sort(qz.saliency_f32(counts, octree.s_v_f32, cfg))
+    return qz.parent_assignment_from_order(counts, order, p, cfg, octree)
+
+
 def cell_ids(hsv, cfg) -> torch.Tensor:
     """(B, P) int32 cell ids of flat HSV pixels, C for the sentinels."""
     from photohive_dsp_tpu_torch.ops.quantize import assign_cells
@@ -495,6 +505,57 @@ def check_cwide(hsv, assign, octree, cfg, label: str, real=None) -> None:
         f"at q={q}" + (", the tail changes nothing" if real else ""))
 
 
+def check_route_kernels(variant: str, x, octree, cfg, label: str) -> str:
+    """The palette kernels ``variant``'s route launches on one batch
+    against their plain versions, on the inputs the route hands them, bit
+    for bit.  x: the batch as BatchRunner.run_u8 puts it on the card,
+    (B, 3, H, W) uint8.  bf16: K1, then K3 or K4 at the batch's tier, on x;
+    candidate: K11, then K12 or K13, on its decoded float32 planes; cwide:
+    K9 on its flat HSV planes, then K14 (check_cwide).  Returns the ids
+    checked."""
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops import quantize as qz
+    from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_hsv, \
+        u8_to_unit_f32
+
+    b, _, hh, ww = x.shape
+    if variant == "cwide":
+        rgb = u8_to_unit_f32(x)
+        hsv = [t.reshape(b, -1).contiguous()
+               for t in rgb_to_hsv(rgb[:, 0], rgb[:, 1], rgb[:, 2])]
+        acc = pk.cell_counts_from_hsv(*hsv, cfg)
+        if not torch.equal(acc, pk.cell_counts_from_hsv_plain(*hsv, cfg)):
+            raise AssertionError(f"K9 {label}: differs from plain")
+        counts, _ = pk.counts_s_from_fixed(acc)
+        check_cwide(hsv, assignment(counts, hh * ww, cfg, octree), octree,
+                    cfg, label)
+        return "K9, K14"
+    k1, k3, k4 = ("K1", "K3", "K4") if variant == "bf16" else \
+        ("K11", "K12", "K13")
+    rgb = x if variant == "bf16" else u8_to_unit_f32(x).contiguous()
+    counts, s_sum = pk.cell_counts_s_from_rgb(rgb, cfg)
+    want = pk.cell_counts_s_from_rgb_plain(rgb, cfg)
+    sync()
+    if not (torch.equal(counts, want[0]) and torch.equal(s_sum, want[1])):
+        raise AssertionError(f"{k1} {label}: differs from plain")
+    assign = assignment(counts, hh * ww, cfg, octree)
+    q = qz.palette_tier(counts, assign, cfg)
+    if q == 1:
+        key, kern, plain = k3, pk.palette_sums_by_k_rgb_q1, \
+            pk.palette_sums_by_k_rgb_q1_plain
+        tabs = pk.palette_offset_table(assign, octree, cfg.num_cells)
+    else:
+        key, kern, plain = f"{k4} q={q}", pk.palette_sums_by_k_rgb, \
+            pk.palette_sums_by_k_rgb_plain
+        tabs = pk.palette_candidate_table(assign, octree, cfg.num_cells, q)
+    got, want = kern(rgb, *tabs, cfg), plain(rgb, *tabs, cfg)
+    sync()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{key} {label}: differs from plain, max abs "
+                             f"err {float((got - want).abs().max())}")
+    return f"{k1}, {key}"
+
+
 def phase_flat_kernels(kin, cfg, tables):
     """K9 and K10 (q=8 and q_full) against their plain versions at
     1080x1920 B=4 on flat HSV with a sentinel tail (check_flat_kernels),
@@ -504,7 +565,6 @@ def phase_flat_kernels(kin, cfg, tables):
     batch.  Returns max abs errors and the timing phase's inputs."""
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import quantize as qz
-    from photohive_dsp_tpu_torch.ops.margin_sort import margin_sort
 
     _, q_full = qz.palette_widths(cfg)
     x = kin["u8"]
@@ -539,10 +599,7 @@ def phase_flat_kernels(kin, cfg, tables):
         f_hsv = flat_hsv(frames, SENTINEL_TAIL)
         f_counts, _ = pk.counts_s_from_fixed(pk.cell_counts_from_hsv(*f_hsv,
                                                                      cfg))
-        f_assign = qz.parent_assignment_from_order(
-            f_counts, margin_sort(qz.saliency_f32(f_counts,
-                                                  tables.octree.s_v_f32,
-                                                  cfg)), p, cfg, tables.octree)
+        f_assign = assignment(f_counts, p, cfg, tables.octree)
         check_cwide(f_hsv, f_assign, tables.octree, cfg,
                     f"{label} 1080x1920 B={x.shape[0]}")
     return ({"K9": 0.0, "K10q8": 0.0, "K10qfull": 0.0, "K14": 0.0,
@@ -752,15 +809,32 @@ def corpus_subset(items) -> set:
     return keys
 
 
+def corpus_route_batches(items):
+    """Each shape bucket's first batch of each kind (noise, structured, hue
+    wheel: the q=8, q=1 and q_full tiers), stacked as run_corpus stacks
+    it: [(label, (B, H, W, 3) uint8)]."""
+    out = []
+    for j, (hh, ww) in enumerate(CORPUS_SHAPES):
+        bucket = [img for _, img in items[j::len(CORPUS_SHAPES)]]
+        for b, kind in enumerate(CORPUS_KINDS):
+            out.append((f"corpus {kind} {hh}x{ww} B={CORPUS_BATCH}",
+                        np.stack(bucket[b * CORPUS_BATCH:
+                                        (b + 1) * CORPUS_BATCH])))
+    return out
+
+
 def phase_corpus(cfg, smi: str):
     """run_corpus over config #3 under each palette variant (timed, each
     with its launch counts), the variants' reports against each other and,
-    on corpus_subset, against get_report; run_stream_u8 with and without
-    prefetch; process_corpus with a crash and a resume.  Returns the launch
-    counts by variant and the MP/s measured."""
+    on corpus_subset, against get_report; each variant's palette kernels
+    against their plain versions on corpus_route_batches; run_corpus and
+    run_stream_u8 on the same frames (stream_times); process_corpus with a
+    crash and a resume.  Returns the launch counts by variant and the MP/s
+    measured."""
     import photohive_dsp_tpu_torch as pt
     from photohive_dsp_tpu_torch.models import batch
     from photohive_dsp_tpu_torch.ops import _cuda
+    from photohive_dsp_tpu_torch.ops import quantize as qz
 
     t0 = time.perf_counter()
     items = corpus_images()
@@ -814,6 +888,13 @@ def phase_corpus(cfg, smi: str):
                         f"corpus image {key}", "get_report")
     log(f"  {len(subset)} images (each bucket's first batch and tail) equal "
         f"get_report's")
+    octree = qz.OctreeTables.for_config(cfg, DEVICE)
+    for label, arr in corpus_route_batches(items):
+        x = torch.as_tensor(arr, device=DEVICE).permute(0, 3, 1,
+                                                         2).contiguous()
+        done = [check_route_kernels(v, x, octree, cfg, label)
+                for v in VARIANTS]
+        log(f"  {label}: {'; '.join(done)} equal their plain versions")
     stream = stream_times(cfg, items, smi)
     corpus_breakdown(cfg, items, smi)
     txt = corpus_txt_resume(cfg, images)
@@ -854,39 +935,69 @@ def corpus_breakdown(cfg, items, smi: str) -> None:
         + f"; sum {sum(med.values()):.3f} ({smi})")
 
 
+STREAM_TURNS = ("prefetch 0", "prefetch 2", "run_corpus", "run_corpus",
+                "prefetch 2", "prefetch 0") * 2
+
+
 def stream_times(cfg, items, smi: str) -> dict:
-    """run_stream_u8 over the 1080x1920 bucket's full batches, without and
-    with prefetch (in turns 0, 2, 2, 0): results equal, MP/s of each."""
+    """run_corpus and run_stream_u8 without and with prefetch on the same
+    frames, the 1080x1920 bucket's full batches of CORPUS_BATCH (the
+    stream's batches stacked beforehand, its reports copied to the host as
+    run_corpus's are): one untimed first run of each, then STREAM_TURNS.
+    Every run's MP/s; each image's report equal in all three."""
     from photohive_dsp_tpu_torch.models import batch
+    from photohive_dsp_tpu_torch.models.pipeline import ReportData
 
     runner = batch.BatchRunner(cfg, DEVICE)
     hh, ww = CORPUS_SHAPES[1]
-    frames = [img for _, img in items if img.shape[:2] == (hh, ww)]
+    frames = [(k, img) for k, img in items if img.shape[:2] == (hh, ww)]
     n = len(frames) // CORPUS_BATCH
+    frames = frames[:n * CORPUS_BATCH]
     boxes, valid = (np.zeros((CORPUS_BATCH, 10, 4), np.int32),
                     np.zeros((CORPUS_BATCH, 10), bool))
-    batches = [(np.stack(frames[i * CORPUS_BATCH:(i + 1) * CORPUS_BATCH]),
+    batches = [(np.stack([img for _, img in frames[i * CORPUS_BATCH:
+                                                   (i + 1) * CORPUS_BATCH]]),
                 boxes, valid) for i in range(n)]
-    mp = n * CORPUS_BATCH * hh * ww / 1e6
-    out, rates = {}, {0: [], 2: []}
-    for prefetch in (0, 2, 2, 0):
+    mp = len(frames) * hh * ww / 1e6
+
+    def stream(prefetch):
+        out = {}
+        for i, rep in enumerate(runner.run_stream_u8(iter(batches),
+                                                     prefetch)):
+            host = ReportData(*(v.cpu() for v in rep))
+            for j in range(CORPUS_BATCH):
+                out[frames[i * CORPUS_BATCH + j][0]] = ReportData(
+                    *(v[j] for v in host))
+        return out
+
+    runs = {"prefetch 0": lambda: stream(0), "prefetch 2": lambda: stream(2),
+            "run_corpus": lambda: dict(batch.run_corpus(
+                iter(frames), cfg, CORPUS_BATCH, DEVICE))}
+    out, first, rates = {}, {}, {k: [] for k in runs}
+    for i, mode in enumerate(list(runs) + list(STREAM_TURNS)):
         t0 = time.perf_counter()
-        out[prefetch] = list(runner.run_stream_u8(iter(batches), prefetch))
+        out[mode] = runs[mode]()
         sync()
-        rates[prefetch].append(mp / (time.perf_counter() - t0))
-    for a, b in zip(out[0], out[2]):
-        for x, y in zip(a, b):
-            if not torch.equal(x, y):
-                raise AssertionError("run_stream_u8: prefetch changes the "
-                                     "reports")
-    res = {f"stream_prefetch{k}_mps": float(np.mean(v))
-           for k, v in rates.items()}
-    log(f"  run_stream_u8 {n} x B={CORPUS_BATCH} {hh}x{ww} u8 (host "
-        f"arrays): prefetch 0 {res['stream_prefetch0_mps']:.1f} MP/s "
-        f"({rates[0][0]:.1f}, {rates[0][1]:.1f}), prefetch 2 "
-        f"{res['stream_prefetch2_mps']:.1f} MP/s ({rates[2][0]:.1f}, "
-        f"{rates[2][1]:.1f}) ({smi}); results equal")
-    return res
+        rate = mp / (time.perf_counter() - t0)
+        if i < len(runs):
+            first[mode] = rate
+        else:
+            rates[mode].append(rate)
+    for mode in ("prefetch 2", "run_corpus"):
+        for key, rep in out[mode].items():
+            if not all(torch.equal(a, b) for a, b in
+                       zip(rep, out["prefetch 0"][key])):
+                raise AssertionError(f"{mode}: image {key}'s report differs "
+                                     f"from run_stream_u8's without prefetch")
+    log(f"  {n} x B={CORPUS_BATCH} {hh}x{ww} u8, the same frames, MP/s "
+        f"({smi}); first run, then each run in turns "
+        f"{', '.join(STREAM_TURNS[:6])}, twice; reports equal:")
+    for mode in runs:
+        log(f"    {mode}: first {first[mode]:.1f}; "
+            + ", ".join(f"{r:.1f}" for r in rates[mode])
+            + f" (median {float(np.median(rates[mode])):.1f})")
+    return {f"same_{k.replace(' ', '')}_mps": float(np.median(v))
+            for k, v in rates.items()}
 
 
 def same_report_dict(got: dict, want: dict, label: str) -> None:
@@ -985,7 +1096,7 @@ def spatial_frames():
 def spatial_kernels(group, frames, box_sets, cfg) -> dict:
     """The spatial path's kernels against their plain versions on the
     inputs its one rank hands them, built by parallel/spatial's own steps
-    at 4320x7680: K9 and K10 (q=8 and q_full) on the frame's flat HSV
+    at 4320x7680: K9, K10 (q=8 and q_full) and K14 on the frame's flat HSV
     (33 MP, accumulators bit-equal), K5 on its luma with the zero halo and
     each box set (within SHARP_RTOL), K7+K8 on the rank's |X|^2 and bin ids
     (within POLAR_RTOL).  Returns max abs errors."""
@@ -995,7 +1106,6 @@ def spatial_kernels(group, frames, box_sets, cfg) -> dict:
     from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
     from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_pgm
     from photohive_dsp_tpu_torch.ops.fixed_point import from_fixed
-    from photohive_dsp_tpu_torch.ops.margin_sort import margin_sort
     from photohive_dsp_tpu_torch.parallel import spatial
 
     dev = torch.device(DEVICE, torch.cuda.current_device()) \
@@ -1010,10 +1120,9 @@ def spatial_kernels(group, frames, box_sets, cfg) -> dict:
         rgb = spatial.own_rows(torch.as_tensor(frame), 0, SH, dev)
         hsv = spatial.masked_hsv(rgb, 0, SH)
         counts, _ = pk.counts_s_from_fixed(pk.cell_counts_from_hsv(*hsv, cfg))
-        order = margin_sort(qz.saliency_f32(counts, octree.s_v_f32, cfg))
-        assign = qz.parent_assignment_from_order(counts, order, SH * SW, cfg,
-                                                 octree)
+        assign = assignment(counts, SH * SW, cfg, octree)
         check_flat_kernels(hsv, assign, octree, cfg, f"spatial {name}")
+        check_cwide(hsv, assign, octree, cfg, f"spatial {name} {SH}x{SW}")
 
         pgm = rgb_to_pgm(rgb[0], rgb[1], rgb[2])
         halo = spatial.halo_rows(pgm, group)[None].contiguous()
@@ -1045,7 +1154,7 @@ def spatial_kernels(group, frames, box_sets, cfg) -> dict:
                                  f"{rel_err(got, want)}")
         err["K7+K8"] = max(err["K7+K8"], float((got - want).abs().max()))
         log(f"  spatial {name} {SH}x{SW}, the rank's inputs: K9, K10 (q=8, "
-            f"q_full) accumulators equal plain; K5 ({', '.join(box_sets)}) "
+            f"q_full), K14 accumulators equal plain; K5 ({', '.join(box_sets)}) "
             f"rel err {rel5:.2e}; K7+K8 on {tuple(mag2.shape)} |X|^2 rel err "
             f"{rel_err(got, want):.2e}")
     return err
@@ -1594,11 +1703,11 @@ def main() -> int:
     log(f"corpus path (config #3, {CORPUS_IMAGES} u8 frames, batch "
         f"{CORPUS_BATCH}): run_corpus "
         + ", ".join(f"{v} {corpus_mps[v]:.1f}" for v in VARIANTS)
-        + f" MP/s; run_stream_u8 {'x'.join(map(str, CORPUS_SHAPES[1]))} "
-        f"prefetch 0 "
-        f"{corpus_mps['stream_prefetch0_mps']:.1f}, prefetch 2 "
-        f"{corpus_mps['stream_prefetch2_mps']:.1f} MP/s; process_corpus "
-        f"resume {corpus_mps['txt_mps']:.1f} MP/s ({smi})")
+        + f" MP/s; on the same {'x'.join(map(str, CORPUS_SHAPES[1]))} "
+        f"batches, medians: run_corpus {corpus_mps['same_run_corpus_mps']:.1f}"
+        f", run_stream_u8 prefetch 0 {corpus_mps['same_prefetch0_mps']:.1f}, "
+        f"prefetch 2 {corpus_mps['same_prefetch2_mps']:.1f} MP/s; "
+        f"process_corpus resume {corpus_mps['txt_mps']:.1f} MP/s ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,7 @@ from ..ops.fft import magnitude_fft_normalized
 from ..ops.fft_plan import FftPlan, fft_kernel_eligible
 from ..ops.quantize import (OctreeTables, color_palette_batched,
                              color_palette_batched_from_rgb,
-                             use_rgb_palette_path)
+                             palette_kernel_variant)
 from ..ops.sharpness import variance_sharpness_batched
 from ..ops.stats import div_const, mean_saturation, rgb_statistics
 
@@ -115,28 +115,29 @@ def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
     boxes_valid: (B, MAX_CROP_BOXES) bool, a host array.
 
     The routes are picked on the host from the shape, the boxes, the
-    palette variant (``quantize.palette_kernel_variant``) and, once per
-    batch on the RGB palette routes, from one scalar of the palette's tie
-    structure read from the device."""
-    # uint8 frames feed the palette kernels directly when no decimation is
-    # configured (in-kernel x/255, bit-identical to the float planes).
+    palette variant (``quantize.palette_kernel_variant``, read once here)
+    and, once per batch on the RGB palette routes, from one scalar of the
+    palette's tie structure read from the device."""
+    variant = palette_kernel_variant()
+    # On the bf16 route uint8 frames feed the palette kernels directly when
+    # no decimation is configured (in-kernel x/255, bit-identical to the
+    # float planes); the candidate and cwide routes take the float planes.
     pal_in = rgb
     if rgb.dtype == torch.uint8:
         rgb = u8_to_unit_f32(rgb)
-    if pal_in.dtype != torch.uint8 or cfg.downsample_rate != 1:
+    if variant != "bf16" or pal_in.dtype != torch.uint8 \
+            or cfg.downsample_rate != 1:
         pal_in = downsample_rgb(rgb, cfg.downsample_rate)
-    if use_rgb_palette_path(pal_in.shape[2], pal_in.shape[3]):
+    if variant == "cwide":
+        # Flat HSV planes (12 B a pixel), K9 and K14.
+        h, s, v = rgb_to_hsv(pal_in[:, 0], pal_in[:, 1], pal_in[:, 2])
+        s_bar = mean_saturation(s)
+        palette = color_palette_batched(h, s, v, cfg, tables.octree, variant)
+    else:
         pal_in = pal_in.contiguous()
         palette, s_sum = color_palette_batched_from_rgb(pal_in, cfg,
                                                         tables.octree)
         s_bar = div_const(s_sum, pal_in.shape[2] * pal_in.shape[3])
-    else:
-        # The cwide route: flat HSV planes (12 B a pixel), K9 and K14.
-        if pal_in.dtype == torch.uint8:
-            pal_in = rgb
-        h, s, v = rgb_to_hsv(pal_in[:, 0], pal_in[:, 1], pal_in[:, 2])
-        s_bar = mean_saturation(s)
-        palette = color_palette_batched(h, s, v, cfg, tables.octree)
 
     pgm = rgb_to_pgm(rgb[:, 0], rgb[:, 1], rgb[:, 2])
     stats = rgb_statistics(rgb)

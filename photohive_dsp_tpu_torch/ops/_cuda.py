@@ -16,8 +16,10 @@ also spell their bit-critical arithmetic with the ``__f*_rn`` intrinsics.
 where it launches its kernel, so a run can show which kernels it went
 through; ``reset_launch_counts`` zeroes the counts.  The RGB palette
 kernels count their uint8 launches (K1, K3, K4) and their float32 launches
-(``*_f32``: K11, K12, K13, which the ``candidate`` palette route takes)
-apart.
+(``*_f32``: K11, K12, K13) apart, by the input's dtype and not by the
+route: the ``candidate`` route launches only float32, but the ``bf16``
+route does too when its frames are float32 (``BatchRunner.run``) or
+decimated (``downsample_rate`` above 1).
 """
 
 from __future__ import annotations

@@ -105,7 +105,8 @@ def _launch_args(rgb: torch.Tensor, cfg):
 
 def _count(name: str, rgb: torch.Tensor) -> None:
     """Count a launch of an RGB palette kernel: K1/K3/K4 for uint8 input,
-    K11/K12/K13 (``*_f32``) for float32."""
+    K11/K12/K13 (``*_f32``) for float32, whatever the route (see
+    ``_cuda``)."""
     _cuda.LAUNCHES[name if rgb.dtype == torch.uint8 else name + "_f32"] += 1
 
 

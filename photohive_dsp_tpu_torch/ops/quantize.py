@@ -21,11 +21,11 @@ tensors with the batch dimension written out:
   5. Palette averages with the hue-rotation offset (:510-576),
      ``palette_finalize_by_k``.
 
-``PHOTOHIVE_PALETTE_KERNEL`` picks the route, read at each call
-(``palette_kernel_variant``): ``bf16`` (the default) and ``candidate`` run
-``color_palette_batched_from_rgb`` (the latter on float32 planes, K11-K13),
-``cwide`` runs ``color_palette_batched`` on flat HSV planes with K9 and
-K14.  All three give the same palette.
+``PHOTOHIVE_PALETTE_KERNEL`` picks the route (``palette_kernel_variant``),
+which the caller reads once per batch and passes down: ``bf16`` (the
+default) and ``candidate`` run ``color_palette_batched_from_rgb`` (the
+latter on float32 planes, K11-K13), ``cwide`` runs ``color_palette_batched``
+on flat HSV planes with K9 and K14.  All three give the same palette.
 """
 
 from __future__ import annotations
@@ -220,7 +220,12 @@ PALETTE_KERNEL_VARIANTS = ("bf16", "candidate", "cwide")
 def palette_kernel_variant() -> str:
     """The palette route ``PHOTOHIVE_PALETTE_KERNEL`` selects, read at each
     call: ``bf16`` (the default), ``candidate`` or ``cwide``.  Any other
-    value raises (the JAX package takes it as ``candidate``)."""
+    value raises (the JAX package takes it as ``candidate``).
+
+    ``candidate`` is a parity mode with no workload reason: it hands the
+    RGB kernels the decoded float32 planes (4x the bytes of uint8) so that
+    their float32 instantiations, the counterparts of the TPU's candidate
+    kernels K11-K13, have a path; its reports equal ``bf16``'s."""
     variant = os.environ.get("PHOTOHIVE_PALETTE_KERNEL", "bf16")
     if variant not in PALETTE_KERNEL_VARIANTS:
         raise ValueError(f"PHOTOHIVE_PALETTE_KERNEL={variant!r}: expected "
@@ -228,19 +233,11 @@ def palette_kernel_variant() -> str:
     return variant
 
 
-def use_rgb_palette_path(hh: int, ww: int) -> bool:
-    """Route to color_palette_batched_from_rgb?  True for the ``bf16`` and
-    ``candidate`` variants (``cwide`` has only a flat-HSV formulation).
-    The port's RGB kernels take any shape, so unlike the JAX package's
-    gate the image shape does not matter."""
-    del hh, ww
-    return palette_kernel_variant() in ("bf16", "candidate")
-
-
 def palette_sums_by_k_auto(h: torch.Tensor, s: torch.Tensor,
                            v: torch.Tensor, assign: ParentAssignment,
                            counts: torch.Tensor, cfg: ReportConfig,
-                           tables: OctreeTables) -> torch.Tensor:
+                           tables: OctreeTables,
+                           variant: str) -> torch.Tensor:
     """The palette pixel pass on flat HSV pixels, (B, P) x3 -> (B, C, 4)
     int64 accumulator per valid-order slot (palette_kernels.
     palette_sums_from_fixed converts it), by K10 at candidate width q_small
@@ -251,7 +248,7 @@ def palette_sums_by_k_auto(h: torch.Tensor, s: torch.Tensor,
     that add nothing."""
     from . import palette_kernels as pk
 
-    if palette_kernel_variant() == "cwide":
+    if variant == "cwide":
         return pk.palette_sums_by_k_cwide(h, s, v,
                                           *pk.cwide_tables(assign, tables),
                                           cfg)
@@ -266,15 +263,12 @@ def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,
                                    tables: OctreeTables):
     """(B, 3, H, W) float32 in [0, 1] or uint8 -> (PaletteResult, (B,) f32
     sums of the saturation channel).  HSV lives only inside the kernels;
-    K1 also returns mean saturation's numerator.  Under the ``candidate``
-    variant uint8 decodes to float32 first, as the JAX package's
-    candidate kernels need, so K11-K13 run."""
+    K1 also returns mean saturation's numerator.  The ``bf16`` route hands
+    it uint8 frames (K1, K3, K4), the ``candidate`` route the decoded
+    float32 planes (K11, K12, K13)."""
     from . import palette_kernels as pk
-    from .colorspace import u8_to_unit_f32
     from .margin_sort import margin_sort
 
-    if down.dtype == torch.uint8 and palette_kernel_variant() == "candidate":
-        down = u8_to_unit_f32(down)
     _, _, hh, ww = down.shape
     total_pixels = hh * ww
     c = cfg.num_cells
@@ -294,8 +288,8 @@ def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,
 
 
 def color_palette_batched(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor,
-                          cfg: ReportConfig,
-                          tables: OctreeTables) -> PaletteResult:
+                          cfg: ReportConfig, tables: OctreeTables,
+                          variant: str) -> PaletteResult:
     """The flat-HSV palette (the JAX package's single-device flat route):
     (B, H, W) float32 HSV planes -> PaletteResult.  K9, saliency, K2, the
     parent assignment, the pixel pass (``palette_sums_by_k_auto``: K14
@@ -311,6 +305,7 @@ def color_palette_batched(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor,
     order = margin_sort(saliency_f32(counts, tables.s_v_f32, cfg))
     assign = parent_assignment_from_order(counts, order, total_pixels, cfg,
                                           tables)
-    acc = palette_sums_by_k_auto(hf, sf, vf, assign, counts, cfg, tables)
+    acc = palette_sums_by_k_auto(hf, sf, vf, assign, counts, cfg, tables,
+                                 variant)
     return palette_finalize_by_k(pk.palette_sums_from_fixed(acc), assign,
                                  total_pixels, tables)

@@ -46,7 +46,7 @@ from ..ops.geometry import polar_geometry
 from ..ops.margin_sort import margin_sort
 from ..ops.polar_kernels import polar_bin_sums_lognorm
 from ..ops.quantize import (OctreeTables, palette_finalize_by_k,
-                            palette_sums_by_k_auto,
+                            palette_kernel_variant, palette_sums_by_k_auto,
                             parent_assignment_from_order, saliency_f32)
 from ..ops.sharpness import finish_sharpness, thin_boxes
 from ..ops.sharpness_kernels import box_crops, box_tensor, sharpness_sums
@@ -223,7 +223,7 @@ def spatial_report_body(rgb_local: torch.Tensor, down_local: torch.Tensor,
                         boxes, boxes_valid, flat_ids: torch.Tensor,
                         bin_counts: torch.Tensor, octree: OctreeTables,
                         wc: int, height: int, width: int, cfg: ReportConfig,
-                        group) -> ReportData:
+                        group, variant: str) -> ReportData:
     """One rank's part of the report of one row-sharded image.
 
     rgb_local:  (3, lh, W) float32 full-resolution rows (statistics,
@@ -234,6 +234,8 @@ def spatial_report_body(rgb_local: torch.Tensor, down_local: torch.Tensor,
                 downsample_rate 1.
     boxes, boxes_valid: the whole image's (10, 4) / (10,) host arrays.
     flat_ids:   (H * wc,) int32 this rank's bin ids (sharded_polar_tables).
+    variant:    the palette variant (quantize.palette_kernel_variant):
+                K14 for the pixel pass under ``cwide``, else K10.
 
     Returns the whole image's report, unbatched, the same on every rank."""
     rank = dist.get_rank(group)
@@ -245,7 +247,8 @@ def spatial_report_body(rgb_local: torch.Tensor, down_local: torch.Tensor,
     row_offset = rank * rgb_local.shape[1]
     stats = rgb_stats(rgb_local, row_offset, height, width, group)
 
-    # Palette: K9 -> replicated selection -> K10, on the fixed point.
+    # Palette: K9 -> replicated selection -> K10 (K14 under cwide), on the
+    # fixed point.
     hsv = masked_hsv(down_local, rank, d_h)
     acc = pk.cell_counts_from_hsv(*hsv, cfg)
     dist.all_reduce(acc, SUM, group=group)
@@ -254,7 +257,7 @@ def spatial_report_body(rgb_local: torch.Tensor, down_local: torch.Tensor,
     order = margin_sort(saliency_f32(counts, octree.s_v_f32, cfg))
     assign = parent_assignment_from_order(counts, order, d_total, cfg,
                                           octree)
-    acc = palette_sums_by_k_auto(*hsv, assign, counts, cfg, octree)
+    acc = palette_sums_by_k_auto(*hsv, assign, counts, cfg, octree, variant)
     dist.all_reduce(acc, SUM, group=group)
     palette = palette_finalize_by_k(pk.palette_sums_from_fixed(acc), assign,
                                     d_total, octree)
@@ -285,7 +288,8 @@ def build_spatial_report(group, height: int, width: int, cfg: ReportConfig,
     its own rows to ``device``.  The decimation runs on the whole image
     before sharding: its stride-(rate-1) row pick is not aligned with
     row shards.  Heights that the rank count does not divide are padded
-    with zero rows, which every stage masks."""
+    with zero rows, which every stage masks.  The palette variant
+    (``PHOTOHIVE_PALETTE_KERNEL``) is read at each call."""
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -309,6 +313,7 @@ def build_spatial_report(group, height: int, width: int, cfg: ReportConfig,
             own_rows(downsample_rgb(rgb, rate), rank, d_local_h, dev)
         return spatial_report_body(rgb_local, down_local, boxes, valid,
                                    flat_ids, bin_counts, octree, tabs.wc,
-                                   height, width, cfg, group)
+                                   height, width, cfg, group,
+                                   palette_kernel_variant())
 
     return run

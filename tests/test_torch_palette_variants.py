@@ -206,11 +206,9 @@ def test_f32_plain_matches_jax_candidate_kernels(name, tables):
 def test_palette_kernel_variant(monkeypatch):
     monkeypatch.delenv("PHOTOHIVE_PALETTE_KERNEL", raising=False)
     assert tq.palette_kernel_variant() == "bf16"
-    assert tq.use_rgb_palette_path(1080, 1920)
     for v in VARIANTS:
         monkeypatch.setenv("PHOTOHIVE_PALETTE_KERNEL", v)
         assert tq.palette_kernel_variant() == v
-        assert tq.use_rgb_palette_path(362, 514) == (v != "cwide")
     # The JAX package takes an unknown value as "candidate"; the port
     # refuses it.
     monkeypatch.setenv("PHOTOHIVE_PALETTE_KERNEL", "candidat")
@@ -230,7 +228,7 @@ def test_mean_saturation_matches_jax():
 def test_flat_palette_matches_jax_cwide_route(tables, monkeypatch):
     """color_palette_batched under cwide (K9, K14) against the JAX
     package's flat Pallas route under cwide, in interpret mode."""
-    monkeypatch.setenv("PHOTOHIVE_PALETTE_KERNEL", "cwide")
+    monkeypatch.setenv("PHOTOHIVE_PALETTE_KERNEL", "cwide")  # the JAX side
     rng = np.random.default_rng(7)
     h, s, v = (rng.random((1, 64, 128)).astype(np.float32) * k
                for k in (360, 0.999, 0.999))
@@ -238,7 +236,8 @@ def test_flat_palette_matches_jax_cwide_route(tables, monkeypatch):
         want = jq.color_palette_batched(jnp.asarray(h), jnp.asarray(s),
                                         jnp.asarray(v), JCFG, tables[0], True)
     got = tq.color_palette_batched(torch.from_numpy(h), torch.from_numpy(s),
-                                   torch.from_numpy(v), TCFG, tables[1])
+                                   torch.from_numpy(v), TCFG, tables[1],
+                                   "cwide")
     assert np.array_equal(got.parent_ids.numpy(), np.asarray(want.parent_ids))
     assert np.array_equal(got.percentages.numpy(),
                           np.asarray(want.percentages))

@@ -126,9 +126,9 @@ def test_fixed_accumulators_convert_to_the_outputs():
     counts_t = torch.from_numpy(counts)
     halves = [slice(0, 1234), slice(1234, None)]
     whole = tq.palette_sums_by_k_auto(*hsv, tassign, counts_t, TCFG,
-                                      ttables)
+                                      ttables, "bf16")
     parts = [tq.palette_sums_by_k_auto(*(x[:, sl] for x in hsv), tassign,
-                                       counts_t, TCFG, ttables)
+                                       counts_t, TCFG, ttables, "bf16")
              for sl in halves]
     assert whole.dtype == torch.int64
     assert torch.equal(parts[0] + parts[1], whole)
