@@ -46,9 +46,21 @@ each of which raises on failure:
      each kernel's time beside its plain version's, its bound and a library
      call's.
 
+Phase 3 also holds K6a to its plain version on its edge cases (an odd row
+count, widths 1001, 3840 and 14520, every row-pair setting) and the
+palette-sums kernel (K3, K4, K10, K12-K14) under both sum-table layouts on
+a one-colour batch, two-colour stripes, a pixel count that is no multiple
+of 4, and C=2164; phase 7 also times those settings and the one-colour
+batch.
+
 Prints the kernels' JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  Exits nonzero without that line when a
 phase fails or no CUDA device is present.  Imports no JAX.
+
+    python3 chip_smoke.py                     # what the checks need
+    python3 chip_smoke.py --parent DIR        # also time the palette
+        # kernels and K6a of the checkout at DIR against this one's, on the
+        # same inputs, in turns parent, this, this, parent
 """
 
 from __future__ import annotations
@@ -644,6 +656,7 @@ def phase_blur_kernels(images, cfg):
         plan = FftPlan.for_shape(h, w, DEVICE)
         polar = PolarTables.for_shape(h, w, cfg, DEVICE)
         spec, spec0 = fk.fft_rows(x, plan), fk.fft_rows_plain(x, plan)
+        check_row_fft(x, plan, label)
         mag, mag0 = fk.fft_cols(spec0, plan), fk.fft_cols_plain(spec0, plan)
         sync()
         e_rows = float((spec - spec0).abs().max())
@@ -680,6 +693,146 @@ def phase_blur_kernels(images, cfg):
     log(f"  K7+K8 global-atomics branch, {nb} bins ({8 * nb} B table): "
         f"bit-identical twice, rel err {r_big:.2e}")
     return err, kin
+
+
+# K6a's edge cases: (B, H, W) with an odd row count (the last row pairs
+# with zeros), 1001 = 7 * 11 * 13 (no float4 loads), 3840, and 14520 =
+# 2^3 * 3 * 5 * 11^2, whose stage twiddles stay in device memory.
+ROW_FFT_EDGES = [(1, 3, 1920), (3, 5, 1001), (1, 7, 3840), (1, 3, 14520)]
+# Row pairs a K6a block keeps in flight (0: the launcher's choice).
+ROW_PAIRS = (0, 1, 2, 4)
+MAX_SHARED = 232448       # shared memory an H100 block may take
+
+
+def check_row_fft(x, plan, label: str) -> None:
+    """K6a against fft_rows_plain bit for bit, with every row-pair setting
+    whose buffers fit a block."""
+    from photohive_dsp_tpu_torch.ops import fft_kernels as fk
+
+    want = fk.fft_rows_plain(x, plan)
+    for pairs in ROW_PAIRS:
+        if pairs > 1 and pairs * 16 * plan.width > MAX_SHARED:
+            continue
+        got = fk.fft_rows(x, plan, pairs)
+        sync()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6a {label} pairs={pairs}: differs from "
+                                 f"plain, max abs err "
+                                 f"{float((got - want).abs().max())}")
+
+
+def phase_row_fft_edges() -> None:
+    from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
+
+    rng = np.random.default_rng(SEED + 6)
+    for b, h, w in ROW_FFT_EDGES:
+        x = torch.as_tensor(rng.standard_normal((b, h, w), dtype=np.float32),
+                            device=DEVICE)
+        x[0, 0, ::7] = 0.0
+        check_row_fft(x, FftPlan.for_shape(h, w, DEVICE), f"{b}x{h}x{w}")
+    log(f"  K6a equals plain bit for bit at {ROW_FFT_EDGES} (B, H, W), "
+        f"row pairs a block {ROW_PAIRS}")
+
+
+def one_colour_frames(b: int, h: int, w: int) -> np.ndarray:
+    """(B, 3, H, W) uint8 frames of one colour: every lane of a warp on one
+    slot, the palette-sums kernel's worst case for collisions."""
+    rgb = np.empty((b, 3, h, w), np.uint8)
+    rgb[:, 0], rgb[:, 1], rgb[:, 2] = 201, 77, 30
+    return rgb
+
+
+def stripe_frames(b: int, h: int, w: int) -> np.ndarray:
+    """Two colours in vertical stripes 5 px wide: two slots a warp."""
+    rgb = one_colour_frames(b, h, w)
+    rgb[..., (np.arange(w) // 5) % 2 == 1] = np.array(
+        [20, 90, 180], np.uint8)[:, None, None]
+    return rgb
+
+
+# The palette-sums kernel's sum-table layouts (csrc/palette.cu
+# launch_palette_sums): 0 its own choice (a table a warp where they fit),
+# 1 one table a block.
+LAYOUTS = (0, 1)
+
+
+def palette_sums_routes(x, cfg, octree, tail: int = 777):
+    """Every route of the palette-sums kernel on (B, 3, H, W) uint8 frames
+    on the card: [(label, kernel, plain version, pixel inputs, tables)] for
+    K3 (q=1) and K4 (q=8, q_full) on the uint8 frames and on their float32
+    planes (K12, K13), and K10 (q=8, q_full) and K14 on their flat HSV with
+    a hue-sentinel tail."""
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops import quantize as qz
+    from photohive_dsp_tpu_torch.ops.colorspace import u8_to_unit_f32
+
+    c = cfg.num_cells
+    b, _, hh, ww = x.shape
+    counts, _ = pk.cell_counts_s_from_rgb(x, cfg)
+    assign = assignment(counts, hh * ww, cfg, octree)
+    _, q_full = qz.palette_widths(cfg)
+    f32 = u8_to_unit_f32(x).contiguous()
+    hsv = flat_hsv(x, tail)
+    q1 = pk.palette_offset_table(assign, octree, c)
+    runs = [("K3", pk.palette_sums_by_k_rgb_q1,
+             pk.palette_sums_by_k_rgb_q1_plain, [x], q1),
+            ("K12", pk.palette_sums_by_k_rgb_q1,
+             pk.palette_sums_by_k_rgb_q1_plain, [f32], q1)]
+    for q in (8, q_full):
+        tabs = pk.palette_candidate_table(assign, octree, c, q)
+        runs += [(f"K4 q={q}", pk.palette_sums_by_k_rgb,
+                  pk.palette_sums_by_k_rgb_plain, [x], tabs),
+                 (f"K13 q={q}", pk.palette_sums_by_k_rgb,
+                  pk.palette_sums_by_k_rgb_plain, [f32], tabs),
+                 (f"K10 q={q}", pk.palette_sums_by_k,
+                  pk.palette_sums_by_k_plain, hsv, tabs)]
+    runs.append(("K14", pk.palette_sums_by_k_cwide,
+                 pk.palette_sums_by_k_cwide_plain, hsv,
+                 pk.cwide_tables(assign, octree)))
+    return runs
+
+
+def check_palette_sums_routes(x, cfg, label: str) -> None:
+    """Every route of palette_sums_routes, under every layout, equal to its
+    plain version bit for bit (K3/K4/K12/K13's float32 sums, K10/K14's
+    int64 accumulators)."""
+    from photohive_dsp_tpu_torch.ops import quantize as qz
+
+    octree = qz.OctreeTables.for_config(cfg, DEVICE)
+    for key, kern, plain, px, tabs in palette_sums_routes(x, cfg, octree):
+        want = plain(*px, *tabs, cfg)
+        for layout in LAYOUTS:
+            got = kern(*px, *tabs, cfg, layout=layout)
+            sync()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{key} {label} layout={layout}: differs from plain, max "
+                    f"abs err {float((got - want).abs().max())}")
+
+
+def phase_palette_sums_edges(cfg) -> None:
+    """The palette-sums kernel (K3, K4, K10, K12-K14) on its edge cases: a
+    one-colour 1080x1920 batch of 4 (the timed collision case), two-colour
+    stripes and noise at 61x67 (a pixel count that is no multiple of the
+    4-pixel loads or of a block's run), and noise at C=2164
+    (h_partitions=360: one sum table a block, the candidate table and the
+    bitmask in device memory)."""
+    from photohive_dsp_tpu_torch.config import ReportConfig
+
+    rng = np.random.default_rng(SEED + 7)
+    cases = [("one colour 1080x1920 B=4", one_colour_frames(4, H, W), cfg),
+             ("stripes 61x67 B=2", stripe_frames(2, 61, 67), cfg),
+             ("noise 61x67 B=2",
+              rng.integers(0, 256, (2, 3, 61, 67), dtype=np.uint8), cfg),
+             ("noise 64x255 C=2164",
+              rng.integers(0, 256, (1, 3, 64, 255), dtype=np.uint8),
+              ReportConfig(h_partitions=360))]
+    for label, frames, c in cases:
+        check_palette_sums_routes(torch.as_tensor(frames, device=DEVICE), c,
+                                  label)
+    log(f"  palette sums K3, K4 (q=8, q_full), K10 (q=8, q_full), K12, K13, "
+        f"K14 equal plain bit for bit, layouts {LAYOUTS}, on: "
+        + "; ".join(label for label, _, _ in cases))
 
 
 # The kernels each path must launch (ops/_cuda.LAUNCHES names).
@@ -1350,7 +1503,77 @@ def dilated_area(boxes, valid, h: int, w: int) -> int:
 PLAIN_ITERS = {"K14": 1}
 
 
-def phase_timing(images, cfg, kin, bkin, skin, fkin, main):
+def tried_settings_and_flat_frame(cfg, smi: str) -> dict:
+    """The launch settings the redesigns were chosen among, timed on phase
+    7's inputs (K6a's row pairs a block; the palette-sums kernel's sum
+    tables, one a block against its own choice), and the palette-sums
+    kernel on a B=4 batch of one-colour frames against its plain version,
+    in turns plain, kernel, kernel, plain, held bit for bit.  Returns
+    {key: (kernel ms, plain ms, (bytes, float32 ops))} of the flat
+    frames."""
+    from photohive_dsp_tpu_torch.ops import fft_kernels as fk
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+
+    inp = kernel_time_inputs(cfg)
+    x_dc, plan = inp["x_dc"], inp["plan"]
+    row = {pairs: (cuda_ms(lambda: fk.fft_rows(x_dc, plan, pairs), 20)
+                   + cuda_ms(lambda: fk.fft_rows(x_dc, plan, pairs), 20)) / 2
+           for pairs in ROW_PAIRS}
+    log(f"  K6a by row pairs a block (0: the launcher's choice), ms: "
+        + ", ".join(f"{k}: {v:.4f}" for k, v in row.items()) + f" ({smi})")
+    own, one = kernel_calls(cfg, inp), kernel_calls(cfg, inp, layout=1)
+    keys = [k for k in own if any(t in k for t in ("K3", "K4", "K10", "K12",
+                                                   "K13", "K14"))]
+    for key in keys:
+        a1, b1, b2, a2 = (cuda_ms(own[key], 20), cuda_ms(one[key], 20),
+                          cuda_ms(one[key], 20), cuda_ms(own[key], 20))
+        log(f"  {key}: own sum tables {(a1 + a2) / 2:.4f} ms, one table a "
+            f"block {(b1 + b2) / 2:.4f} ms")
+    c = cfg.num_cells
+    d = inp["flat"]
+    x, hsv = d["u8"], d["hsv"]
+    counts = pk.cell_counts_s_from_rgb(x, cfg)[0].long()
+    b = x.shape[0]
+    px = x.numel() // 3
+    x_bytes = x.numel()
+    real = px
+    hsv_bytes = real * 12 + b * SENTINEL_TAIL * 4
+    flat = {
+        "flat K3": (own["flat K3"], lambda: pk.palette_sums_by_k_rgb_q1_plain(
+            x, *d["q1"], cfg), (x_bytes + b * c * 24,
+                                px * (OPS_CELL_PX + OPS_SLOT_PX))),
+        "flat K4q8": (own["flat K4q8"], lambda: pk.palette_sums_by_k_rgb_plain(
+            x, *d["q8"], cfg), None),
+        "flat K10q8": (own["flat K10q8"], lambda: pk.palette_sums_by_k_plain(
+            *hsv, *d["q8"], cfg), None),
+        "flat K14": (own["flat K14"], lambda: pk.palette_sums_by_k_cwide_plain(
+            *hsv, *d["cw"], cfg), None),
+    }
+    n_cand = int((counts * (d["q8"][0] < c).sum(dim=-1).long()).sum())
+    tab8 = d["q8"][0].numel() * 4 + d["q8"][1].numel() * 4
+    flat["flat K4q8"] = flat["flat K4q8"][:2] + (
+        (x_bytes + tab8 + b * c * 16,
+         px * (OPS_CELL_PX + OPS_SLOT_PX) + n_cand * OPS_CANDIDATE),)
+    flat["flat K10q8"] = flat["flat K10q8"][:2] + (
+        (hsv_bytes + tab8 + b * c * 32,
+         real * (OPS_CELL_ID + OPS_SLOT_PX) + n_cand * OPS_CANDIDATE),)
+    allowed = pk.unpack_allowed(d["cw"][0], c)
+    n_allowed = int((counts * allowed.sum(dim=-1)).sum())
+    flat["flat K14"] = flat["flat K14"][:2] + (
+        (hsv_bytes + d["cw"][0].numel() * 4 + d["cw"][1].numel() * 4
+         + b * c * 32,
+         real * (OPS_CELL_ID + OPS_SLOT_PX) + n_allowed * OPS_CANDIDATE),)
+    out = {}
+    for key, (kern, plain, work) in flat.items():
+        if not torch.equal(kern(), plain()):
+            raise AssertionError(f"{key}: differs from its plain version")
+        p1, k1, k2, p2 = (cuda_ms(plain, 1), cuda_ms(kern, 20),
+                          cuda_ms(kern, 20), cuda_ms(plain, 1))
+        out[key] = ((k1 + k2) / 2, (p1 + p2) / 2, work)
+    return out
+
+
+def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
     import photohive_dsp_tpu_torch as pt
     from photohive_dsp_tpu_torch.ops import fft_kernels as fk
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
@@ -1476,6 +1699,7 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main):
     times["K6"] = (k6, None, rfft2)
     log(f"  K6a+K6b {k6:.4f} ms vs torch.fft.rfft2 + |.|^2 {rfft2:.4f} ms "
         f"(B={fx.shape[0]} f32 {H}x{W})")
+    flat_rows = tried_settings_and_flat_frame(cfg, smi)
 
     # Work of each timed call, from these inputs.
     b, _, hh, ww = x.shape
@@ -1550,7 +1774,120 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main):
     for k, (ms, by) in bounds.items():
         log(f"  {k}: bound {ms:.5f} ms ({by}; {work[k][0] / 1e6:.2f} MB, "
             f"{work[k][1] / 1e9:.4f} G float32 ops)")
+    for key, (kern_ms, plain_ms, work_flat) in flat_rows.items():
+        ms, by = bound(*work_flat)
+        log(f"  {key} (one-colour B=4 {H}x{W}): kernel {kern_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {ms:.5f} ms ({by}), equal to "
+            f"plain bit for bit ({smi})")
     return times, bounds, lat_ms, mps
+
+
+def kernel_time_inputs(cfg):
+    """The inputs phase 7 times the palette kernels and K6a on, made from
+    SEED alone with the package on sys.path (this checkout's or another's):
+    B=4 1080x1920 uint8 frames (noise, structured, hue wheel, noise), their
+    float32 planes, flat HSV with a sentinel tail and its cell ids, the
+    palette tables of the batch, the luma without its mean, and a batch of
+    4 one-colour frames with its tables."""
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops import quantize as qz
+    from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
+
+    rng = np.random.default_rng(SEED)
+    images = [noise_image(rng, H, W), structured_image(rng, H, W),
+              hue_wheel_image(rng, H, W), noise_image(rng, H, W)]
+    c = cfg.num_cells
+    _, q_full = qz.palette_widths(cfg)
+    octree = qz.OctreeTables.for_config(cfg, DEVICE)
+    out = {"x_dc": luma_dc(images), "plan": FftPlan.for_shape(H, W, DEVICE)}
+    for name, frames in (("", np.stack([planar(im) for im in images])),
+                         ("flat", one_colour_frames(4, H, W))):
+        x = torch.as_tensor(frames, device=DEVICE)
+        counts, _ = pk.cell_counts_s_from_rgb(x, cfg)
+        assign = assignment(counts, H * W, cfg, octree)
+        hsv = flat_hsv(x, SENTINEL_TAIL)
+        out[name] = dict(
+            u8=x, f32=(x.float() / 255.0).contiguous(), hsv=hsv,
+            ids=cell_ids(hsv, cfg),
+            q1=pk.palette_offset_table(assign, octree, c),
+            q8=pk.palette_candidate_table(assign, octree, c, 8),
+            qfull=pk.palette_candidate_table(assign, octree, c, q_full),
+            cw=pk.cwide_tables(assign, octree))
+    return out
+
+
+def kernel_calls(cfg, inp, **layout):
+    """{key: call} of the palette kernels and K6a on kernel_time_inputs;
+    ``layout`` passes the palette-sums kernel's table layout (omitted for a
+    checkout whose wrappers lack it).  "flat ..." keys run the one-colour
+    batch."""
+    from photohive_dsp_tpu_torch.ops import fft_kernels as fk
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+
+    c = cfg.num_cells
+    calls = {"K6a": lambda: fk.fft_rows(inp["x_dc"], inp["plan"])}
+    for pre, d in (("", inp[""]), ("flat ", inp["flat"])):
+        x, xf, hsv = d["u8"], d["f32"], d["hsv"]
+        calls.update({
+            pre + "K1": lambda x=x: pk.cell_counts_s_from_rgb(x, cfg),
+            pre + "K3": lambda x=x, t=d["q1"]: pk.palette_sums_by_k_rgb_q1(
+                x, *t, cfg, **layout),
+            pre + "K4q8": lambda x=x, t=d["q8"]: pk.palette_sums_by_k_rgb(
+                x, *t, cfg, **layout),
+            pre + "K4qfull": lambda x=x, t=d["qfull"]:
+                pk.palette_sums_by_k_rgb(x, *t, cfg, **layout),
+            pre + "K9": lambda h=hsv: pk.cell_counts_from_hsv(*h, cfg),
+            pre + "K10q8": lambda h=hsv, t=d["q8"]: pk.palette_sums_by_k(
+                *h, *t, cfg, **layout),
+            pre + "K10qfull": lambda h=hsv, t=d["qfull"]:
+                pk.palette_sums_by_k(*h, *t, cfg, **layout),
+            pre + "K11": lambda x=xf: pk.cell_counts_s_from_rgb(x, cfg),
+            pre + "K12": lambda x=xf, t=d["q1"]: pk.palette_sums_by_k_rgb_q1(
+                x, *t, cfg, **layout),
+            pre + "K13q8": lambda x=xf, t=d["q8"]: pk.palette_sums_by_k_rgb(
+                x, *t, cfg, **layout),
+            pre + "K13qfull": lambda x=xf, t=d["qfull"]:
+                pk.palette_sums_by_k_rgb(x, *t, cfg, **layout),
+            pre + "K14": lambda h=hsv, t=d["cw"]: pk.palette_sums_by_k_cwide(
+                *h, *t, cfg, **layout),
+            pre + "K15": lambda i=d["ids"]: pk.cell_counts_batched(i, c),
+        })
+    return calls
+
+
+def kernel_times(cfg) -> dict:
+    """Mean ms of two runs of 20 launches of each of kernel_calls, in the
+    package on sys.path."""
+    calls = kernel_calls(cfg, kernel_time_inputs(cfg))
+    return {k: (cuda_ms(f, 20) + cuda_ms(f, 20)) / 2 for k, f in calls.items()}
+
+
+def parent_kernel_times(parent: str) -> dict:
+    """kernel_times of the checkout at ``parent`` (its own package, built
+    from its own sources), in a child process."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--kernel-times", os.path.abspath(parent)],
+                         capture_output=True, text=True, check=True,
+                         timeout=600)
+    line = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("KERNEL_TIMES ")][-1]
+    return json.loads(line[len("KERNEL_TIMES "):])
+
+
+def compare_parent(parent: str, cfg, smi: str) -> None:
+    """The palette kernels and K6a of the checkout at ``parent`` against
+    this one's on the same inputs and card, in turns parent, this, this,
+    parent; each run's means."""
+    runs = [parent_kernel_times(parent), kernel_times(cfg),
+            kernel_times(cfg), parent_kernel_times(parent)]
+    log(f"  kernel ms, parent {parent} against this checkout, in turns "
+        f"parent, this, this, parent ({smi}):")
+    for key in runs[1]:
+        p = (runs[0][key] + runs[3][key]) / 2
+        t = (runs[1][key] + runs[2][key]) / 2
+        log(f"    {key}: parent {p:.4f} ({runs[0][key]:.4f}/"
+            f"{runs[3][key]:.4f}), this {t:.4f} ({runs[1][key]:.4f}/"
+            f"{runs[2][key]:.4f}), {p / t:.2f}x")
 
 
 KERNELS = [
@@ -1645,7 +1982,17 @@ LIBRARY = {
 }
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv[:1] == ["--kernel-times"]:
+        # A child of compare_parent: the checkout at argv[1]'s package.
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device")
+        sys.path.insert(0, argv[1])
+        from photohive_dsp_tpu_torch.config import ReportConfig
+        print("KERNEL_TIMES " + json.dumps(kernel_times(ReportConfig())),
+              flush=True)
+        return 0
+    parent = argv[1] if argv[:1] == ["--parent"] else None
     smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from photohive_dsp_tpu_torch.config import ReportConfig
@@ -1665,6 +2012,8 @@ def main() -> int:
     err.update(flat_err)
     blur_err, bkin = phase_blur_kernels(images, cfg)
     err.update(blur_err)
+    phase_row_fft_edges()
+    phase_palette_sums_edges(cfg)
     log("phase 4: main path")
     main_out = phase_main_path(images, cfg)
     launches = {"main path": main_out[0]}
@@ -1680,7 +2029,9 @@ def main() -> int:
         "f32 luma for K5-K8, flat HSV for K9, K10, K14 and its cell ids for "
         "K15)")
     times, bounds, lat_ms, mps = phase_timing(images, cfg, kin, bkin, skin,
-                                              fkin, main_out)
+                                              fkin, main_out, smi)
+    if parent:
+        compare_parent(parent, cfg, smi)
 
     kernels = [dict(id=key, name=name, route="cuda", source=src, replaces=rep,
                     launches=launches.get(path, {}).get(counter, 0),
@@ -1717,4 +2068,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -19,16 +19,28 @@
 // mixed-radix Stockham FFT in shared memory (natural order in and out,
 // two ping-pong buffers, one __syncthreads per stage), with a templated
 // r-point DFT for r in {2, 3, 4, 5, 7, 11, 13} and every twiddle read from
-// the plan's float64-derived float32 table (ops/fft_plan.py); no __sinf,
+// the plan's float64-derived float32 tables (ops/fft_plan.py); no __sinf,
 // no fast math, and the library is built --fmad=false, so the plain
 // version (ops/fft_kernels.py) repeats each float32 operation in order.
-//   * K6a: one block per pair of real rows packed as one complex row (two
-//     real FFTs for one complex FFT), split into the two half spectra in
-//     the epilogue; loads and stores are row-contiguous.
+//   * K6a: two real rows packed as one complex row (two real FFTs for one
+//     complex FFT), split into the two half spectra in the epilogue.  A
+//     block of 256 threads keeps `pairs` row pairs in flight (one group of
+//     256 / pairs threads each) and walks over the row pairs of the whole
+//     batch (a grid of as many blocks as the card holds at once), so it
+//     stages the per-stage twiddle table (fft_plan.stage_twiddle_table:
+//     stage after stage, [q][k], the same float32 values as the full table)
+//     in shared memory once and every stage reads its twiddles
+//     contiguously, with no index modulo.  Each item keeps its r values in
+//     registers through the stage's butterfly; an item's position comes
+//     from (a, k) counters stepped per item instead of a division.  The
+//     radix-2 and radix-4 DFTs multiply only by the exact 1, -i, -1, i, so
+//     they are written as additions in the same order (the same nonzero
+//     bits).  Rows whose length is a multiple of 4 load as float4.
 //   * K6b: one block per tile of `lanes` adjacent columns of one image
 //     (4 at H <= 1600, e.g. 1080p), so each row of the tile is one 32-byte
 //     sector of the half spectrum; |X|^2 in the epilogue.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -37,6 +49,12 @@ constexpr int kMaxStages = 16;
 // Shared memory a column tile aims for (two buffers of H x lanes complex),
 // so that two blocks fit on one SM.
 constexpr size_t kColSharedTarget = 100 * 1024;
+// K6a: at most this many row pairs a block, and the shared memory a block
+// aims for (its buffers and the stage twiddles) when it takes several.
+constexpr int kMaxRowPairs = 4;
+constexpr size_t kRowSharedTarget = 110 * 1024;
+// The shared memory a block may take on an H100.
+constexpr size_t kMaxShared = 232448;
 
 }  // namespace
 
@@ -122,32 +140,166 @@ __device__ float2* run_stages(float2* a, float2* b, const FftStages& st,
 }
 
 // ---------------------------------------------------------------- K6a ---
-// x: (rows, n) float32; out: (rows, half) float2.  Block p transforms
-// z = x[2p] + i x[2p+1] (x[2p+1] = 0 past the last row).
-__global__ void fft_rows_kernel(const float* __restrict__ x, int rows,
-                                FftStages st, const float2* __restrict__ tw,
-                                float2* __restrict__ out) {
-  extern __shared__ float2 smem[];
+// The r-point DFT of one item, V_t = v_0 + sum_{q>=1} v_q W_r^{qt} added in
+// ascending q, written to out[t * ns].  W_r^u is wr[u]; for r = 2 and 4 it
+// is exactly 1, -i, -1 or i, and the product is the swap and negation that
+// cmul gives for those values.
+template <int R>
+__device__ __forceinline__ void item_dft(const float2 (&v)[R],
+                                         const float2 (&wr)[R], float2* out,
+                                         int ns) {
+  if constexpr (R == 2) {
+    out[0] = cadd(v[0], v[1]);
+    out[ns] = make_float2(__fsub_rn(v[0].x, v[1].x), __fsub_rn(v[0].y, v[1].y));
+  } else if constexpr (R == 4) {
+    // u = q t mod 4: W^1 = -i, W^2 = -1, W^3 = i.
+    out[0] = cadd(cadd(cadd(v[0], v[1]), v[2]), v[3]);
+    out[ns] = make_float2(
+        __fsub_rn(__fsub_rn(__fadd_rn(v[0].x, v[1].y), v[2].x), v[3].y),
+        __fadd_rn(__fsub_rn(__fsub_rn(v[0].y, v[1].x), v[2].y), v[3].x));
+    out[2 * ns] = make_float2(
+        __fsub_rn(__fadd_rn(__fsub_rn(v[0].x, v[1].x), v[2].x), v[3].x),
+        __fsub_rn(__fadd_rn(__fsub_rn(v[0].y, v[1].y), v[2].y), v[3].y));
+    out[3 * ns] = make_float2(
+        __fadd_rn(__fsub_rn(__fsub_rn(v[0].x, v[1].y), v[2].x), v[3].y),
+        __fsub_rn(__fsub_rn(__fadd_rn(v[0].y, v[1].x), v[2].y), v[3].x));
+  } else {
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      float2 acc = v[0];
+#pragma unroll
+      for (int q = 1; q < R; ++q) {
+        const int u = (q * t) % R;
+        acc = cadd(acc, u == 0 ? v[q] : cmul(v[q], wr[u]));
+      }
+      out[t * ns] = acc;
+    }
+  }
+}
+
+// One Stockham stage of radix R after span ns on one sequence, items
+// j = t0, t0 + nt, ... of m = n / R (stage() above, one lane): v_q =
+// src[j + q m] * stw[(q - 1) ns + k], k = j mod ns, the multiply skipped
+// at k = 0; out at (j - k) R + k = a ns R + k with a = j / ns.
+template <int R>
+__device__ void row_stage(const float2* __restrict__ src,
+                          float2* __restrict__ dst, int n, int ns,
+                          const float2* __restrict__ stw,
+                          const float2* __restrict__ tw, int t0, int nt) {
+  const int m = n / R;
+  float2 wr[R];
+#pragma unroll
+  for (int u = 0; u < R; ++u) wr[u] = R == 2 || R == 4 ? float2{} : __ldg(&tw[u * m]);
+  const int dk = nt % ns;
+  const int da = nt / ns;
+  int k = t0 % ns;
+  int a = t0 / ns;
+  for (int j = t0; j < m; j += nt) {
+    float2 v[R];
+    v[0] = src[j];
+#pragma unroll
+    for (int q = 1; q < R; ++q) {
+      v[q] = src[j + q * m];
+      if (k > 0) v[q] = cmul(v[q], stw[(q - 1) * ns + k]);
+    }
+    item_dft<R>(v, wr, dst + a * ns * R + k, ns);
+    k += dk;
+    a += da;
+    if (k >= ns) {
+      k -= ns;
+      ++a;
+    }
+  }
+}
+
+// x: (rows, n) float32; out: (rows, half) float2.  Row pair p transforms
+// z = x[2p] + i x[2p+1] (x[2p+1] = 0 past the last row).  Group g of the
+// block's `pairs` groups takes pairs blockIdx.x * pairs + g, then the same
+// plus gridDim.x * pairs, and so on.  Shared memory: the stage twiddles
+// (tw_len float2, when stw_shared) | per group two buffers of n float2.
+__global__ void __launch_bounds__(kThreads)
+    fft_rows_kernel(const float* __restrict__ x, int rows, FftStages st,
+                    const float2* __restrict__ tw,
+                    const float2* __restrict__ stage_tw, int tw_len,
+                    bool stw_shared, int pairs, bool vec4,
+                    float2* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float2* smem = reinterpret_cast<float2*>(smem4);
   const int n = st.n;
   const int half = n / 2 + 1;
-  const long long r0 = 2LL * blockIdx.x;
-  const bool has1 = r0 + 1 < rows;
-  const float* x0 = x + r0 * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    smem[i] = make_float2(x0[i], has1 ? x0[n + i] : 0.0f);
+  const int nt = blockDim.x / pairs;
+  const int g = threadIdx.x / nt;
+  const int t0 = threadIdx.x - g * nt;
+  if (stw_shared) {
+    for (int i = threadIdx.x; i < n - 1; i += blockDim.x) smem[i] = stage_tw[i];
   }
-  __syncthreads();
-  const float2* z = run_stages(smem, smem + n, st, 1, 0, tw);
-  float2* o0 = out + r0 * half;
-  for (int k = threadIdx.x; k < half; k += blockDim.x) {
-    const float2 zk = z[k];
-    const float2 zc = z[k == 0 ? 0 : n - k];   // Z[-k], conjugated below
-    o0[k] = make_float2(__fmul_rn(__fadd_rn(zk.x, zc.x), 0.5f),
-                        __fmul_rn(__fsub_rn(zk.y, zc.y), 0.5f));
-    if (has1) {
-      o0[half + k] = make_float2(__fmul_rn(__fadd_rn(zk.y, zc.y), 0.5f),
-                                 __fmul_rn(__fsub_rn(zc.x, zk.x), 0.5f));
+  const float2* stw = stw_shared ? smem : stage_tw;
+  float2* const buf = smem + (stw_shared ? tw_len : 0) + 2LL * g * n;
+  const long long n_pairs = (rows + 1) / 2;
+  for (long long p0 = static_cast<long long>(blockIdx.x) * pairs; p0 < n_pairs;
+       p0 += static_cast<long long>(gridDim.x) * pairs) {
+    const long long pair = p0 + g;
+    const bool live = pair < n_pairs;   // uniform over the group
+    const long long r0 = 2 * pair;
+    const bool has1 = r0 + 1 < rows;
+    if (live) {
+      const float* x0 = x + r0 * n;
+      if (vec4) {
+        const float4* a4 = reinterpret_cast<const float4*>(x0);
+        const float4* b4 = reinterpret_cast<const float4*>(x0 + n);
+        float4* z4 = reinterpret_cast<float4*>(buf);
+        for (int i = t0; i < n / 4; i += nt) {
+          const float4 u = __ldcs(&a4[i]);
+          const float4 w = has1 ? __ldcs(&b4[i]) : make_float4(0.f, 0.f, 0.f, 0.f);
+          z4[2 * i] = make_float4(u.x, w.x, u.y, w.y);
+          z4[2 * i + 1] = make_float4(u.z, w.z, u.w, w.w);
+        }
+      } else {
+        for (int i = t0; i < n; i += nt) {
+          buf[i] = make_float2(__ldcs(&x0[i]), has1 ? __ldcs(&x0[n + i]) : 0.0f);
+        }
+      }
     }
+    __syncthreads();
+    float2* z = buf;
+    float2* y = buf + n;
+    int ns = 1;
+    const float2* stw_s = stw;
+    for (int s = 0; s < st.count; ++s) {
+      const int r = st.radix[s];
+      if (live) {
+        switch (r) {
+          case 2: row_stage<2>(z, y, n, ns, stw_s, tw, t0, nt); break;
+          case 3: row_stage<3>(z, y, n, ns, stw_s, tw, t0, nt); break;
+          case 4: row_stage<4>(z, y, n, ns, stw_s, tw, t0, nt); break;
+          case 5: row_stage<5>(z, y, n, ns, stw_s, tw, t0, nt); break;
+          case 7: row_stage<7>(z, y, n, ns, stw_s, tw, t0, nt); break;
+          case 11: row_stage<11>(z, y, n, ns, stw_s, tw, t0, nt); break;
+          default: row_stage<13>(z, y, n, ns, stw_s, tw, t0, nt); break;
+        }
+      }
+      __syncthreads();
+      float2* t = z;
+      z = y;
+      y = t;
+      stw_s += (r - 1) * ns;
+      ns *= r;
+    }
+    if (live) {
+      float2* o0 = out + r0 * half;
+      for (int k = t0; k < half; k += nt) {
+        const float2 zk = z[k];
+        const float2 zc = z[k == 0 ? 0 : n - k];   // Z[-k], conjugated below
+        __stcs(&o0[k], make_float2(__fmul_rn(__fadd_rn(zk.x, zc.x), 0.5f),
+                                   __fmul_rn(__fsub_rn(zk.y, zc.y), 0.5f)));
+        if (has1) {
+          __stcs(&o0[half + k],
+                 make_float2(__fmul_rn(__fadd_rn(zk.y, zc.y), 0.5f),
+                             __fmul_rn(__fsub_rn(zc.x, zk.x), 0.5f)));
+        }
+      }
+    }
+    __syncthreads();   // the next pairs' loads overwrite the buffers
   }
 }
 
@@ -193,16 +345,49 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
 // C entry points (bound with ctypes in ops/_cuda.py).  Each returns the
 // cudaError_t of its launch; tensors are contiguous float32.
 
-// pgm: (rows, n) -> spec: (rows, n/2 + 1, 2).
+// pgm: (rows, n) -> spec: (rows, n/2 + 1, 2).  stage_twiddles: the plan's
+// (n - 1, 2) per-stage table.  pairs: row pairs a block keeps in flight,
+// or 0 for the most that fit kRowSharedTarget.
 extern "C" int ph_fft_rows(const void* pgm, int rows, const FftStages* st,
-                           const void* twiddles, void* spec, void* stream) {
-  const size_t bytes = 2 * static_cast<size_t>(st->n) * sizeof(float2);
+                           const void* twiddles, const void* stage_twiddles,
+                           int pairs, void* spec, void* stream) {
+  const int n = st->n;
+  const size_t pair_bytes = 2 * static_cast<size_t>(n) * sizeof(float2);
+  // Even, so that the buffers after the table stay 16-byte aligned.
+  const int tw_len = n & ~1;
+  const size_t tw_bytes = tw_len * sizeof(float2);
+  const bool stw_shared = tw_bytes + pair_bytes <= kMaxShared;
+  const size_t base = stw_shared ? tw_bytes : 0;
+  if (pairs <= 0) {
+    pairs = kMaxRowPairs;
+    while (pairs > 1 && base + pairs * pair_bytes > kRowSharedTarget) pairs >>= 1;
+  }
+  if (pairs > kMaxRowPairs || kThreads % pairs) return cudaErrorInvalidValue;
+  const size_t bytes = base + pairs * pair_bytes;
   cudaError_t err = allow_shared(fft_rows_kernel, bytes);
   if (err != cudaSuccess) return err;
-  fft_rows_kernel<<<(rows + 1) / 2, kThreads, bytes,
-                    static_cast<cudaStream_t>(stream)>>>(
+  int device = 0;
+  int sms = 0;
+  int per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fft_rows_kernel, kThreads, bytes);
+  }
+  if (err != cudaSuccess) return err;
+  const long long groups = ((rows + 1) / 2 + pairs - 1) / pairs;
+  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int grid = static_cast<int>(groups < resident ? groups : resident);
+  const bool vec4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(pgm) % 16 == 0;
+  if (grid == 0) return cudaSuccess;
+  fft_rows_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pgm), rows, *st,
-      static_cast<const float2*>(twiddles), static_cast<float2*>(spec));
+      static_cast<const float2*>(twiddles),
+      static_cast<const float2*>(stage_twiddles), tw_len, stw_shared, pairs,
+      vec4, static_cast<float2*>(spec));
   return cudaGetLastError();
 }
 

@@ -3,7 +3,7 @@
 //
 // Every palette kernel derives its cell ids through hsv_cell(): the RGB
 // kernels (cell_counts_s, palette_sums q=1, palette_sums q>1) by way of
-// pixel_hsv_cell(), the flat-HSV ones (cell_counts_hsv, palette_sums_hsv)
+// rgb_hsv_cell(), the flat-HSV ones (cell_counts_hsv, palette_sums_hsv)
 // directly, so a pixel on a cell boundary can never land in one cell for
 // the counts and another for the sums.  The arithmetic is
 // op-for-op the JAX package's _hsv_rows / _cell_ids_row
@@ -12,7 +12,9 @@
 // round-to-nearest adds and multiplies, spelled with __f*_rn so no FMA
 // contraction can change a bit (the library is also built --fmad=false).
 // u8 decodes as __fdiv_rn(x, 255): correctly rounded, hence equal to the
-// JAX package's division-free u8_to_unit_f32.
+// JAX package's division-free u8_to_unit_f32.  The kernels read it from a
+// 256-entry table in shared memory filled with those divisions
+// (fill_unit_table), so the bits are the division's.
 #pragma once
 
 #include <stdint.h>
@@ -27,9 +29,11 @@ struct CellParams {
   int s_partitions, v_partitions, gray_start, black_id, num_cells;
 };
 
-__device__ __forceinline__ float unit_value(float x) { return x; }
-__device__ __forceinline__ float unit_value(uint8_t x) {
-  return __fdiv_rn(static_cast<float>(x), 255.0f);
+// unit[x] = x / 255, correctly rounded, for every uint8 x.
+__device__ __forceinline__ void fill_unit_table(float* unit) {
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    unit[i] = __fdiv_rn(static_cast<float>(i), 255.0f);
+  }
 }
 
 // jnp.clip(x, 0, hi).astype(int32): max, then min, then truncation.
@@ -52,15 +56,10 @@ __device__ __forceinline__ int hsv_cell(float h, float s, float v,
                             : (s < p.gray_thresh ? p.gray_start : color_id);
 }
 
-template <typename T>
-__device__ __forceinline__ void pixel_hsv_cell(const T* img, long long plane,
-                                               long long i,
-                                               const CellParams& p, float& h,
-                                               float& s, float& v,
-                                               int& cell) {
-  const float r = unit_value(img[i]);
-  const float g = unit_value(img[plane + i]);
-  const float b = unit_value(img[2 * plane + i]);
+// HSV and octree cell of one pixel of unit RGB (colorspace.rgb_to_hsv).
+__device__ __forceinline__ void rgb_hsv_cell(float r, float g, float b,
+                                             const CellParams& p, float& h,
+                                             float& s, float& v, int& cell) {
   const float mx = fmaxf(fmaxf(r, g), b);
   const float mn = fminf(fminf(r, g), b);
   const float delta = __fsub_rn(mx, mn);

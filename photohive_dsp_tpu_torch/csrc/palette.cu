@@ -38,26 +38,41 @@
 // K10 drops them.
 //
 // What bounds them on an H100: each pixel costs three loads (3 B as u8,
-// 12 B as f32), then ~60 float ops including four IEEE divisions for HSV and
-// the cell id, then shared-memory atomics (K1: one; K3/K4: four).  A 1080p
-// frame reads 6.2 MB (u8) or 24.9 MB (f32), a few microseconds at 3.35 TB/s,
-// so the kernels are bound by instruction issue and by atomic conflicts in
-// shared memory when many pixels of a warp share a cell (flat images).
+// 12 B as f32), then ~60 float ops including IEEE divisions for HSV and
+// the cell id, then its adds into the tables.  A 1080p frame reads 6.2 MB
+// (u8) or 24.9 MB (f32), a few microseconds at 3.35 TB/s, so the kernels
+// are bound by instruction issue and by the adds into shared memory when
+// many pixels share a cell (flat images).
 //
 // Design.  The TPU kernels turned the histogram and the sums into one-hot
 // matrix products on the MXU, with bf16 splits to keep them exact.  Here
-// each pixel adds directly into a per-block table in shared memory, and the
+// each pixel adds directly into a table in shared memory, and the
 // candidate tables a pixel reads (K4: its cell's <= q tie candidates and
 // the candidate centres; K3: its cell's slot and hue offset) sit in shared
 // memory too.  A block covers a contiguous run of one image's pixels
 // (grid = pixel runs x images); it flushes its nonzero table entries into a
 // per-image accumulator in device memory with 64-bit integer atomics, and
 // for K1, K3 and K4 a second small kernel converts the accumulator to the
-// outputs; K9 and K10 return the accumulator itself.
+// outputs; K9, K10 and K14 return the accumulator itself.  Each thread
+// takes 4 adjacent pixels at a time (one 4-byte load per uint8 plane, one
+// float4 per float plane, where the pixel count is a multiple of 4), and
+// uint8 decodes through a 256-entry table of x / 255 in shared memory.
+//
+// K3/K4/K10/K14 (palette_sums_kernel) add four values a pixel (three
+// 64-bit sums and a count), so their adds are what they spend.  A warp
+// first groups its lanes by slot (__match_any_sync) and sums each group's
+// values with 32-bit warp reductions on exact 27-bit splits of the 64-bit
+// words; one lane per distinct slot then adds the group's sums, so a flat
+// region costs one update a warp instead of 32.  Each warp adds into its
+// own table (3.1 KB at C=112), by plain read-modify-write, since its
+// lanes update distinct slots; the block adds its warps' tables at the
+// flush.  Where the warps' tables do not fit, the block keeps one table
+// and the lanes add with atomics.  The grid is one wave of the blocks the
+// card holds at once, so each block's table set-up and flush is paid once
+// per SM slot, not once per 8192 pixels.
 //
 // The flat-HSV kernels read 12 B per real pixel (4 B per sentinel pixel)
-// and skip the HSV arithmetic; they stay bound by the cell-id divisions
-// and the shared-memory atomics.  K14's bitmask is C * ceil(C/32) words
+// and skip the HSV arithmetic.  K14's bitmask is C * ceil(C/32) words
 // (1.8 KB at C=112) and sits in shared memory like K4's candidate table;
 // past kSharedBudget (C=2164: 585 KB) it is read from device memory, as
 // K4's table is.  K15 reads 4 B per id and does one atomic.
@@ -78,21 +93,33 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// Pixels a block of K1 / K9 / K15 covers.
 constexpr long long kPixelsPerBlock = kThreads * 32;
-constexpr double kFixedOne = 268435456.0;  // 2^28
+// Pixels a thread takes at a time.
+constexpr int kVec = 4;
+constexpr float kFixedOne = 268435456.0f;  // 2^28
 // Shared memory a block may take for K4's candidate table (or K14's
 // bitmask) before the table is read from device memory instead (huge
 // configs: C=2164 has up to 728 candidates per cell).
 constexpr size_t kSharedBudget = 160 * 1024;
+// Shared memory the palette-sums kernel gives its sum tables, one per
+// warp while they fit.
+constexpr size_t kWarpTablesBudget = 64 * 1024;
+// A fixed-point value is below 360 * 2^28 < 2^37; its low kSplitBits and
+// the rest each sum over a warp's 32 lanes without wrapping 32 bits.
+constexpr int kSplitBits = 27;
 
 typedef unsigned long long u64;
 
+// x * 2^28 is exact in float32, so rounding it to the nearest integer
+// (ties to even) is the plain version's round(float64(x) * 2^28).
 __device__ __forceinline__ u64 to_fixed(float x) {
-  return __double2ull_rn(static_cast<double>(x) * kFixedOne);
+  return __float2ull_rn(__fmul_rn(x, kFixedOne));
 }
 
 __device__ __forceinline__ float from_fixed(u64 x) {
-  return static_cast<float>(static_cast<double>(x) / kFixedOne);
+  return static_cast<float>(static_cast<double>(x) / 268435456.0);
 }
 
 __device__ __forceinline__ float wrap360(float t) {
@@ -100,65 +127,149 @@ __device__ __forceinline__ float wrap360(float t) {
                     : (t < 0.0f ? __fadd_rn(t, 360.0f) : t);
 }
 
-// Pixel sources.  load() gives pixel i of image b as (h, s, v, cell) and
-// returns false for a pixel that counts for nothing.
+// One pixel as a source gives it; real is false for a pixel that counts
+// for nothing (past the end, a hue sentinel, an id outside [0, C)).
+struct Pixel {
+  float h, s, v;
+  int cell;
+  bool real;
+};
+
+// Pixel sources.  load4() gives pixels i..i+3 of image b (i a multiple of
+// kVec); pixels at or past `end` are not real.  With vec, the planes are
+// read with one 4-pixel load each (the pixel count is a multiple of 4 and
+// the planes aligned).
 //
-// Planar RGB, (B, 3, P) uint8 or float32: every pixel is real.
+// Planar RGB, (B, 3, P) uint8 or float32: every pixel is real.  uint8
+// decodes through `unit` (fill_unit_table).
 template <typename T>
 struct RgbPixels {
+  static constexpr bool kUnit = sizeof(T) == 1;
   const T* rgb;
   long long pixels;
-  __device__ __forceinline__ bool load(int b, long long i, const CellParams& p,
-                                       float& h, float& s, float& v,
-                                       int& cell) const {
-    pixel_hsv_cell(rgb + static_cast<long long>(b) * 3 * pixels, pixels, i, p,
-                   h, s, v, cell);
-    return true;
+  bool vec;
+  __device__ __forceinline__ void load4(int b, long long i, long long end,
+                                        const CellParams& p,
+                                        const float* unit,
+                                        Pixel (&px)[kVec]) const {
+    const T* img = rgb + static_cast<long long>(b) * 3 * pixels;
+    float c[3][kVec];
+    if (vec && i + kVec <= end) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        if constexpr (kUnit) {
+          const unsigned w =
+              *reinterpret_cast<const unsigned*>(img + ch * pixels + i);
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) c[ch][j] = unit[(w >> (8 * j)) & 255u];
+        } else {
+          const float4 w =
+              __ldg(reinterpret_cast<const float4*>(img + ch * pixels + i));
+          c[ch][0] = w.x;
+          c[ch][1] = w.y;
+          c[ch][2] = w.z;
+          c[ch][3] = w.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const T x = i + j < end ? img[ch * pixels + i + j] : T(0);
+          if constexpr (kUnit) {
+            c[ch][j] = unit[x];
+          } else {
+            c[ch][j] = x;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      px[j].real = i + j < end;
+      rgb_hsv_cell(c[0][j], c[1][j], c[2][j], p, px[j].h, px[j].s, px[j].v,
+                   px[j].cell);
+    }
   }
 };
 
 // Flat HSV, three (B, P) float32 planes; a hue below 0 (or NaN) is the
 // sentinel of a pixel outside the image.
 struct HsvPixels {
+  static constexpr bool kUnit = false;
   const float* h;
   const float* s;
   const float* v;
   long long pixels;
-  __device__ __forceinline__ bool load(int b, long long i, const CellParams& p,
-                                       float& hh, float& ss, float& vv,
-                                       int& cell) const {
-    const long long j = static_cast<long long>(b) * pixels + i;
-    hh = h[j];
-    if (!(hh >= 0.0f)) return false;
-    ss = s[j];
-    vv = v[j];
-    cell = hsv_cell(hh, ss, vv, p);
-    return true;
+  bool vec;
+  __device__ __forceinline__ void load4(int b, long long i, long long end,
+                                        const CellParams& p, const float*,
+                                        Pixel (&px)[kVec]) const {
+    const long long o = static_cast<long long>(b) * pixels + i;
+    if (vec && i + kVec <= end) {
+      const float4 hh = __ldg(reinterpret_cast<const float4*>(h + o));
+      const float4 ss = __ldg(reinterpret_cast<const float4*>(s + o));
+      const float4 vv = __ldg(reinterpret_cast<const float4*>(v + o));
+      px[0] = Pixel{hh.x, ss.x, vv.x, 0, true};
+      px[1] = Pixel{hh.y, ss.y, vv.y, 0, true};
+      px[2] = Pixel{hh.z, ss.z, vv.z, 0, true};
+      px[3] = Pixel{hh.w, ss.w, vv.w, 0, true};
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        px[j] = i + j < end ? Pixel{h[o + j], s[o + j], v[o + j], 0, true}
+                            : Pixel{-1.0f, 0.0f, 0.0f, 0, false};
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      px[j].real = px[j].real && px[j].h >= 0.0f;
+      if (px[j].real) px[j].cell = hsv_cell(px[j].h, px[j].s, px[j].v, p);
+    }
   }
 };
 
 // Precomputed cell ids, (B, P) int32: an id outside [0, C) counts for
 // nothing.  No saturation (s = 0).
 struct CellIdPixels {
+  static constexpr bool kUnit = false;
   const int* ids;
   long long pixels;
-  __device__ __forceinline__ bool load(int b, long long i, const CellParams& p,
-                                       float& h, float& s, float& v,
-                                       int& cell) const {
-    cell = ids[static_cast<long long>(b) * pixels + i];
-    h = s = v = 0.0f;
-    return cell >= 0 && cell < p.num_cells;
+  bool vec;
+  __device__ __forceinline__ void load4(int b, long long i, long long end,
+                                        const CellParams& p, const float*,
+                                        Pixel (&px)[kVec]) const {
+    const long long o = static_cast<long long>(b) * pixels + i;
+    int id[kVec];
+    if (vec && i + kVec <= end) {
+      const int4 w = __ldg(reinterpret_cast<const int4*>(ids + o));
+      id[0] = w.x;
+      id[1] = w.y;
+      id[2] = w.z;
+      id[3] = w.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) id[j] = i + j < end ? ids[o + j] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      px[j] = Pixel{0.0f, 0.0f, 0.0f, id[j],
+                    i + j < end && id[j] >= 0 && id[j] < p.num_cells};
+    }
   }
 };
 
 // ----------------------------------------------------- K1 / K9 / K15 ---
 // acc: (B, C + 1) u64 = [count per cell..., fixed-point sum of s].
 template <typename Src>
-__global__ void cell_counts_s_kernel(Src src, CellParams p,
-                                     u64* __restrict__ acc) {
+__global__ void __launch_bounds__(kThreads)
+    cell_counts_s_kernel(Src src, CellParams p, u64* __restrict__ acc) {
   extern __shared__ u64 smem[];
   const int c = p.num_cells;
-  unsigned int* cnt = reinterpret_cast<unsigned int*>(smem);
+  float* unit = reinterpret_cast<float*>(smem);
+  unsigned int* cnt = reinterpret_cast<unsigned int*>(unit + 256);
+  if (Src::kUnit) fill_unit_table(unit);
   for (int i = threadIdx.x; i < c; i += blockDim.x) cnt[i] = 0u;
   __syncthreads();
 
@@ -168,12 +279,16 @@ __global__ void cell_counts_s_kernel(Src src, CellParams p,
   const long long end =
       start + kPixelsPerBlock < pixels ? start + kPixelsPerBlock : pixels;
   u64 s_fx = 0;
-  for (long long i = start + threadIdx.x; i < end; i += blockDim.x) {
-    float h, s, v;
-    int cell;
-    if (!src.load(b, i, p, h, s, v, cell)) continue;
-    atomicAdd(&cnt[cell], 1u);
-    s_fx += to_fixed(s);
+  for (long long i = start + kVec * threadIdx.x; i < end;
+       i += kVec * blockDim.x) {
+    Pixel px[kVec];
+    src.load4(b, i, end, p, unit, px);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      if (!px[j].real) continue;
+      atomicAdd(&cnt[px[j].cell], 1u);
+      s_fx += to_fixed(px[j].s);
+    }
   }
   for (int o = 16; o > 0; o >>= 1) s_fx += __shfl_down_sync(0xffffffffu, s_fx, o);
   __syncthreads();
@@ -205,20 +320,64 @@ enum SlotRule {
   kAllowedBits  // K14: first minimum over the set bits of the cell's row
 };
 
+// The sum of x over the lanes of `peers` (a group of the calling warp, the
+// caller among them), exact for x < 2^37.
+__device__ __forceinline__ u64 group_sum(unsigned peers, u64 x) {
+  constexpr unsigned kLow = (1u << kSplitBits) - 1u;
+  const unsigned lo = __reduce_add_sync(peers, static_cast<unsigned>(x) & kLow);
+  const unsigned hi =
+      __reduce_add_sync(peers, static_cast<unsigned>(x >> kSplitBits));
+  return (static_cast<u64>(hi) << kSplitBits) + lo;
+}
+
+// One pixel of each lane of the warp into the warp's table: slot k (-1: none)
+// gets the fixed-point values and a count.  Lanes of one slot add as one
+// group, by its lowest lane; with warp_tables the table is the warp's own,
+// so the group leaders, on distinct slots, add without atomics.
+__device__ __forceinline__ void add_to_slot(int k, u64 hf, u64 sf, u64 vf,
+                                            u64* __restrict__ sums,
+                                            unsigned* __restrict__ cnt, int c,
+                                            bool warp_tables) {
+  __syncwarp();   // the previous step's table updates, before this one's
+  const unsigned peers = __match_any_sync(0xffffffffu, k);
+  if (k < 0) return;   // the whole group has no slot
+  const u64 h = group_sum(peers, hf);
+  const u64 s = group_sum(peers, sf);
+  const u64 v = group_sum(peers, vf);
+  if ((threadIdx.x & 31) != __ffs(peers) - 1) return;
+  const unsigned n = __popc(peers);
+  if (warp_tables) {
+    sums[k] += h;
+    sums[c + k] += s;
+    sums[2 * c + k] += v;
+    cnt[k] += n;
+  } else {
+    atomicAdd(&sums[k], h);
+    atomicAdd(&sums[c + k], s);
+    atomicAdd(&sums[2 * c + k], v);
+    atomicAdd(&cnt[k], n);
+  }
+}
+
+// Shared layout: sum tables (n_tables x 3C u64) | counts (n_tables x C
+// u32) | uint8 decode (256 float) | values | cell table.  n_tables is
+// kWarps with warp_tables, else 1.  Block (x, b) takes pixels [x run,
+// (x + 1) run) of image b, run a multiple of kVec * kThreads.
 template <typename Src, int kRule>
-__global__ void palette_sums_kernel(Src src, CellParams p,
-                                    const int* __restrict__ cell_tab,
-                                    const float* __restrict__ val_tab, int q,
-                                    bool tab_in_shared,
-                                    u64* __restrict__ acc) {
+__global__ void __launch_bounds__(kThreads)
+    palette_sums_kernel(Src src, CellParams p, const int* __restrict__ cell_tab,
+                        const float* __restrict__ val_tab, int q,
+                        bool tab_in_shared, bool warp_tables, long long run,
+                        u64* __restrict__ acc) {
   constexpr bool kQ1 = kRule == kSlotOfCell;
   extern __shared__ u64 smem[];
   const int c = p.num_cells;
   const int b = blockIdx.y;
-  // Shared layout: sums (3C u64) | counts (C u32) | values | cell table.
-  u64* sums = smem;
-  unsigned int* cnt = reinterpret_cast<unsigned int*>(sums + 3 * c);
-  float* vals = reinterpret_cast<float*>(cnt + c);
+  const int n_tables = warp_tables ? kWarps : 1;
+  u64* sums_all = smem;
+  unsigned int* cnt_all = reinterpret_cast<unsigned int*>(sums_all + 3 * c * n_tables);
+  float* unit = reinterpret_cast<float*>(cnt_all + c * n_tables);
+  float* vals = unit + 256;
   // K3: vals = hue offset per cell (C); else centres by slot (h | s | v).
   // The cell table has q entries a cell (K14: q bitmask words).
   const int n_vals = kQ1 ? c : 3 * c;
@@ -227,8 +386,9 @@ __global__ void palette_sums_kernel(Src src, CellParams p,
   const int* gtab = cell_tab + static_cast<long long>(b) * tab_len;
   const float* gval = val_tab + static_cast<long long>(b) * n_vals;
 
-  for (int i = threadIdx.x; i < 3 * c; i += blockDim.x) sums[i] = 0ull;
-  for (int i = threadIdx.x; i < c; i += blockDim.x) cnt[i] = 0u;
+  for (int i = threadIdx.x; i < 3 * c * n_tables; i += blockDim.x) sums_all[i] = 0ull;
+  for (int i = threadIdx.x; i < c * n_tables; i += blockDim.x) cnt_all[i] = 0u;
+  if (Src::kUnit) fill_unit_table(unit);
   if (kQ1) {
     for (int i = threadIdx.x; i < c; i += blockDim.x) vals[i] = gval[i];
   } else {
@@ -243,75 +403,91 @@ __global__ void palette_sums_kernel(Src src, CellParams p,
   const int* tab = tab_in_shared ? tab_sh : gtab;
   __syncthreads();
 
+  const int warp = threadIdx.x >> 5;
+  u64* sums = sums_all + (warp_tables ? 3 * c * warp : 0);
+  unsigned int* cnt = cnt_all + (warp_tables ? c * warp : 0);
   const long long pixels = src.pixels;
-  const long long start = blockIdx.x * kPixelsPerBlock;
-  const long long end =
-      start + kPixelsPerBlock < pixels ? start + kPixelsPerBlock : pixels;
-  for (long long i = start + threadIdx.x; i < end; i += blockDim.x) {
-    float h, s, v;
-    int cell;
-    if (!src.load(b, i, p, h, s, v, cell)) continue;
-    int k;
-    float off;
-    if (kQ1) {
-      k = tab[cell];
-      off = vals[cell];
-    } else {
-      // Distance in the exact float32 op order of
-      // photohive_dsp_tpu/ops/quantize.py:364-371; slots are visited in
-      // ascending valid order, so the strict < keeps the first minimum,
-      // the reference's tie rule.
-      float best = INFINITY;
-      k = c;
-      auto visit = [&](int kk) {
-        float hd = fabsf(__fsub_rn(h, vals[kk]));
-        hd = hd > 180.0f ? __fsub_rn(360.0f, hd) : hd;
-        hd = __fmul_rn(hd, p.inv360);
-        const float sd = __fsub_rn(s, vals[c + kk]);
-        const float vd = __fsub_rn(v, vals[2 * c + kk]);
-        const float d = __fadd_rn(__fadd_rn(__fmul_rn(hd, hd), __fmul_rn(sd, sd)),
-                                  __fmul_rn(vd, vd));
-        if (d < best) {
-          best = d;
-          k = kk;
-        }
-      };
-      const int* row = tab + static_cast<long long>(cell) * q;
-      if (kRule == kCandidates) {
-        // Candidates ascend with sentinels (>= C) last.
-        for (int j = 0; j < q; ++j) {
-          const int kk = row[j];
-          if (kk >= c) break;
-          visit(kk);
-        }
-      } else {
-        for (int w = 0; w < q; ++w) {
-          for (unsigned int bits = static_cast<unsigned int>(row[w]); bits;
-               bits &= bits - 1u) {
-            visit(32 * w + __ffs(static_cast<int>(bits)) - 1);
+  const long long start = blockIdx.x * run;
+  const long long end = start + run < pixels ? start + run : pixels;
+  // Warp-uniform steps: the warp's lanes take 32 x kVec adjacent pixels.
+  for (long long w0 = start + 32LL * kVec * warp; w0 < end;
+       w0 += 32LL * kVec * kWarps) {
+    Pixel px[kVec];
+    src.load4(b, w0 + kVec * (threadIdx.x & 31), end, p, unit, px);
+#pragma unroll
+    for (int jj = 0; jj < kVec; ++jj) {
+      const float h = px[jj].h, s = px[jj].s, v = px[jj].v;
+      const int cell = px[jj].cell;
+      int k = c;
+      float off = 0.0f;
+      if (px[jj].real) {
+        if (kQ1) {
+          k = tab[cell];
+          off = vals[cell];
+        } else {
+          // Distance in the exact float32 op order of
+          // photohive_dsp_tpu/ops/quantize.py:364-371; slots are visited
+          // in ascending valid order, so the strict < keeps the first
+          // minimum, the reference's tie rule.
+          float best = INFINITY;
+          auto visit = [&](int kk) {
+            float hd = fabsf(__fsub_rn(h, vals[kk]));
+            hd = hd > 180.0f ? __fsub_rn(360.0f, hd) : hd;
+            hd = __fmul_rn(hd, p.inv360);
+            const float sd = __fsub_rn(s, vals[c + kk]);
+            const float vd = __fsub_rn(v, vals[2 * c + kk]);
+            const float d = __fadd_rn(
+                __fadd_rn(__fmul_rn(hd, hd), __fmul_rn(sd, sd)),
+                __fmul_rn(vd, vd));
+            if (d < best) {
+              best = d;
+              k = kk;
+            }
+          };
+          const int* row = tab + static_cast<long long>(cell) * q;
+          if (kRule == kCandidates) {
+            // Candidates ascend with sentinels (>= C) last.
+            for (int j = 0; j < q; ++j) {
+              const int kk = row[j];
+              if (kk >= c) break;
+              visit(kk);
+            }
+          } else {
+            for (int w = 0; w < q; ++w) {
+              for (unsigned int bits = static_cast<unsigned int>(row[w]); bits;
+                   bits &= bits - 1u) {
+                visit(32 * w + __ffs(static_cast<int>(bits)) - 1);
+              }
+            }
+            // An empty row: slot 0, as the TPU kernel's finite mask gives.
+            if (k == c) k = 0;
           }
+          off = k < c ? __fsub_rn(180.0f, vals[k]) : 0.0f;
         }
-        // An empty row: slot 0, as the TPU kernel's finite mask gives.
-        if (k == c) k = 0;
       }
-      off = k < c ? __fsub_rn(180.0f, vals[k]) : 0.0f;
-    }
-    if (k < c) {
-      atomicAdd(&cnt[k], 1u);
-      atomicAdd(&sums[k], to_fixed(wrap360(__fadd_rn(h, off))));
-      atomicAdd(&sums[c + k], to_fixed(s));
-      atomicAdd(&sums[2 * c + k], to_fixed(v));
+      const bool add = k >= 0 && k < c;
+      add_to_slot(add ? k : -1,
+                  add ? to_fixed(wrap360(__fadd_rn(h, off))) : 0ull,
+                  add ? to_fixed(s) : 0ull, add ? to_fixed(v) : 0ull, sums,
+                  cnt, c, warp_tables);
     }
   }
   __syncthreads();
 
   u64* out = acc + static_cast<long long>(b) * c * 4;
   for (int k = threadIdx.x; k < c; k += blockDim.x) {
-    if (!cnt[k]) continue;
-    atomicAdd(&out[4 * k + 0], sums[k]);
-    atomicAdd(&out[4 * k + 1], sums[c + k]);
-    atomicAdd(&out[4 * k + 2], sums[2 * c + k]);
-    atomicAdd(&out[4 * k + 3], static_cast<u64>(cnt[k]));
+    u64 hs = 0, ss = 0, vs = 0, n = 0;
+    for (int t = 0; t < n_tables; ++t) {
+      hs += sums_all[3 * c * t + k];
+      ss += sums_all[3 * c * t + c + k];
+      vs += sums_all[3 * c * t + 2 * c + k];
+      n += cnt_all[c * t + k];
+    }
+    if (!n) continue;
+    atomicAdd(&out[4 * k + 0], hs);
+    atomicAdd(&out[4 * k + 1], ss);
+    atomicAdd(&out[4 * k + 2], vs);
+    atomicAdd(&out[4 * k + 3], n);
   }
 }
 
@@ -337,15 +513,37 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Blocks of `kernel` with `bytes` of shared memory the card holds at once.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t bytes, long long* out) {
+  int device = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, bytes);
+  }
+  *out = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  return err;
+}
+
 // sums_out == nullptr (K10, K14) leaves the result in acc (fixed point).
+// layout: 0 = per-warp sum tables where they fit kWarpTablesBudget, else
+// one table a block; 1 = one table a block.
 template <typename Src, int kRule>
 cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
                                 const int* cell_tab, const float* val_tab,
-                                int q, float* sums_out, u64* acc,
+                                int q, int layout, float* sums_out, u64* acc,
                                 cudaStream_t stream) {
   constexpr bool kQ1 = kRule == kSlotOfCell;
   const int c = p.num_cells;
-  const size_t base = 3 * c * sizeof(u64) + c * sizeof(unsigned int) +
+  const size_t table = 3 * c * sizeof(u64) + c * sizeof(unsigned int);
+  const bool warp_tables = layout == 0 && kWarps * table <= kWarpTablesBudget;
+  const size_t base = (warp_tables ? kWarps : 1) * table + 256 * sizeof(float) +
                       (kQ1 ? c : 3 * c) * sizeof(float);
   const size_t tab = (kQ1 ? c : static_cast<size_t>(c) * q) * sizeof(int);
   const bool tab_in_shared = base + tab <= kSharedBudget;
@@ -356,8 +554,23 @@ cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
   err = cudaMemsetAsync(acc, 0, static_cast<size_t>(batch) * c * 4 * sizeof(u64),
                         stream);
   if (err != cudaSuccess) return err;
-  kernel<<<pixel_grid(batch, src.pixels), kThreads, bytes, stream>>>(
-      src, p, cell_tab, val_tab, q, tab_in_shared, acc);
+  if (batch == 0 || src.pixels == 0) {
+    if (sums_out) palette_sums_finish<<<batch, kThreads, 0, stream>>>(acc, c, sums_out);
+    return cudaGetLastError();
+  }
+  long long resident = 0;
+  err = resident_blocks(kernel, bytes, &resident);
+  if (err != cudaSuccess) return err;
+  // One wave: runs of at least one step of the block, as many a image as
+  // the card holds blocks over the batch.
+  constexpr long long kStep = static_cast<long long>(kVec) * kThreads;
+  long long runs = (resident + batch - 1) / batch;
+  long long run = (src.pixels + runs - 1) / runs;
+  run = (run + kStep - 1) / kStep * kStep;
+  runs = (src.pixels + run - 1) / run;
+  kernel<<<dim3(static_cast<unsigned>(runs), static_cast<unsigned>(batch)),
+           kThreads, bytes, stream>>>(src, p, cell_tab, val_tab, q,
+                                      tab_in_shared, warp_tables, run, acc);
   if (sums_out) palette_sums_finish<<<batch, kThreads, 0, stream>>>(acc, c, sums_out);
   return cudaGetLastError();
 }
@@ -369,29 +582,38 @@ cudaError_t launch_cell_counts_s(Src src, int batch, const CellParams& p,
                                  int* counts, float* s_sum, u64* acc,
                                  cudaStream_t stream) {
   const int c = p.num_cells;
-  const size_t bytes = c * sizeof(unsigned int);
+  const size_t bytes = 256 * sizeof(float) + c * sizeof(unsigned int);
   auto kernel = cell_counts_s_kernel<Src>;
   cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(acc, 0, static_cast<size_t>(batch) * (c + 1) * sizeof(u64),
                         stream);
   if (err != cudaSuccess) return err;
-  kernel<<<pixel_grid(batch, src.pixels), kThreads, bytes, stream>>>(src, p, acc);
+  if (batch > 0 && src.pixels > 0) {
+    kernel<<<pixel_grid(batch, src.pixels), kThreads, bytes, stream>>>(src, p, acc);
+  }
   if (counts) {
     cell_counts_s_finish<<<batch, kThreads, 0, stream>>>(acc, c, counts, s_sum);
   }
   return cudaGetLastError();
 }
 
+bool aligned(const void* ptr, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
 template <typename T>
 RgbPixels<T> rgb_pixels(const void* rgb, long long pixels) {
-  return RgbPixels<T>{static_cast<const T*>(rgb), pixels};
+  return RgbPixels<T>{static_cast<const T*>(rgb), pixels,
+                      pixels % kVec == 0 && aligned(rgb, kVec * sizeof(T))};
 }
 
 HsvPixels hsv_pixels(const void* h, const void* s, const void* v,
                      long long pixels) {
+  const bool vec = pixels % kVec == 0 && aligned(h, 16) && aligned(s, 16) &&
+                   aligned(v, 16);
   return HsvPixels{static_cast<const float*>(h), static_cast<const float*>(s),
-                   static_cast<const float*>(v), pixels};
+                   static_cast<const float*>(v), pixels, vec};
 }
 
 }  // namespace
@@ -426,11 +648,14 @@ extern "C" int ph_cell_counts_hsv(const void* h, const void* s, const void* v,
                               static_cast<cudaStream_t>(stream));
 }
 
+// layout (K3, K4, K10, K14): 0 for the kernel's own choice of sum tables,
+// 1 for one table a block (launch_palette_sums); no output bit depends on
+// it.
 extern "C" int ph_palette_sums_q1(const void* rgb, int is_u8, int batch,
                                   long long pixels, const CellParams* p,
                                   const void* slot_of_cell,
-                                  const void* offset_of_cell, void* sums,
-                                  void* acc, void* stream) {
+                                  const void* offset_of_cell, int layout,
+                                  void* sums, void* acc, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tab = static_cast<const int*>(slot_of_cell);
   const float* off = static_cast<const float*>(offset_of_cell);
@@ -438,17 +663,17 @@ extern "C" int ph_palette_sums_q1(const void* rgb, int is_u8, int batch,
   u64* a = static_cast<u64*>(acc);
   return is_u8 ? launch_palette_sums<RgbPixels<uint8_t>, kSlotOfCell>(
                      rgb_pixels<uint8_t>(rgb, pixels), batch, *p, tab, off, 1,
-                     out, a, st)
+                     layout, out, a, st)
                : launch_palette_sums<RgbPixels<float>, kSlotOfCell>(
                      rgb_pixels<float>(rgb, pixels), batch, *p, tab, off, 1,
-                     out, a, st);
+                     layout, out, a, st);
 }
 
 extern "C" int ph_palette_sums(const void* rgb, int is_u8, int batch,
                                long long pixels, const CellParams* p,
                                const void* cand, int q,
-                               const void* centers_by_k, void* sums, void* acc,
-                               void* stream) {
+                               const void* centers_by_k, int layout,
+                               void* sums, void* acc, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tab = static_cast<const int*>(cand);
   const float* ctr = static_cast<const float*>(centers_by_k);
@@ -456,21 +681,21 @@ extern "C" int ph_palette_sums(const void* rgb, int is_u8, int batch,
   u64* a = static_cast<u64*>(acc);
   return is_u8 ? launch_palette_sums<RgbPixels<uint8_t>, kCandidates>(
                      rgb_pixels<uint8_t>(rgb, pixels), batch, *p, tab, ctr, q,
-                     out, a, st)
+                     layout, out, a, st)
                : launch_palette_sums<RgbPixels<float>, kCandidates>(
                      rgb_pixels<float>(rgb, pixels), batch, *p, tab, ctr, q,
-                     out, a, st);
+                     layout, out, a, st);
 }
 
 // acc: (B, C, 4) u64.
 extern "C" int ph_palette_sums_hsv(const void* h, const void* s, const void* v,
                                    int batch, long long pixels,
                                    const CellParams* p, const void* cand, int q,
-                                   const void* centers_by_k, void* acc,
-                                   void* stream) {
+                                   const void* centers_by_k, int layout,
+                                   void* acc, void* stream) {
   return launch_palette_sums<HsvPixels, kCandidates>(
       hsv_pixels(h, s, v, pixels), batch, *p, static_cast<const int*>(cand),
-      static_cast<const float*>(centers_by_k), q, nullptr,
+      static_cast<const float*>(centers_by_k), q, layout, nullptr,
       static_cast<u64*>(acc), static_cast<cudaStream_t>(stream));
 }
 
@@ -480,11 +705,11 @@ extern "C" int ph_palette_sums_cwide(const void* h, const void* s,
                                      const void* v, int batch,
                                      long long pixels, const CellParams* p,
                                      const void* allowed, int words,
-                                     const void* centers_by_k, void* acc,
-                                     void* stream) {
+                                     const void* centers_by_k, int layout,
+                                     void* acc, void* stream) {
   return launch_palette_sums<HsvPixels, kAllowedBits>(
       hsv_pixels(h, s, v, pixels), batch, *p, static_cast<const int*>(allowed),
-      static_cast<const float*>(centers_by_k), words, nullptr,
+      static_cast<const float*>(centers_by_k), words, layout, nullptr,
       static_cast<u64*>(acc), static_cast<cudaStream_t>(stream));
 }
 
@@ -496,7 +721,9 @@ extern "C" int ph_cell_counts_ids(const void* cells, int batch,
   CellParams p{};
   p.num_cells = num_cells;
   return launch_cell_counts_s(
-      CellIdPixels{static_cast<const int*>(cells), pixels}, batch, p,
+      CellIdPixels{static_cast<const int*>(cells), pixels,
+                   pixels % kVec == 0 && aligned(cells, 16)},
+      batch, p,
       static_cast<int*>(counts), nullptr, static_cast<u64*>(acc),
       static_cast<cudaStream_t>(stream));
 }

@@ -8,7 +8,9 @@ exists.  The plan of a length holds its stage radices and one twiddle table
 exp(-2 pi i t / n), t < n, computed in float64 and stored as float32; every
 twiddle a stage needs is an entry of it (stage s of radix r after a span
 ns multiplies by W_{ns r}^{q k} = table[q k n / (ns r)], and its r-point
-DFT uses W_r^u = table[u n / r]).
+DFT uses W_r^u = table[u n / r]).  The plan also lays the stage twiddles
+out per stage (``stage_twiddle_table``), so that the row kernel reads a
+stage's twiddles contiguously: the same float32 values, gathered once.
 
 Unlike the TPU kernels, the gate asks nothing of the (8, 128) tiling: both
 sides must factor into {2, 3, 5, 7, 11, 13} and fit the kernels' shared
@@ -71,17 +73,38 @@ def twiddle_table(n: int) -> np.ndarray:
     return np.stack([tw.real, tw.imag], axis=1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def stage_twiddle_table(n: int) -> np.ndarray:
+    """(max(n - 1, 0), 2) float32: the twiddles W_{ns r}^{q k} of every
+    stage, laid out [stage][q][k] for q = 1..r-1 and k < ns, where ns is
+    the stage's span and r its radix.  Stage s starts at row ns - 1 (the
+    spans telescope: sum (r - 1) ns = n - 1), entry (q, k) at
+    (q - 1) ns + k; each entry is twiddle_table(n)[q k n / (ns r)]."""
+    table = twiddle_table(n)
+    parts, ns = [], 1
+    for r in stage_radices(n):
+        q = np.arange(1, r)[:, None]
+        k = np.arange(ns)[None, :]
+        parts.append(table[(q * k * (n // (ns * r))).reshape(-1)])
+        ns *= r
+    return (np.concatenate(parts) if parts
+            else np.zeros((0, 2), np.float32))
+
+
 class LengthPlan(NamedTuple):
-    """One transform length: its stages and twiddle table."""
+    """One transform length: its stages and twiddle tables."""
 
     n: int
     radices: Tuple[int, ...]
-    twiddles: torch.Tensor    # (n, 2) float32, on the plan's device
+    twiddles: torch.Tensor        # (n, 2) float32, on the plan's device
+    stage_twiddles: torch.Tensor  # (n - 1, 2) float32 (stage_twiddle_table)
 
     @classmethod
     def for_length(cls, n: int, device="cpu") -> "LengthPlan":
         return cls(n=n, radices=stage_radices(n),
-                   twiddles=torch.tensor(twiddle_table(n), device=device))
+                   twiddles=torch.tensor(twiddle_table(n), device=device),
+                   stage_twiddles=torch.tensor(stage_twiddle_table(n),
+                                               device=device))
 
 
 class FftPlan(NamedTuple):

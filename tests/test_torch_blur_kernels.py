@@ -194,3 +194,75 @@ def test_get_report_non_smooth_shape_matches_jax():
     want = ph.get_report(img)
     got = pt.get_report(img, device="cpu")
     assert_match(report_fields(got), report_fields(want))
+
+
+def _row_kernel_schedule(re, im, lp):
+    """K6a's arithmetic as csrc/fft.cu fft_rows_kernel orders it, in torch:
+    each stage's twiddles from the per-stage table, the multiply skipped at
+    k = 0, and the radix-2 and radix-4 DFTs as additions (their twiddles
+    are exactly 1, -i, -1, i)."""
+    n, rows, ns = lp.n, re.shape[0], 1
+    stw = lp.stage_twiddles
+    twr, twi = lp.twiddles[:, 0], lp.twiddles[:, 1]
+    off = 0
+    for r in lp.radices:
+        m = n // r
+        k = torch.arange(m) % ns
+        vr = list(re.reshape(rows, r, m).unbind(1))
+        vi = list(im.reshape(rows, r, m).unbind(1))
+        for q in range(1, r):
+            w = stw[off + (q - 1) * ns + k]
+            pr, pi = tfk._cmul(vr[q], vi[q], w[:, 0], w[:, 1])
+            vr[q] = torch.where(k > 0, pr, vr[q])
+            vi[q] = torch.where(k > 0, pi, vi[q])
+        if r == 2:
+            outs = [(vr[0] + vr[1], vi[0] + vi[1]),
+                    (vr[0] - vr[1], vi[0] - vi[1])]
+        elif r == 4:
+            outs = [(((vr[0] + vr[1]) + vr[2]) + vr[3],
+                     ((vi[0] + vi[1]) + vi[2]) + vi[3]),
+                    (((vr[0] + vi[1]) - vr[2]) - vi[3],
+                     ((vi[0] - vr[1]) - vi[2]) + vr[3]),
+                    (((vr[0] - vr[1]) + vr[2]) - vr[3],
+                     ((vi[0] - vi[1]) + vi[2]) - vi[3]),
+                    (((vr[0] - vi[1]) - vr[2]) + vi[3],
+                     ((vi[0] + vr[1]) - vi[2]) - vr[3])]
+        else:
+            outs = []
+            for t in range(r):
+                ar, ai = vr[0], vi[0]
+                for q in range(1, r):
+                    u = (q * t) % r
+                    if u == 0:
+                        ar, ai = ar + vr[q], ai + vi[q]
+                    else:
+                        pr, pi = tfk._cmul(vr[q], vi[q], twr[u * m],
+                                           twi[u * m])
+                        ar, ai = ar + pr, ai + pi
+                outs.append((ar, ai))
+
+        def scatter(vals):
+            return (torch.stack(vals, dim=1).reshape(rows, r, m // ns, ns)
+                    .permute(0, 2, 1, 3).reshape(rows, n))
+
+        re = scatter([o[0] for o in outs])
+        im = scatter([o[1] for o in outs])
+        off += (r - 1) * ns
+        ns *= r
+    return re, im
+
+
+@pytest.mark.parametrize("n", [1920, 1080, 1001, 64, 12, 2])
+def test_row_kernel_schedule_matches_plain(n):
+    """K6a's schedule gives stockham_plain's values bit for bit (torch.equal:
+    only the sign of an exact zero may differ), zeros in the input
+    included, so the kernel is still held to fft_rows_plain."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((6, n)).astype(np.float32)
+    x[1] = 0.0
+    x[2, ::3] = 0.0
+    re, im = torch.from_numpy(x[0::2]), torch.from_numpy(x[1::2])
+    lp = fft_plan.LengthPlan.for_length(n)
+    got = _row_kernel_schedule(re, im, lp)
+    want = tfk.stockham_plain(re, im, lp)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

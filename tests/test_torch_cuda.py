@@ -409,3 +409,102 @@ def test_cuda_batch_runner_matches_cpu(variant, cuda_device, monkeypatch):
     for out in stream:
         for x, y in zip(out, got):
             assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(1, 3, 1920), (3, 5, 1001), (1, 7, 3840),
+                                   (1, 3, 14520), (4, 1080, 1920)])
+def test_cuda_row_fft_bit_equal(b, h, w, cuda_device):
+    """K6a equals fft_rows_plain bit for bit: an odd row count (the last
+    row pairs with zeros), 1001 = 7 * 11 * 13 (no float4 loads), 3840,
+    14520 = 2^3 * 3 * 5 * 11^2 (the stage twiddles in device memory), the
+    1080p batch; with every row-pair setting that fits the card."""
+    x = torch.from_numpy(np.random.default_rng(w).standard_normal(
+        (b, h, w)).astype(np.float32)).to(cuda_device)
+    x[0, 0, ::7] = 0.0
+    plan = FftPlan.for_shape(h, w, cuda_device)
+    want = tfk.fft_rows_plain(x, plan)
+    for pairs in (0, 1, 2, 4):
+        if pairs > 1 and pairs * 16 * w > 232448:
+            continue
+        assert torch.equal(tfk.fft_rows(x, plan, pairs), want), pairs
+
+
+def _one_colour(b, h, w):
+    rgb = np.empty((b, 3, h, w), np.uint8)
+    rgb[:, 0], rgb[:, 1], rgb[:, 2] = 201, 77, 30
+    return rgb
+
+
+def _stripes(b, h, w):
+    """Two colours in vertical stripes 5 px wide."""
+    rgb = _one_colour(b, h, w)
+    rgb[..., (np.arange(w) // 5) % 2 == 1] = np.array(
+        [20, 90, 180], np.uint8)[:, None, None]
+    return rgb
+
+
+def _assert_palette_sums_all_routes(u8, cfg, device):
+    """Every route of the palette-sums kernel against its plain version, bit
+    for bit: K3 (q=1) and K4 (q=8, q_full) on uint8 and float32 RGB, K10
+    (q=8, q_full) and K14 on flat HSV with a sentinel tail; each with the
+    kernel's own sum tables and with one table a block."""
+    from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_hsv, \
+        u8_to_unit_f32
+
+    c = cfg.num_cells
+    x = torch.from_numpy(u8).to(device)
+    b, _, h, w = x.shape
+    tt = tq.OctreeTables.for_config(cfg, device)
+    counts, _ = tpk.cell_counts_s_from_rgb(x, cfg)
+    assign = tq.parent_assignment_from_order(
+        counts, margin_sort(tq.saliency_f32(counts, tt.s_v_f32, cfg)), h * w,
+        cfg, tt)
+    _, q_full = tq.palette_widths(cfg)
+    f32 = u8_to_unit_f32(x).contiguous()
+    flat = f32.reshape(b, 3, -1)
+    pad = torch.rand((3, b, 777), device=device)
+    pad[0] = -1.0
+    hsv = [torch.cat([t, p], dim=1).contiguous() for t, p in
+           zip(rgb_to_hsv(flat[:, 0], flat[:, 1], flat[:, 2]), pad)]
+    runs = [(tpk.palette_sums_by_k_rgb_q1, tpk.palette_sums_by_k_rgb_q1_plain,
+             rgb, tpk.palette_offset_table(assign, tt, c)) for rgb in (x, f32)]
+    for q in (8, q_full):
+        tabs = tpk.palette_candidate_table(assign, tt, c, q)
+        runs += [(tpk.palette_sums_by_k_rgb, tpk.palette_sums_by_k_rgb_plain,
+                  rgb, tabs) for rgb in (x, f32)]
+        runs.append((tpk.palette_sums_by_k, tpk.palette_sums_by_k_plain, hsv,
+                     tabs))
+    runs.append((tpk.palette_sums_by_k_cwide,
+                 tpk.palette_sums_by_k_cwide_plain, hsv,
+                 tpk.cwide_tables(assign, tt)))
+    for kern, plain, px, tabs in runs:
+        px = px if isinstance(px, list) else [px]
+        want = plain(*px, *tabs, cfg)
+        for layout in (0, 1):
+            got = kern(*px, *tabs, cfg, layout=layout)
+            assert torch.equal(got, want), (kern.__name__, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [_one_colour, _stripes, noise_rgb])
+@pytest.mark.parametrize("b,h,w", [(2, 61, 67), (1, 360, 512)])
+def test_cuda_palette_sums_routes_bit_equal(make, b, h, w, cuda_device):
+    """The palette-sums kernel on a one-colour frame (one slot for every
+    lane), two-colour stripes (two slots a warp) and noise, at 61x67 (a
+    pixel count that is no multiple of the 4-pixel loads or of a block's
+    run) and 360x512."""
+    u8 = make(b, h, w)
+    if u8.dtype != np.uint8:
+        u8 = np.round(u8 * 255).astype(np.uint8)
+    _assert_palette_sums_all_routes(u8, TCFG, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_palette_sums_routes_c2164(cuda_device):
+    """At C=2164 (h_partitions=360) the warps' sum tables do not fit shared
+    memory (one table a block, atomics) and K4's candidate table and K14's
+    bitmask are read from device memory."""
+    u8 = np.round(noise_rgb(1, 64, 255, seed=13) * 255).astype(np.uint8)
+    _assert_palette_sums_all_routes(u8, ReportConfig(h_partitions=360),
+                                    cuda_device)

@@ -104,3 +104,55 @@ def test_report_tables_from_numpy_bit_equal_to_build(knobs):
         for field in a._fields:
             x, y = getattr(a, field), getattr(b, field)
             assert x.dtype == y.dtype and torch.equal(x, y), (part, field)
+
+
+@pytest.mark.parametrize("n", [1920, 1080, 1001, 14520])
+def test_stage_twiddle_table_entries(n):
+    """The row kernel's per-stage twiddles: stage after stage, [q][k] for
+    q = 1..r-1 and k < ns, each entry the full table's q k n / (ns r)-th
+    value bit for bit, and within float32 rounding of exp(-2 pi i q k /
+    (ns r)) in float64."""
+    from photohive_dsp_tpu_torch.ops import fft_plan
+
+    full = fft_plan.twiddle_table(n)
+    table = fft_plan.stage_twiddle_table(n)
+    assert table.dtype == np.float32 and table.shape == (n - 1, 2)
+    row, ns = 0, 1
+    for r in fft_plan.stage_radices(n):
+        assert row == ns - 1
+        for q in range(1, r):
+            for k in range(ns):
+                assert (q * k * n) % (ns * r) == 0
+                assert np.array_equal(table[row], full[q * k * n // (ns * r)])
+                w = np.exp(-2j * np.pi * q * k / (ns * r))
+                assert abs(table[row, 0] - w.real) <= 6e-8
+                assert abs(table[row, 1] - w.imag) <= 6e-8
+                row += 1
+        ns *= r
+    assert row == n - 1
+    plan = fft_plan.LengthPlan.for_length(n)
+    assert np.array_equal(plan.stage_twiddles.numpy(), table)
+
+
+def test_fixed_point_by_float32_scaling_matches_plain():
+    """The palette kernels round x * 2^28 in float32 (csrc/palette.cu
+    to_fixed); that product is exact, so it rounds to the integer the plain
+    version's float64 product does, ties to even included; and the largest
+    value, a hue of 360, is below 2^37, which the kernels' 27-bit split of
+    a warp's group sums needs."""
+    from photohive_dsp_tpu_torch.ops.fixed_point import FIXED_ONE, to_fixed
+
+    rng = np.random.default_rng(12)
+    x = np.concatenate([
+        rng.random(200_000, dtype=np.float32) * np.float32(360.0),
+        rng.random(200_000, dtype=np.float32),
+        np.float32([0.0, 1e-38, 1e-45, 0.999999, 1.0, 180.0, 360.0]),
+        # half-way cases of the 2^-28 grid
+        (np.arange(1, 2001, dtype=np.float32) + np.float32(0.5))
+        / np.float32(FIXED_ONE)])
+    scaled = x * np.float32(FIXED_ONE)
+    assert np.array_equal(scaled.astype(np.float64),
+                          x.astype(np.float64) * FIXED_ONE)
+    assert np.array_equal(np.rint(scaled).astype(np.int64),
+                          to_fixed(torch.from_numpy(x)).numpy())
+    assert int(to_fixed(torch.tensor([360.0]))) < 1 << 37
