@@ -47,10 +47,9 @@ each of which raises on failure:
      call's.
 
 Phase 3 also holds K6a to its plain version on its edge cases (an odd row
-count, widths 1001, 3840 and 14520, every row-pair setting) and the
-palette-sums kernel (K3, K4, K10, K12-K14) under both sum-table layouts on
-a one-colour batch, two-colour stripes, a pixel count that is no multiple
-of 4, and C=2164; phase 7 also times those settings and the one-colour
+count, widths 1001, 3840 and 14520) and the palette-sums kernel (K3, K4,
+K10, K12-K14) on a one-colour batch, two-colour stripes, a pixel count
+that is no multiple of 4, and C=2164; phase 7 also times the one-colour
 batch.
 
 Prints the kernels' JSON line, the card's name and power limit, and, last,
@@ -656,7 +655,6 @@ def phase_blur_kernels(images, cfg):
         plan = FftPlan.for_shape(h, w, DEVICE)
         polar = PolarTables.for_shape(h, w, cfg, DEVICE)
         spec, spec0 = fk.fft_rows(x, plan), fk.fft_rows_plain(x, plan)
-        check_row_fft(x, plan, label)
         mag, mag0 = fk.fft_cols(spec0, plan), fk.fft_cols_plain(spec0, plan)
         sync()
         e_rows = float((spec - spec0).abs().max())
@@ -699,29 +697,11 @@ def phase_blur_kernels(images, cfg):
 # with zeros), 1001 = 7 * 11 * 13 (no float4 loads), 3840, and 14520 =
 # 2^3 * 3 * 5 * 11^2, whose stage twiddles stay in device memory.
 ROW_FFT_EDGES = [(1, 3, 1920), (3, 5, 1001), (1, 7, 3840), (1, 3, 14520)]
-# Row pairs a K6a block keeps in flight (0: the launcher's choice).
-ROW_PAIRS = (0, 1, 2, 4)
-MAX_SHARED = 232448       # shared memory an H100 block may take
-
-
-def check_row_fft(x, plan, label: str) -> None:
-    """K6a against fft_rows_plain bit for bit, with every row-pair setting
-    whose buffers fit a block."""
-    from photohive_dsp_tpu_torch.ops import fft_kernels as fk
-
-    want = fk.fft_rows_plain(x, plan)
-    for pairs in ROW_PAIRS:
-        if pairs > 1 and pairs * 16 * plan.width > MAX_SHARED:
-            continue
-        got = fk.fft_rows(x, plan, pairs)
-        sync()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K6a {label} pairs={pairs}: differs from "
-                                 f"plain, max abs err "
-                                 f"{float((got - want).abs().max())}")
 
 
 def phase_row_fft_edges() -> None:
+    """K6a against fft_rows_plain bit for bit on ROW_FFT_EDGES."""
+    from photohive_dsp_tpu_torch.ops import fft_kernels as fk
     from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
 
     rng = np.random.default_rng(SEED + 6)
@@ -729,9 +709,13 @@ def phase_row_fft_edges() -> None:
         x = torch.as_tensor(rng.standard_normal((b, h, w), dtype=np.float32),
                             device=DEVICE)
         x[0, 0, ::7] = 0.0
-        check_row_fft(x, FftPlan.for_shape(h, w, DEVICE), f"{b}x{h}x{w}")
-    log(f"  K6a equals plain bit for bit at {ROW_FFT_EDGES} (B, H, W), "
-        f"row pairs a block {ROW_PAIRS}")
+        plan = FftPlan.for_shape(h, w, DEVICE)
+        got, want = fk.fft_rows(x, plan), fk.fft_rows_plain(x, plan)
+        sync()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6a {b}x{h}x{w}: differs from plain, max "
+                                 f"abs err {float((got - want).abs().max())}")
+    log(f"  K6a equals plain bit for bit at {ROW_FFT_EDGES} (B, H, W)")
 
 
 def one_colour_frames(b: int, h: int, w: int) -> np.ndarray:
@@ -748,12 +732,6 @@ def stripe_frames(b: int, h: int, w: int) -> np.ndarray:
     rgb[..., (np.arange(w) // 5) % 2 == 1] = np.array(
         [20, 90, 180], np.uint8)[:, None, None]
     return rgb
-
-
-# The palette-sums kernel's sum-table layouts (csrc/palette.cu
-# launch_palette_sums): 0 its own choice (a table a warp where they fit),
-# 1 one table a block.
-LAYOUTS = (0, 1)
 
 
 def palette_sums_routes(x, cfg, octree, tail: int = 777):
@@ -793,21 +771,19 @@ def palette_sums_routes(x, cfg, octree, tail: int = 777):
 
 
 def check_palette_sums_routes(x, cfg, label: str) -> None:
-    """Every route of palette_sums_routes, under every layout, equal to its
-    plain version bit for bit (K3/K4/K12/K13's float32 sums, K10/K14's
-    int64 accumulators)."""
+    """Every route of palette_sums_routes equal to its plain version bit for
+    bit (K3/K4/K12/K13's float32 sums, K10/K14's int64 accumulators)."""
     from photohive_dsp_tpu_torch.ops import quantize as qz
 
     octree = qz.OctreeTables.for_config(cfg, DEVICE)
     for key, kern, plain, px, tabs in palette_sums_routes(x, cfg, octree):
         want = plain(*px, *tabs, cfg)
-        for layout in LAYOUTS:
-            got = kern(*px, *tabs, cfg, layout=layout)
-            sync()
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"{key} {label} layout={layout}: differs from plain, max "
-                    f"abs err {float((got - want).abs().max())}")
+        got = kern(*px, *tabs, cfg)
+        sync()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{key} {label}: differs from plain, max abs err "
+                f"{float((got - want).abs().max())}")
 
 
 def phase_palette_sums_edges(cfg) -> None:
@@ -815,8 +791,8 @@ def phase_palette_sums_edges(cfg) -> None:
     one-colour 1080x1920 batch of 4 (the timed collision case), two-colour
     stripes and noise at 61x67 (a pixel count that is no multiple of the
     4-pixel loads or of a block's run), and noise at C=2164
-    (h_partitions=360: one sum table a block, the candidate table and the
-    bitmask in device memory)."""
+    (h_partitions=360: the candidate table and the bitmask in device
+    memory)."""
     from photohive_dsp_tpu_torch.config import ReportConfig
 
     rng = np.random.default_rng(SEED + 7)
@@ -831,7 +807,7 @@ def phase_palette_sums_edges(cfg) -> None:
         check_palette_sums_routes(torch.as_tensor(frames, device=DEVICE), c,
                                   label)
     log(f"  palette sums K3, K4 (q=8, q_full), K10 (q=8, q_full), K12, K13, "
-        f"K14 equal plain bit for bit, layouts {LAYOUTS}, on: "
+        f"K14 equal plain bit for bit on: "
         + "; ".join(label for label, _, _ in cases))
 
 
@@ -1503,32 +1479,14 @@ def dilated_area(boxes, valid, h: int, w: int) -> int:
 PLAIN_ITERS = {"K14": 1}
 
 
-def tried_settings_and_flat_frame(cfg, smi: str) -> dict:
-    """The launch settings the redesigns were chosen among, timed on phase
-    7's inputs (K6a's row pairs a block; the palette-sums kernel's sum
-    tables, one a block against its own choice), and the palette-sums
-    kernel on a B=4 batch of one-colour frames against its plain version,
-    in turns plain, kernel, kernel, plain, held bit for bit.  Returns
-    {key: (kernel ms, plain ms, (bytes, float32 ops))} of the flat
-    frames."""
-    from photohive_dsp_tpu_torch.ops import fft_kernels as fk
+def flat_frame_times(cfg) -> dict:
+    """The palette-sums kernel on a B=4 batch of one-colour frames against
+    its plain version, in turns plain, kernel, kernel, plain, held bit for
+    bit.  Returns {key: (kernel ms, plain ms, (bytes, float32 ops))}."""
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
 
     inp = kernel_time_inputs(cfg)
-    x_dc, plan = inp["x_dc"], inp["plan"]
-    row = {pairs: (cuda_ms(lambda: fk.fft_rows(x_dc, plan, pairs), 20)
-                   + cuda_ms(lambda: fk.fft_rows(x_dc, plan, pairs), 20)) / 2
-           for pairs in ROW_PAIRS}
-    log(f"  K6a by row pairs a block (0: the launcher's choice), ms: "
-        + ", ".join(f"{k}: {v:.4f}" for k, v in row.items()) + f" ({smi})")
-    own, one = kernel_calls(cfg, inp), kernel_calls(cfg, inp, layout=1)
-    keys = [k for k in own if any(t in k for t in ("K3", "K4", "K10", "K12",
-                                                   "K13", "K14"))]
-    for key in keys:
-        a1, b1, b2, a2 = (cuda_ms(own[key], 20), cuda_ms(one[key], 20),
-                          cuda_ms(one[key], 20), cuda_ms(own[key], 20))
-        log(f"  {key}: own sum tables {(a1 + a2) / 2:.4f} ms, one table a "
-            f"block {(b1 + b2) / 2:.4f} ms")
+    own = kernel_calls(cfg, inp)
     c = cfg.num_cells
     d = inp["flat"]
     x, hsv = d["u8"], d["hsv"]
@@ -1699,7 +1657,7 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
     times["K6"] = (k6, None, rfft2)
     log(f"  K6a+K6b {k6:.4f} ms vs torch.fft.rfft2 + |.|^2 {rfft2:.4f} ms "
         f"(B={fx.shape[0]} f32 {H}x{W})")
-    flat_rows = tried_settings_and_flat_frame(cfg, smi)
+    flat_rows = flat_frame_times(cfg)
 
     # Work of each timed call, from these inputs.
     b, _, hh, ww = x.shape
@@ -1816,11 +1774,9 @@ def kernel_time_inputs(cfg):
     return out
 
 
-def kernel_calls(cfg, inp, **layout):
+def kernel_calls(cfg, inp):
     """{key: call} of the palette kernels and K6a on kernel_time_inputs;
-    ``layout`` passes the palette-sums kernel's table layout (omitted for a
-    checkout whose wrappers lack it).  "flat ..." keys run the one-colour
-    batch."""
+    "flat ..." keys run the one-colour batch."""
     from photohive_dsp_tpu_torch.ops import fft_kernels as fk
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
 
@@ -1831,25 +1787,25 @@ def kernel_calls(cfg, inp, **layout):
         calls.update({
             pre + "K1": lambda x=x: pk.cell_counts_s_from_rgb(x, cfg),
             pre + "K3": lambda x=x, t=d["q1"]: pk.palette_sums_by_k_rgb_q1(
-                x, *t, cfg, **layout),
+                x, *t, cfg, ),
             pre + "K4q8": lambda x=x, t=d["q8"]: pk.palette_sums_by_k_rgb(
-                x, *t, cfg, **layout),
+                x, *t, cfg, ),
             pre + "K4qfull": lambda x=x, t=d["qfull"]:
-                pk.palette_sums_by_k_rgb(x, *t, cfg, **layout),
+                pk.palette_sums_by_k_rgb(x, *t, cfg, ),
             pre + "K9": lambda h=hsv: pk.cell_counts_from_hsv(*h, cfg),
             pre + "K10q8": lambda h=hsv, t=d["q8"]: pk.palette_sums_by_k(
-                *h, *t, cfg, **layout),
+                *h, *t, cfg, ),
             pre + "K10qfull": lambda h=hsv, t=d["qfull"]:
-                pk.palette_sums_by_k(*h, *t, cfg, **layout),
+                pk.palette_sums_by_k(*h, *t, cfg, ),
             pre + "K11": lambda x=xf: pk.cell_counts_s_from_rgb(x, cfg),
             pre + "K12": lambda x=xf, t=d["q1"]: pk.palette_sums_by_k_rgb_q1(
-                x, *t, cfg, **layout),
+                x, *t, cfg, ),
             pre + "K13q8": lambda x=xf, t=d["q8"]: pk.palette_sums_by_k_rgb(
-                x, *t, cfg, **layout),
+                x, *t, cfg, ),
             pre + "K13qfull": lambda x=xf, t=d["qfull"]:
-                pk.palette_sums_by_k_rgb(x, *t, cfg, **layout),
+                pk.palette_sums_by_k_rgb(x, *t, cfg, ),
             pre + "K14": lambda h=hsv, t=d["cw"]: pk.palette_sums_by_k_cwide(
-                *h, *t, cfg, **layout),
+                *h, *t, cfg, ),
             pre + "K15": lambda i=d["ids"]: pk.cell_counts_batched(i, c),
         })
     return calls

@@ -35,12 +35,13 @@
 //     from (a, k) counters stepped per item instead of a division.  The
 //     radix-2 and radix-4 DFTs multiply only by the exact 1, -i, -1, i, so
 //     they are written as additions in the same order (the same nonzero
-//     bits).  Rows whose length is a multiple of 4 load as float4.
+//     bits).  The first stage (span 1, no twiddles) reads its items
+//     straight from the two rows, so the rows are never staged as such.
+//     Registers are capped at 80 a thread so that three blocks fit an SM.
 //   * K6b: one block per tile of `lanes` adjacent columns of one image
 //     (4 at H <= 1600, e.g. 1080p), so each row of the tile is one 32-byte
 //     sector of the half spectrum; |X|^2 in the epilogue.
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
@@ -49,10 +50,13 @@ constexpr int kMaxStages = 16;
 // Shared memory a column tile aims for (two buffers of H x lanes complex),
 // so that two blocks fit on one SM.
 constexpr size_t kColSharedTarget = 100 * 1024;
-// K6a: at most this many row pairs a block, and the shared memory a block
-// aims for (its buffers and the stage twiddles) when it takes several.
+// K6a: blocks an SM should hold (registers are capped for it: 80 a
+// thread; the radix-11 and -13 paths spill a little), at most this many
+// row pairs a block, and the shared memory a block aims for (its buffers
+// and the stage twiddles), so that kRowBlocksPerSm blocks fit an SM.
+constexpr int kRowBlocksPerSm = 3;
 constexpr int kMaxRowPairs = 4;
-constexpr size_t kRowSharedTarget = 110 * 1024;
+constexpr size_t kRowSharedTarget = 75 * 1024;
 // The shared memory a block may take on an H100.
 constexpr size_t kMaxShared = 232448;
 
@@ -212,17 +216,39 @@ __device__ void row_stage(const float2* __restrict__ src,
   }
 }
 
+// The first stage (span 1: no twiddles) of the pair z = x0 + i x1 read
+// straight from the rows (x1 == nullptr: zeros), into dst.
+template <int R>
+__device__ void row_first_stage(const float* __restrict__ x0,
+                                const float* __restrict__ x1,
+                                float2* __restrict__ dst, int n,
+                                const float2* __restrict__ tw, int t0,
+                                int nt) {
+  const int m = n / R;
+  float2 wr[R];
+#pragma unroll
+  for (int u = 0; u < R; ++u) wr[u] = R == 2 || R == 4 ? float2{} : __ldg(&tw[u * m]);
+  for (int j = t0; j < m; j += nt) {
+    float2 v[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      v[q] = make_float2(__ldcs(&x0[j + q * m]),
+                         x1 ? __ldcs(&x1[j + q * m]) : 0.0f);
+    }
+    item_dft<R>(v, wr, dst + j * R, 1);
+  }
+}
+
 // x: (rows, n) float32; out: (rows, half) float2.  Row pair p transforms
 // z = x[2p] + i x[2p+1] (x[2p+1] = 0 past the last row).  Group g of the
 // block's `pairs` groups takes pairs blockIdx.x * pairs + g, then the same
 // plus gridDim.x * pairs, and so on.  Shared memory: the stage twiddles
 // (tw_len float2, when stw_shared) | per group two buffers of n float2.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kRowBlocksPerSm)
     fft_rows_kernel(const float* __restrict__ x, int rows, FftStages st,
                     const float2* __restrict__ tw,
                     const float2* __restrict__ stage_tw, int tw_len,
-                    bool stw_shared, int pairs, bool vec4,
-                    float2* __restrict__ out) {
+                    bool stw_shared, int pairs, float2* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float2* smem = reinterpret_cast<float2*>(smem4);
   const int n = st.n;
@@ -242,30 +268,26 @@ __global__ void __launch_bounds__(kThreads)
     const bool live = pair < n_pairs;   // uniform over the group
     const long long r0 = 2 * pair;
     const bool has1 = r0 + 1 < rows;
+    const float* x0 = x + r0 * n;
+    const float* x1 = has1 ? x0 + n : nullptr;
+    float2* z = buf;
+    float2* y = buf + n;
     if (live) {
-      const float* x0 = x + r0 * n;
-      if (vec4) {
-        const float4* a4 = reinterpret_cast<const float4*>(x0);
-        const float4* b4 = reinterpret_cast<const float4*>(x0 + n);
-        float4* z4 = reinterpret_cast<float4*>(buf);
-        for (int i = t0; i < n / 4; i += nt) {
-          const float4 u = __ldcs(&a4[i]);
-          const float4 w = has1 ? __ldcs(&b4[i]) : make_float4(0.f, 0.f, 0.f, 0.f);
-          z4[2 * i] = make_float4(u.x, w.x, u.y, w.y);
-          z4[2 * i + 1] = make_float4(u.z, w.z, u.w, w.w);
-        }
-      } else {
-        for (int i = t0; i < n; i += nt) {
-          buf[i] = make_float2(__ldcs(&x0[i]), has1 ? __ldcs(&x0[n + i]) : 0.0f);
-        }
+      switch (st.count ? st.radix[0] : 0) {
+        case 0: if (t0 == 0) z[0] = make_float2(x0[0], x1 ? x1[0] : 0.0f); break;
+        case 2: row_first_stage<2>(x0, x1, z, n, tw, t0, nt); break;
+        case 3: row_first_stage<3>(x0, x1, z, n, tw, t0, nt); break;
+        case 4: row_first_stage<4>(x0, x1, z, n, tw, t0, nt); break;
+        case 5: row_first_stage<5>(x0, x1, z, n, tw, t0, nt); break;
+        case 7: row_first_stage<7>(x0, x1, z, n, tw, t0, nt); break;
+        case 11: row_first_stage<11>(x0, x1, z, n, tw, t0, nt); break;
+        default: row_first_stage<13>(x0, x1, z, n, tw, t0, nt); break;
       }
     }
     __syncthreads();
-    float2* z = buf;
-    float2* y = buf + n;
-    int ns = 1;
-    const float2* stw_s = stw;
-    for (int s = 0; s < st.count; ++s) {
+    int ns = st.count ? st.radix[0] : 1;
+    const float2* stw_s = stw + (ns - 1);
+    for (int s = 1; s < st.count; ++s) {
       const int r = st.radix[s];
       if (live) {
         switch (r) {
@@ -346,11 +368,10 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
 // cudaError_t of its launch; tensors are contiguous float32.
 
 // pgm: (rows, n) -> spec: (rows, n/2 + 1, 2).  stage_twiddles: the plan's
-// (n - 1, 2) per-stage table.  pairs: row pairs a block keeps in flight,
-// or 0 for the most that fit kRowSharedTarget.
+// (n - 1, 2) per-stage table.
 extern "C" int ph_fft_rows(const void* pgm, int rows, const FftStages* st,
                            const void* twiddles, const void* stage_twiddles,
-                           int pairs, void* spec, void* stream) {
+                           void* spec, void* stream) {
   const int n = st->n;
   const size_t pair_bytes = 2 * static_cast<size_t>(n) * sizeof(float2);
   // Even, so that the buffers after the table stay 16-byte aligned.
@@ -358,11 +379,9 @@ extern "C" int ph_fft_rows(const void* pgm, int rows, const FftStages* st,
   const size_t tw_bytes = tw_len * sizeof(float2);
   const bool stw_shared = tw_bytes + pair_bytes <= kMaxShared;
   const size_t base = stw_shared ? tw_bytes : 0;
-  if (pairs <= 0) {
-    pairs = kMaxRowPairs;
-    while (pairs > 1 && base + pairs * pair_bytes > kRowSharedTarget) pairs >>= 1;
-  }
-  if (pairs > kMaxRowPairs || kThreads % pairs) return cudaErrorInvalidValue;
+  // The most row pairs (1, 2 or 4) whose buffers fit kRowSharedTarget.
+  int pairs = kMaxRowPairs;
+  while (pairs > 1 && base + pairs * pair_bytes > kRowSharedTarget) pairs >>= 1;
   const size_t bytes = base + pairs * pair_bytes;
   cudaError_t err = allow_shared(fft_rows_kernel, bytes);
   if (err != cudaSuccess) return err;
@@ -381,13 +400,12 @@ extern "C" int ph_fft_rows(const void* pgm, int rows, const FftStages* st,
   const long long groups = ((rows + 1) / 2 + pairs - 1) / pairs;
   const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(groups < resident ? groups : resident);
-  const bool vec4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(pgm) % 16 == 0;
   if (grid == 0) return cudaSuccess;
   fft_rows_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pgm), rows, *st,
       static_cast<const float2*>(twiddles),
       static_cast<const float2*>(stage_twiddles), tw_len, stw_shared, pairs,
-      vec4, static_cast<float2*>(spec));
+      static_cast<float2*>(spec));
   return cudaGetLastError();
 }
 

@@ -59,17 +59,20 @@
 // uint8 decodes through a 256-entry table of x / 255 in shared memory.
 //
 // K3/K4/K10/K14 (palette_sums_kernel) add four values a pixel (three
-// 64-bit sums and a count), so their adds are what they spend.  A warp
-// first groups its lanes by slot (__match_any_sync) and sums each group's
-// values with 32-bit warp reductions on exact 27-bit splits of the 64-bit
-// words; one lane per distinct slot then adds the group's sums, so a flat
-// region costs one update a warp instead of 32.  Each warp adds into its
-// own table (3.1 KB at C=112), by plain read-modify-write, since its
-// lanes update distinct slots; the block adds its warps' tables at the
-// flush.  Where the warps' tables do not fit, the block keeps one table
-// and the lanes add with atomics.  The grid is one wave of the blocks the
-// card holds at once, so each block's table set-up and flush is paid once
-// per SM slot, not once per 8192 pixels.
+// 64-bit sums and a count), so their adds are what they spend.  On sm_90 a
+// 64-bit shared-memory atomicAdd is a compare-and-swap loop (SASS
+// ATOMS.CAST.SPIN.64), which lanes of a warp on one slot retry in turn.
+// So each 64-bit sum is kept in 32-bit words that native 32-bit atomics
+// add exactly (add64: the add that wraps the low word carries into the
+// high word; the hue's top bits have a word of their own, so that carries
+// stay rare).  A warp whose 32 pixels of a step share one slot sums them
+// first with 32-bit warp reductions (exact on 27-bit splits) and adds
+// once; other warps add pixel by pixel, with native atomics.  Each thread
+// finds the slots of its 4 pixels before the warp adds, so the warp waits
+// for its longest candidate walk once a step.  A K4/K10 pixel reads each
+// candidate's centre as one float4.  The grid is one wave of the blocks
+// the card holds at once, so each block's table set-up and flush is paid
+// once per SM slot, not once per 8192 pixels.
 //
 // The flat-HSV kernels read 12 B per real pixel (4 B per sentinel pixel)
 // and skip the HSV arithmetic.  K14's bitmask is C * ceil(C/32) words
@@ -103,9 +106,6 @@ constexpr float kFixedOne = 268435456.0f;  // 2^28
 // bitmask) before the table is read from device memory instead (huge
 // configs: C=2164 has up to 728 candidates per cell).
 constexpr size_t kSharedBudget = 160 * 1024;
-// Shared memory the palette-sums kernel gives its sum tables, one per
-// warp while they fit.
-constexpr size_t kWarpTablesBudget = 64 * 1024;
 // A fixed-point value is below 360 * 2^28 < 2^37; its low kSplitBits and
 // the rest each sum over a warp's 32 lanes without wrapping 32 bits.
 constexpr int kSplitBits = 27;
@@ -320,81 +320,107 @@ enum SlotRule {
   kAllowedBits  // K14: first minimum over the set bits of the cell's row
 };
 
-// The sum of x over the lanes of `peers` (a group of the calling warp, the
-// caller among them), exact for x < 2^37.
-__device__ __forceinline__ u64 group_sum(unsigned peers, u64 x) {
+constexpr unsigned kFull = 0xffffffffu;
+
+// The sum of x over the warp's 32 lanes, exact for x < 2^37 (two 32-bit
+// reductions of a 27-bit split).
+__device__ __forceinline__ u64 warp_sum(u64 x) {
   constexpr unsigned kLow = (1u << kSplitBits) - 1u;
-  const unsigned lo = __reduce_add_sync(peers, static_cast<unsigned>(x) & kLow);
-  const unsigned hi =
-      __reduce_add_sync(peers, static_cast<unsigned>(x >> kSplitBits));
+  const unsigned lo = __reduce_add_sync(kFull, static_cast<unsigned>(x) & kLow);
+  const unsigned hi = __reduce_add_sync(kFull, static_cast<unsigned>(x >> kSplitBits));
   return (static_cast<u64>(hi) << kSplitBits) + lo;
 }
 
-// One pixel of each lane of the warp into the warp's table: slot k (-1: none)
-// gets the fixed-point values and a count.  Lanes of one slot add as one
-// group, by its lowest lane; with warp_tables the table is the warp's own,
-// so the group leaders, on distinct slots, add without atomics.
-__device__ __forceinline__ void add_to_slot(int k, u64 hf, u64 sf, u64 vf,
-                                            u64* __restrict__ sums,
-                                            unsigned* __restrict__ cnt, int c,
-                                            bool warp_tables) {
-  __syncwarp();   // the previous step's table updates, before this one's
-  const unsigned peers = __match_any_sync(0xffffffffu, k);
-  if (k < 0) return;   // the whole group has no slot
-  const u64 h = group_sum(peers, hf);
-  const u64 s = group_sum(peers, sf);
-  const u64 v = group_sum(peers, vf);
-  if ((threadIdx.x & 31) != __ffs(peers) - 1) return;
-  const unsigned n = __popc(peers);
-  if (warp_tables) {
-    sums[k] += h;
-    sums[c + k] += s;
-    sums[2 * c + k] += v;
-    cnt[k] += n;
-  } else {
-    atomicAdd(&sums[k], h);
-    atomicAdd(&sums[c + k], s);
-    atomicAdd(&sums[2 * c + k], v);
-    atomicAdd(&cnt[k], n);
-  }
+// x into the 64-bit sum held as the 32-bit words lo and hi, with 32-bit
+// shared-memory atomics (the 64-bit ones are compare-and-swap loops on
+// sm_90): the add that wraps lo sees it in the old value it returns and
+// carries into hi, so hi * 2^32 + lo is the exact sum in any order.
+__device__ __forceinline__ void add64(unsigned* lo, unsigned* hi, u64 x) {
+  const unsigned xl = static_cast<unsigned>(x);
+  const unsigned old = atomicAdd(lo, xl);
+  const unsigned xh = static_cast<unsigned>(x >> 32) + (old + xl < old);
+  if (xh) atomicAdd(hi, xh);
 }
 
-// Shared layout: sum tables (n_tables x 3C u64) | counts (n_tables x C
-// u32) | uint8 decode (256 float) | values | cell table.  n_tables is
-// kWarps with warp_tables, else 1.  Block (x, b) takes pixels [x run,
-// (x + 1) run) of image b, run a multiple of kVec * kThreads.
+// The block's sum table, words [w][k] for slot k < C: the hue as its low
+// kHueBits bits (words 0 and 1, add64) and the rest (word 2: a hue below
+// 2^37 leaves at most 9 bits a pixel, summed in 32 bits for up to
+// kMaxRun pixels), s (words 3, 4) and v (words 5, 6) by add64, and the
+// count (word 7).  Splitting the hue so keeps its low word's carries as
+// rare as those of s and v (a value below 2^28 wraps 2^32 once in ~32
+// adds), so a pixel costs five 32-bit atomics and seldom a sixth.
+constexpr int kTableWords = 8;
+constexpr int kHueBits = 28;
+constexpr long long kMaxRun = 1LL << 22;   // 360 * 2^22 < 2^32
+
+__device__ __forceinline__ void add_slot(unsigned* t, int c, int k, u64 h,
+                                         u64 s, u64 v, unsigned n) {
+  add64(&t[k], &t[c + k], h & ((1ull << kHueBits) - 1ull));
+  atomicAdd(&t[2 * c + k], static_cast<unsigned>(h >> kHueBits));
+  add64(&t[3 * c + k], &t[4 * c + k], s);
+  add64(&t[5 * c + k], &t[6 * c + k], v);
+  atomicAdd(&t[7 * c + k], n);
+}
+
+__device__ __forceinline__ u64 word_pair(const unsigned* t, int c, int w,
+                                         int k) {
+  return (static_cast<u64>(t[(w + 1) * c + k]) << 32) + t[w * c + k];
+}
+
+// One pixel of each lane of the warp into table t: slot k (-1: none) gets
+// the fixed-point values h, s, v and a count.  A warp whose lanes are all
+// on one slot sums its values (warp_sum) and adds them once; otherwise
+// each lane adds its own.  So a flat region costs one update a warp and
+// noise one a pixel.  (Grouping any lanes that share a slot, by a loop
+// over the warp's distinct slots, cost more on noise than it saved on
+// edges: PERF.md.)
+__device__ __forceinline__ void add_pixel(int k, u64 h, u64 s, u64 v,
+                                          unsigned* t, int c) {
+  const int k0 = __shfl_sync(kFull, k, 0);
+  if (__all_sync(kFull, k == k0)) {
+    if (k0 < 0) return;
+    const u64 gh = warp_sum(h);
+    const u64 gs = warp_sum(s);
+    const u64 gv = warp_sum(v);
+    if ((threadIdx.x & 31) == 0) add_slot(t, c, k0, gh, gs, gv, 32u);
+    return;
+  }
+  if (k >= 0) add_slot(t, c, k, h, s, v, 1u);
+}
+
+// Shared layout: the sum table (kTableWords C u32) | uint8 decode (256
+// float) | values (K3: the hue offset of each cell; else the centre of
+// each slot as float4 h, s, v, 0) | cell table.  Block (x, b) takes
+// pixels [x run, (x + 1) run) of image b, run a multiple of kVec *
+// kThreads and at most kMaxRun.
 template <typename Src, int kRule>
 __global__ void __launch_bounds__(kThreads)
     palette_sums_kernel(Src src, CellParams p, const int* __restrict__ cell_tab,
                         const float* __restrict__ val_tab, int q,
-                        bool tab_in_shared, bool warp_tables, long long run,
+                        bool tab_in_shared, long long run,
                         u64* __restrict__ acc) {
   constexpr bool kQ1 = kRule == kSlotOfCell;
-  extern __shared__ u64 smem[];
+  extern __shared__ float4 smem4[];
   const int c = p.num_cells;
   const int b = blockIdx.y;
-  const int n_tables = warp_tables ? kWarps : 1;
-  u64* sums_all = smem;
-  unsigned int* cnt_all = reinterpret_cast<unsigned int*>(sums_all + 3 * c * n_tables);
-  float* unit = reinterpret_cast<float*>(cnt_all + c * n_tables);
+  unsigned* table = reinterpret_cast<unsigned*>(smem4);
+  float* unit = reinterpret_cast<float*>(table + kTableWords * c);
   float* vals = unit + 256;
-  // K3: vals = hue offset per cell (C); else centres by slot (h | s | v).
+  const float4* ctr = reinterpret_cast<const float4*>(vals);
   // The cell table has q entries a cell (K14: q bitmask words).
-  const int n_vals = kQ1 ? c : 3 * c;
-  int* tab_sh = reinterpret_cast<int*>(vals + n_vals);
+  int* tab_sh = reinterpret_cast<int*>(vals + (kQ1 ? c : 4 * c));
   const int tab_len = kQ1 ? c : c * q;
   const int* gtab = cell_tab + static_cast<long long>(b) * tab_len;
-  const float* gval = val_tab + static_cast<long long>(b) * n_vals;
+  const float* gval = val_tab + static_cast<long long>(b) * (kQ1 ? c : 3 * c);
 
-  for (int i = threadIdx.x; i < 3 * c * n_tables; i += blockDim.x) sums_all[i] = 0ull;
-  for (int i = threadIdx.x; i < c * n_tables; i += blockDim.x) cnt_all[i] = 0u;
+  for (int i = threadIdx.x; i < kTableWords * c; i += blockDim.x) table[i] = 0u;
   if (Src::kUnit) fill_unit_table(unit);
   if (kQ1) {
     for (int i = threadIdx.x; i < c; i += blockDim.x) vals[i] = gval[i];
   } else {
-    // (C, 3) row-major centres -> three planes.
-    for (int i = threadIdx.x; i < 3 * c; i += blockDim.x) {
-      vals[(i % 3) * c + i / 3] = gval[i];
+    // (C, 3) row-major centres -> (C, 4).
+    for (int i = threadIdx.x; i < 4 * c; i += blockDim.x) {
+      vals[i] = (i & 3) == 3 ? 0.0f : gval[(i >> 2) * 3 + (i & 3)];
     }
   }
   if (tab_in_shared) {
@@ -404,8 +430,6 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
-  u64* sums = sums_all + (warp_tables ? 3 * c * warp : 0);
-  unsigned int* cnt = cnt_all + (warp_tables ? c * warp : 0);
   const long long pixels = src.pixels;
   const long long start = blockIdx.x * run;
   const long long end = start + run < pixels ? start + run : pixels;
@@ -414,16 +438,21 @@ __global__ void __launch_bounds__(kThreads)
        w0 += 32LL * kVec * kWarps) {
     Pixel px[kVec];
     src.load4(b, w0 + kVec * (threadIdx.x & 31), end, p, unit, px);
+    // The slots of the lane's kVec pixels first, then the warp's adds: the
+    // warp waits for its longest candidate walk once a step, not once a
+    // pixel.
+    int slot[kVec];
+    float off[kVec];
 #pragma unroll
     for (int jj = 0; jj < kVec; ++jj) {
       const float h = px[jj].h, s = px[jj].s, v = px[jj].v;
       const int cell = px[jj].cell;
       int k = c;
-      float off = 0.0f;
+      off[jj] = 0.0f;
       if (px[jj].real) {
         if (kQ1) {
           k = tab[cell];
-          off = vals[cell];
+          off[jj] = vals[cell];
         } else {
           // Distance in the exact float32 op order of
           // photohive_dsp_tpu/ops/quantize.py:364-371; slots are visited
@@ -431,11 +460,12 @@ __global__ void __launch_bounds__(kThreads)
           // minimum, the reference's tie rule.
           float best = INFINITY;
           auto visit = [&](int kk) {
-            float hd = fabsf(__fsub_rn(h, vals[kk]));
+            const float4 m = ctr[kk];
+            float hd = fabsf(__fsub_rn(h, m.x));
             hd = hd > 180.0f ? __fsub_rn(360.0f, hd) : hd;
             hd = __fmul_rn(hd, p.inv360);
-            const float sd = __fsub_rn(s, vals[c + kk]);
-            const float vd = __fsub_rn(v, vals[2 * c + kk]);
+            const float sd = __fsub_rn(s, m.y);
+            const float vd = __fsub_rn(v, m.z);
             const float d = __fadd_rn(
                 __fadd_rn(__fmul_rn(hd, hd), __fmul_rn(sd, sd)),
                 __fmul_rn(vd, vd));
@@ -446,11 +476,17 @@ __global__ void __launch_bounds__(kThreads)
           };
           const int* row = tab + static_cast<long long>(cell) * q;
           if (kRule == kCandidates) {
-            // Candidates ascend with sentinels (>= C) last.
-            for (int j = 0; j < q; ++j) {
-              const int kk = row[j];
-              if (kk >= c) break;
-              visit(kk);
+            // Candidates ascend with sentinels (>= C) last.  A cell with
+            // one candidate has no tie to break: the first minimum of one
+            // finite distance is that candidate.
+            if (q == 1 || row[1] >= c) {
+              k = row[0] < c ? row[0] : c;
+            } else {
+              for (int j = 0; j < q; ++j) {
+                const int kk = row[j];
+                if (kk >= c) break;
+                visit(kk);
+              }
             }
           } else {
             for (int w = 0; w < q; ++w) {
@@ -462,32 +498,32 @@ __global__ void __launch_bounds__(kThreads)
             // An empty row: slot 0, as the TPU kernel's finite mask gives.
             if (k == c) k = 0;
           }
-          off = k < c ? __fsub_rn(180.0f, vals[k]) : 0.0f;
+          off[jj] = k < c ? __fsub_rn(180.0f, ctr[k].x) : 0.0f;
         }
       }
-      const bool add = k >= 0 && k < c;
-      add_to_slot(add ? k : -1,
-                  add ? to_fixed(wrap360(__fadd_rn(h, off))) : 0ull,
-                  add ? to_fixed(s) : 0ull, add ? to_fixed(v) : 0ull, sums,
-                  cnt, c, warp_tables);
+      slot[jj] = k >= 0 && k < c ? k : -1;
+    }
+#pragma unroll
+    for (int jj = 0; jj < kVec; ++jj) {
+      const bool add = slot[jj] >= 0;
+      add_pixel(slot[jj],
+                add ? to_fixed(wrap360(__fadd_rn(px[jj].h, off[jj]))) : 0ull,
+                add ? to_fixed(px[jj].s) : 0ull,
+                add ? to_fixed(px[jj].v) : 0ull, table, c);
     }
   }
   __syncthreads();
 
   u64* out = acc + static_cast<long long>(b) * c * 4;
   for (int k = threadIdx.x; k < c; k += blockDim.x) {
-    u64 hs = 0, ss = 0, vs = 0, n = 0;
-    for (int t = 0; t < n_tables; ++t) {
-      hs += sums_all[3 * c * t + k];
-      ss += sums_all[3 * c * t + c + k];
-      vs += sums_all[3 * c * t + 2 * c + k];
-      n += cnt_all[c * t + k];
-    }
+    const unsigned n = table[7 * c + k];
     if (!n) continue;
-    atomicAdd(&out[4 * k + 0], hs);
-    atomicAdd(&out[4 * k + 1], ss);
-    atomicAdd(&out[4 * k + 2], vs);
-    atomicAdd(&out[4 * k + 3], n);
+    atomicAdd(&out[4 * k + 0],
+              word_pair(table, c, 0, k) +
+                  (static_cast<u64>(table[2 * c + k]) << kHueBits));
+    atomicAdd(&out[4 * k + 1], word_pair(table, c, 3, k));
+    atomicAdd(&out[4 * k + 2], word_pair(table, c, 5, k));
+    atomicAdd(&out[4 * k + 3], static_cast<u64>(n));
   }
 }
 
@@ -532,19 +568,14 @@ cudaError_t resident_blocks(Kernel kernel, size_t bytes, long long* out) {
 }
 
 // sums_out == nullptr (K10, K14) leaves the result in acc (fixed point).
-// layout: 0 = per-warp sum tables where they fit kWarpTablesBudget, else
-// one table a block; 1 = one table a block.
 template <typename Src, int kRule>
 cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
                                 const int* cell_tab, const float* val_tab,
-                                int q, int layout, float* sums_out, u64* acc,
+                                int q, float* sums_out, u64* acc,
                                 cudaStream_t stream) {
   constexpr bool kQ1 = kRule == kSlotOfCell;
   const int c = p.num_cells;
-  const size_t table = 3 * c * sizeof(u64) + c * sizeof(unsigned int);
-  const bool warp_tables = layout == 0 && kWarps * table <= kWarpTablesBudget;
-  const size_t base = (warp_tables ? kWarps : 1) * table + 256 * sizeof(float) +
-                      (kQ1 ? c : 3 * c) * sizeof(float);
+  const size_t base = (kTableWords * c + 256 + (kQ1 ? c : 4 * c)) * sizeof(float);
   const size_t tab = (kQ1 ? c : static_cast<size_t>(c) * q) * sizeof(int);
   const bool tab_in_shared = base + tab <= kSharedBudget;
   const size_t bytes = base + (tab_in_shared ? tab : 0);
@@ -554,23 +585,22 @@ cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
   err = cudaMemsetAsync(acc, 0, static_cast<size_t>(batch) * c * 4 * sizeof(u64),
                         stream);
   if (err != cudaSuccess) return err;
-  if (batch == 0 || src.pixels == 0) {
-    if (sums_out) palette_sums_finish<<<batch, kThreads, 0, stream>>>(acc, c, sums_out);
-    return cudaGetLastError();
+  if (batch > 0 && src.pixels > 0) {
+    long long resident = 0;
+    err = resident_blocks(kernel, bytes, &resident);
+    if (err != cudaSuccess) return err;
+    // One wave: as many runs an image as the card holds blocks over the
+    // batch, each a whole number of the block's steps, at most kMaxRun.
+    constexpr long long kStep = static_cast<long long>(kVec) * kThreads;
+    const long long runs = (resident + batch - 1) / batch;
+    long long run = (src.pixels + runs - 1) / runs;
+    run = (run + kStep - 1) / kStep * kStep;
+    run = run < kMaxRun ? run : kMaxRun;
+    const dim3 grid(static_cast<unsigned>((src.pixels + run - 1) / run),
+                    static_cast<unsigned>(batch));
+    kernel<<<grid, kThreads, bytes, stream>>>(src, p, cell_tab, val_tab, q,
+                                              tab_in_shared, run, acc);
   }
-  long long resident = 0;
-  err = resident_blocks(kernel, bytes, &resident);
-  if (err != cudaSuccess) return err;
-  // One wave: runs of at least one step of the block, as many a image as
-  // the card holds blocks over the batch.
-  constexpr long long kStep = static_cast<long long>(kVec) * kThreads;
-  long long runs = (resident + batch - 1) / batch;
-  long long run = (src.pixels + runs - 1) / runs;
-  run = (run + kStep - 1) / kStep * kStep;
-  runs = (src.pixels + run - 1) / run;
-  kernel<<<dim3(static_cast<unsigned>(runs), static_cast<unsigned>(batch)),
-           kThreads, bytes, stream>>>(src, p, cell_tab, val_tab, q,
-                                      tab_in_shared, warp_tables, run, acc);
   if (sums_out) palette_sums_finish<<<batch, kThreads, 0, stream>>>(acc, c, sums_out);
   return cudaGetLastError();
 }
@@ -648,14 +678,11 @@ extern "C" int ph_cell_counts_hsv(const void* h, const void* s, const void* v,
                               static_cast<cudaStream_t>(stream));
 }
 
-// layout (K3, K4, K10, K14): 0 for the kernel's own choice of sum tables,
-// 1 for one table a block (launch_palette_sums); no output bit depends on
-// it.
 extern "C" int ph_palette_sums_q1(const void* rgb, int is_u8, int batch,
                                   long long pixels, const CellParams* p,
                                   const void* slot_of_cell,
-                                  const void* offset_of_cell, int layout,
-                                  void* sums, void* acc, void* stream) {
+                                  const void* offset_of_cell, void* sums,
+                                  void* acc, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tab = static_cast<const int*>(slot_of_cell);
   const float* off = static_cast<const float*>(offset_of_cell);
@@ -663,17 +690,17 @@ extern "C" int ph_palette_sums_q1(const void* rgb, int is_u8, int batch,
   u64* a = static_cast<u64*>(acc);
   return is_u8 ? launch_palette_sums<RgbPixels<uint8_t>, kSlotOfCell>(
                      rgb_pixels<uint8_t>(rgb, pixels), batch, *p, tab, off, 1,
-                     layout, out, a, st)
+                     out, a, st)
                : launch_palette_sums<RgbPixels<float>, kSlotOfCell>(
                      rgb_pixels<float>(rgb, pixels), batch, *p, tab, off, 1,
-                     layout, out, a, st);
+                     out, a, st);
 }
 
 extern "C" int ph_palette_sums(const void* rgb, int is_u8, int batch,
                                long long pixels, const CellParams* p,
                                const void* cand, int q,
-                               const void* centers_by_k, int layout,
-                               void* sums, void* acc, void* stream) {
+                               const void* centers_by_k, void* sums, void* acc,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tab = static_cast<const int*>(cand);
   const float* ctr = static_cast<const float*>(centers_by_k);
@@ -681,21 +708,21 @@ extern "C" int ph_palette_sums(const void* rgb, int is_u8, int batch,
   u64* a = static_cast<u64*>(acc);
   return is_u8 ? launch_palette_sums<RgbPixels<uint8_t>, kCandidates>(
                      rgb_pixels<uint8_t>(rgb, pixels), batch, *p, tab, ctr, q,
-                     layout, out, a, st)
+                     out, a, st)
                : launch_palette_sums<RgbPixels<float>, kCandidates>(
                      rgb_pixels<float>(rgb, pixels), batch, *p, tab, ctr, q,
-                     layout, out, a, st);
+                     out, a, st);
 }
 
 // acc: (B, C, 4) u64.
 extern "C" int ph_palette_sums_hsv(const void* h, const void* s, const void* v,
                                    int batch, long long pixels,
                                    const CellParams* p, const void* cand, int q,
-                                   const void* centers_by_k, int layout,
-                                   void* acc, void* stream) {
+                                   const void* centers_by_k, void* acc,
+                                   void* stream) {
   return launch_palette_sums<HsvPixels, kCandidates>(
       hsv_pixels(h, s, v, pixels), batch, *p, static_cast<const int*>(cand),
-      static_cast<const float*>(centers_by_k), q, layout, nullptr,
+      static_cast<const float*>(centers_by_k), q, nullptr,
       static_cast<u64*>(acc), static_cast<cudaStream_t>(stream));
 }
 
@@ -705,11 +732,11 @@ extern "C" int ph_palette_sums_cwide(const void* h, const void* s,
                                      const void* v, int batch,
                                      long long pixels, const CellParams* p,
                                      const void* allowed, int words,
-                                     const void* centers_by_k, int layout,
-                                     void* acc, void* stream) {
+                                     const void* centers_by_k, void* acc,
+                                     void* stream) {
   return launch_palette_sums<HsvPixels, kAllowedBits>(
       hsv_pixels(h, s, v, pixels), batch, *p, static_cast<const int*>(allowed),
-      static_cast<const float*>(centers_by_k), words, layout, nullptr,
+      static_cast<const float*>(centers_by_k), words, nullptr,
       static_cast<u64*>(acc), static_cast<cudaStream_t>(stream));
 }
 

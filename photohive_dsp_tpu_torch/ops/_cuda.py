@@ -114,30 +114,27 @@ _SIGNATURES = {
     # (sal, batch, c, order_out, stream)
     "ph_margin_sort": [_P, _I, _I, _P, _P],
     # (rgb, is_u8, batch, pixels, params, slot_of_cell, offset_of_cell,
-    #  layout, sums_out, acc, stream)
-    "ph_palette_sums_q1": [_P, _I, _I, _LL, _PARAMS, _P, _P, _I, _P, _P,
-                           _P],
-    # (rgb, is_u8, batch, pixels, params, cand, q, centers_by_k, layout,
     #  sums_out, acc, stream)
-    "ph_palette_sums": [_P, _I, _I, _LL, _PARAMS, _P, _I, _P, _I, _P, _P,
-                        _P],
+    "ph_palette_sums_q1": [_P, _I, _I, _LL, _PARAMS, _P, _P, _P, _P, _P],
+    # (rgb, is_u8, batch, pixels, params, cand, q, centers_by_k,
+    #  sums_out, acc, stream)
+    "ph_palette_sums": [_P, _I, _I, _LL, _PARAMS, _P, _I, _P, _P, _P, _P],
     # (h, s, v, batch, pixels, params, acc, stream)
     "ph_cell_counts_hsv": [_P, _P, _P, _I, _LL, _PARAMS, _P, _P],
-    # (h, s, v, batch, pixels, params, cand, q, centers_by_k, layout, acc,
+    # (h, s, v, batch, pixels, params, cand, q, centers_by_k, acc, stream)
+    "ph_palette_sums_hsv": [_P, _P, _P, _I, _LL, _PARAMS, _P, _I, _P, _P,
+                            _P],
+    # (h, s, v, batch, pixels, params, allowed, words, centers_by_k, acc,
     #  stream)
-    "ph_palette_sums_hsv": [_P, _P, _P, _I, _LL, _PARAMS, _P, _I, _P, _I,
-                            _P, _P],
-    # (h, s, v, batch, pixels, params, allowed, words, centers_by_k, layout,
-    #  acc, stream)
-    "ph_palette_sums_cwide": [_P, _P, _P, _I, _LL, _PARAMS, _P, _I, _P, _I,
-                              _P, _P],
+    "ph_palette_sums_cwide": [_P, _P, _P, _I, _LL, _PARAMS, _P, _I, _P, _P,
+                              _P],
     # (cells, batch, pixels, num_cells, counts_out, acc, stream)
     "ph_cell_counts_ids": [_P, _I, _LL, _I, _P, _P, _P],
     # (pgm, halo, batch, height, width, row_offset, boxes, partial,
     #  sums_out, stream)
     "ph_sharpness_sums": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    # (pgm, rows, stages, twiddles, stage_twiddles, pairs, spec_out, stream)
-    "ph_fft_rows": [_P, _I, _STAGES, _P, _P, _I, _P, _P],
+    # (pgm, rows, stages, twiddles, stage_twiddles, spec_out, stream)
+    "ph_fft_rows": [_P, _I, _STAGES, _P, _P, _P, _P],
     # (spec, batch, half, stages, twiddles, mag2_out, stream)
     "ph_fft_cols": [_P, _I, _I, _STAGES, _P, _P, _P],
     # (mag2, bin_ids, batch, pixels, num_bins, acc, sums_out, stream)

@@ -108,11 +108,9 @@ def fft_rows_plain(pgm: torch.Tensor, plan: FftPlan) -> torch.Tensor:
     return spec[:b * h].reshape(b, h, plan.half, 2)
 
 
-def fft_rows(pgm: torch.Tensor, plan: FftPlan, pairs: int = 0) -> torch.Tensor:
+def fft_rows(pgm: torch.Tensor, plan: FftPlan) -> torch.Tensor:
     """K6a: the real FFT of every row, (B, H, W) float32 -> (B, H, W//2+1,
-    2) float32.  ``pairs``: the row pairs a block of the kernel keeps in
-    flight (1, 2 or 4; 0 lets the launcher pick), a launch setting that
-    changes no output bit."""
+    2) float32."""
     _cuda.require(pgm, "pgm", (torch.float32,), 3)
     if tuple(pgm.shape[1:]) != (plan.height, plan.width):
         raise ValueError(f"pgm: expected (B, {plan.height}, {plan.width}), "
@@ -125,7 +123,7 @@ def fft_rows(pgm: torch.Tensor, plan: FftPlan, pairs: int = 0) -> torch.Tensor:
                        device=pgm.device)
     _cuda.launch("ph_fft_rows", pgm, _cuda.ptr(pgm), b * h,
                  _stages(plan.rows), _cuda.ptr(plan.rows.twiddles),
-                 _cuda.ptr(plan.rows.stage_twiddles), pairs, _cuda.ptr(spec))
+                 _cuda.ptr(plan.rows.stage_twiddles), _cuda.ptr(spec))
     _cuda.LAUNCHES["fft_rows"] += 1
     return spec
 

@@ -303,13 +303,9 @@ def palette_sums_by_k_rgb_q1_plain(rgb, slot_of_cell, offset_of_cell, cfg):
     return _slot_sums(h, s, v, slot, offset, cfg.num_cells)
 
 
-def palette_sums_by_k_rgb_q1(rgb, slot_of_cell, offset_of_cell, cfg, *,
-                             layout: int = 0):
+def palette_sums_by_k_rgb_q1(rgb, slot_of_cell, offset_of_cell, cfg):
     """K3, the q=1 tier: every pixel's parent is a function of its cell, so
-    the pass is a table lookup and a per-slot sum.  ``layout`` (K3, K4,
-    K10, K14): 0 lets the kernel pick its sum tables, 1 keeps one table a
-    block (csrc/palette.cu ``launch_palette_sums``); no output bit depends
-    on it."""
+    the pass is a table lookup and a per-slot sum."""
     _check_rgb(rgb)
     b, c = rgb.shape[0], cfg.num_cells
     _check_table(slot_of_cell, "slot_of_cell", torch.int32, (b, c), rgb)
@@ -320,7 +316,7 @@ def palette_sums_by_k_rgb_q1(rgb, slot_of_cell, offset_of_cell, cfg, *,
     sums = torch.empty((b, c, 4), dtype=torch.float32, device=rgb.device)
     acc = torch.empty((b, c, 4), dtype=torch.int64, device=rgb.device)
     _cuda.launch("ph_palette_sums_q1", rgb, *_launch_args(rgb, cfg),
-                 _cuda.ptr(slot_of_cell), _cuda.ptr(offset_of_cell), layout,
+                 _cuda.ptr(slot_of_cell), _cuda.ptr(offset_of_cell),
                  _cuda.ptr(sums), _cuda.ptr(acc))
     _count("palette_sums_q1", rgb)
     return sums
@@ -361,9 +357,9 @@ def palette_sums_by_k_rgb_plain(rgb, cand, centers_by_k, cfg):
     return _slot_sums(h, s, v, slot, offset, c)
 
 
-def palette_sums_by_k_rgb(rgb, cand, centers_by_k, cfg, *, layout: int = 0):
+def palette_sums_by_k_rgb(rgb, cand, centers_by_k, cfg):
     """K4, q > 1: per-pixel tie-break among the cell's candidates, sums per
-    valid-order slot, (B, C, 4) float32 (``layout``: see K3)."""
+    valid-order slot, (B, C, 4) float32."""
     _check_rgb(rgb)
     b, c = rgb.shape[0], cfg.num_cells
     q = _check_candidates(cand, centers_by_k, b, c, rgb)
@@ -372,8 +368,8 @@ def palette_sums_by_k_rgb(rgb, cand, centers_by_k, cfg, *, layout: int = 0):
     sums = torch.empty((b, c, 4), dtype=torch.float32, device=rgb.device)
     acc = torch.empty((b, c, 4), dtype=torch.int64, device=rgb.device)
     _cuda.launch("ph_palette_sums", rgb, *_launch_args(rgb, cfg),
-                 _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), layout,
-                 _cuda.ptr(sums), _cuda.ptr(acc))
+                 _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), _cuda.ptr(sums),
+                 _cuda.ptr(acc))
     _count("palette_sums_q8" if q <= 8 else "palette_sums_qfull", rgb)
     return sums
 
@@ -395,11 +391,11 @@ def palette_sums_by_k_plain(h, s, v, cand, centers_by_k, cfg):
     return _slot_sums_fixed(h, s, v, slot, offset, c)
 
 
-def palette_sums_by_k(h, s, v, cand, centers_by_k, cfg, *, layout: int = 0):
+def palette_sums_by_k(h, s, v, cand, centers_by_k, cfg):
     """K10, q > 1 on flat HSV pixels: K4's per-pixel tie-break among the
     cell's candidates and sums per valid-order slot, hue < 0 adding
     nothing: -> (B, C, 4) int64 accumulator [hue, s, v on the fixed point,
-    count] (``palette_sums_from_fixed`` converts it; ``layout``: see K3)."""
+    count] (``palette_sums_from_fixed`` converts it)."""
     _check_hsv(h, s, v)
     b, c = h.shape[0], cfg.num_cells
     q = _check_candidates(cand, centers_by_k, b, c, h)
@@ -407,8 +403,7 @@ def palette_sums_by_k(h, s, v, cand, centers_by_k, cfg, *, layout: int = 0):
         return palette_sums_by_k_plain(h, s, v, cand, centers_by_k, cfg)
     acc = torch.empty((b, c, 4), dtype=torch.int64, device=h.device)
     _cuda.launch("ph_palette_sums_hsv", h, *_hsv_launch_args(h, s, v, cfg),
-                 _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), layout,
-                 _cuda.ptr(acc))
+                 _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), _cuda.ptr(acc))
     _cuda.LAUNCHES["palette_sums_flat_q8" if q <= 8
                    else "palette_sums_flat_qfull"] += 1
     return acc
@@ -446,15 +441,14 @@ def palette_sums_by_k_cwide_plain(h, s, v, allowed, centers_by_k, cfg):
     return _slot_sums_fixed(h, s, v, slot, offset, c)
 
 
-def palette_sums_by_k_cwide(h, s, v, allowed, centers_by_k, cfg, *,
-                            layout: int = 0):
+def palette_sums_by_k_cwide(h, s, v, allowed, centers_by_k, cfg):
     """K14, C-wide on flat HSV pixels: per pixel the first minimum distance
     over its cell's allowed parents (the bitmask of ``cwide_tables``), no
     candidate width, sums per valid-order slot, hue < 0 adding nothing:
     -> (B, C, 4) int64 accumulator, K10's layout (``palette_sums_from_fixed``
     converts it).  Equal to K10's wherever K10's candidates hold every
     allowed parent; a cell with an empty row sends its pixels to slot 0
-    (K10 drops them; ``layout``: see K3)."""
+    (K10 drops them)."""
     _check_hsv(h, s, v)
     b, c = h.shape[0], cfg.num_cells
     words = -(-c // 32)
@@ -465,7 +459,7 @@ def palette_sums_by_k_cwide(h, s, v, allowed, centers_by_k, cfg, *,
                                              cfg)
     acc = torch.empty((b, c, 4), dtype=torch.int64, device=h.device)
     _cuda.launch("ph_palette_sums_cwide", h, *_hsv_launch_args(h, s, v, cfg),
-                 _cuda.ptr(allowed), words, _cuda.ptr(centers_by_k), layout,
+                 _cuda.ptr(allowed), words, _cuda.ptr(centers_by_k),
                  _cuda.ptr(acc))
     _cuda.LAUNCHES["palette_sums_cwide"] += 1
     return acc

@@ -416,18 +416,14 @@ def test_cuda_batch_runner_matches_cpu(variant, cuda_device, monkeypatch):
                                    (1, 3, 14520), (4, 1080, 1920)])
 def test_cuda_row_fft_bit_equal(b, h, w, cuda_device):
     """K6a equals fft_rows_plain bit for bit: an odd row count (the last
-    row pairs with zeros), 1001 = 7 * 11 * 13 (no float4 loads), 3840,
-    14520 = 2^3 * 3 * 5 * 11^2 (the stage twiddles in device memory), the
-    1080p batch; with every row-pair setting that fits the card."""
+    row pairs with zeros), 1001 = 7 * 11 * 13 (four row pairs a block),
+    3840, 14520 = 2^3 * 3 * 5 * 11^2 (the stage twiddles in device
+    memory), the 1080p batch."""
     x = torch.from_numpy(np.random.default_rng(w).standard_normal(
         (b, h, w)).astype(np.float32)).to(cuda_device)
     x[0, 0, ::7] = 0.0
     plan = FftPlan.for_shape(h, w, cuda_device)
-    want = tfk.fft_rows_plain(x, plan)
-    for pairs in (0, 1, 2, 4):
-        if pairs > 1 and pairs * 16 * w > 232448:
-            continue
-        assert torch.equal(tfk.fft_rows(x, plan, pairs), want), pairs
+    assert torch.equal(tfk.fft_rows(x, plan), tfk.fft_rows_plain(x, plan))
 
 
 def _one_colour(b, h, w):
@@ -447,8 +443,7 @@ def _stripes(b, h, w):
 def _assert_palette_sums_all_routes(u8, cfg, device):
     """Every route of the palette-sums kernel against its plain version, bit
     for bit: K3 (q=1) and K4 (q=8, q_full) on uint8 and float32 RGB, K10
-    (q=8, q_full) and K14 on flat HSV with a sentinel tail; each with the
-    kernel's own sum tables and with one table a block."""
+    (q=8, q_full) and K14 on flat HSV with a sentinel tail."""
     from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_hsv, \
         u8_to_unit_f32
 
@@ -480,10 +475,8 @@ def _assert_palette_sums_all_routes(u8, cfg, device):
                  tpk.cwide_tables(assign, tt)))
     for kern, plain, px, tabs in runs:
         px = px if isinstance(px, list) else [px]
-        want = plain(*px, *tabs, cfg)
-        for layout in (0, 1):
-            got = kern(*px, *tabs, cfg, layout=layout)
-            assert torch.equal(got, want), (kern.__name__, layout)
+        assert torch.equal(kern(*px, *tabs, cfg), plain(*px, *tabs, cfg)), \
+            kern.__name__
 
 
 @pytest.mark.cuda
@@ -502,9 +495,8 @@ def test_cuda_palette_sums_routes_bit_equal(make, b, h, w, cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_palette_sums_routes_c2164(cuda_device):
-    """At C=2164 (h_partitions=360) the warps' sum tables do not fit shared
-    memory (one table a block, atomics) and K4's candidate table and K14's
-    bitmask are read from device memory."""
+    """At C=2164 (h_partitions=360) K4's candidate table and K14's bitmask
+    are read from device memory."""
     u8 = np.round(noise_rgb(1, 64, 255, seed=13) * 255).astype(np.uint8)
     _assert_palette_sums_all_routes(u8, ReportConfig(h_partitions=360),
                                     cuda_device)
