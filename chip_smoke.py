@@ -46,8 +46,9 @@ each of which raises on failure:
      each kernel's time beside its plain version's, its bound and a library
      call's.
 
-Phase 3 also holds K6a to its plain version on its edge cases (an odd row
-count, widths 1001, 3840 and 14520) and the palette-sums kernel (K3, K4,
+Phase 3 also holds K6a to its plain version on its edge cases (odd row
+counts, widths 1001, 3840 and 14520, and short widths that reach each of
+its fused passes: ROW_FFT_EDGES) and the palette-sums kernel (K3, K4,
 K10, K12-K14) on a one-colour batch, two-colour stripes, a pixel count
 that is no multiple of 4, and C=2164; phase 7 also times the one-colour
 batch.
@@ -693,10 +694,16 @@ def phase_blur_kernels(images, cfg):
     return err, kin
 
 
-# K6a's edge cases: (B, H, W) with an odd row count (the last row pairs
-# with zeros), 1001 = 7 * 11 * 13 (no float4 loads), 3840, and 14520 =
-# 2^3 * 3 * 5 * 11^2, whose stage twiddles stay in device memory.
-ROW_FFT_EDGES = [(1, 3, 1920), (3, 5, 1001), (1, 7, 3840), (1, 3, 14520)]
+# K6a's edge cases, (B, H, W): odd row counts (the last row pairs with
+# zeros), 1001 = 7 * 11 * 13 (single stages), 3840, 14520 = 2^3 * 3 * 5 *
+# 11^2 (the stage twiddles in device memory), and lengths whose passes
+# (fft_plan.row_passes) reach every fused pair and single stage the others
+# miss: 1080 (4x2, 3x3), 480 (2x3), 12 (4x3), 10 (2x5), 14 (2x7), 9, 64
+# (4 alone), 5, 3, 2 and 1.
+ROW_FFT_EDGES = [(1, 3, 1920), (3, 5, 1001), (1, 7, 3840), (1, 3, 14520),
+                 (1, 3, 1080), (1, 3, 480), (1, 3, 12), (1, 3, 10),
+                 (1, 3, 14), (1, 3, 9), (1, 3, 64), (1, 3, 5), (1, 3, 3),
+                 (1, 3, 2), (1, 3, 1)]
 
 
 def phase_row_fft_edges() -> None:
@@ -1493,36 +1500,31 @@ def flat_frame_times(cfg) -> dict:
     counts = pk.cell_counts_s_from_rgb(x, cfg)[0].long()
     b = x.shape[0]
     px = x.numel() // 3
-    x_bytes = x.numel()
-    real = px
-    hsv_bytes = real * 12 + b * SENTINEL_TAIL * 4
-    flat = {
-        "flat K3": (own["flat K3"], lambda: pk.palette_sums_by_k_rgb_q1_plain(
-            x, *d["q1"], cfg), (x_bytes + b * c * 24,
-                                px * (OPS_CELL_PX + OPS_SLOT_PX))),
-        "flat K4q8": (own["flat K4q8"], lambda: pk.palette_sums_by_k_rgb_plain(
-            x, *d["q8"], cfg), None),
-        "flat K10q8": (own["flat K10q8"], lambda: pk.palette_sums_by_k_plain(
-            *hsv, *d["q8"], cfg), None),
-        "flat K14": (own["flat K14"], lambda: pk.palette_sums_by_k_cwide_plain(
-            *hsv, *d["cw"], cfg), None),
-    }
+    hsv_bytes = px * 12 + b * SENTINEL_TAIL * 4
     n_cand = int((counts * (d["q8"][0] < c).sum(dim=-1).long()).sum())
-    tab8 = d["q8"][0].numel() * 4 + d["q8"][1].numel() * 4
-    flat["flat K4q8"] = flat["flat K4q8"][:2] + (
-        (x_bytes + tab8 + b * c * 16,
-         px * (OPS_CELL_PX + OPS_SLOT_PX) + n_cand * OPS_CANDIDATE),)
-    flat["flat K10q8"] = flat["flat K10q8"][:2] + (
-        (hsv_bytes + tab8 + b * c * 32,
-         real * (OPS_CELL_ID + OPS_SLOT_PX) + n_cand * OPS_CANDIDATE),)
-    allowed = pk.unpack_allowed(d["cw"][0], c)
-    n_allowed = int((counts * allowed.sum(dim=-1)).sum())
-    flat["flat K14"] = flat["flat K14"][:2] + (
-        (hsv_bytes + d["cw"][0].numel() * 4 + d["cw"][1].numel() * 4
-         + b * c * 32,
-         real * (OPS_CELL_ID + OPS_SLOT_PX) + n_allowed * OPS_CANDIDATE),)
+    n_allowed = int((counts * pk.unpack_allowed(d["cw"][0], c)
+                     .sum(dim=-1)).sum())
+    tab8 = (d["q8"][0].numel() + d["q8"][1].numel()) * 4
+    cw_tab = (d["cw"][0].numel() + d["cw"][1].numel()) * 4
+    rgb_ops = px * (OPS_CELL_PX + OPS_SLOT_PX)
+    hsv_ops = px * (OPS_CELL_ID + OPS_SLOT_PX)
+    # key: (plain version, (bytes, float32 ops)) of the timed call.
+    flat = {
+        "flat K3": (lambda: pk.palette_sums_by_k_rgb_q1_plain(
+            x, *d["q1"], cfg), (x.numel() + b * c * 24, rgb_ops)),
+        "flat K4q8": (lambda: pk.palette_sums_by_k_rgb_plain(
+            x, *d["q8"], cfg), (x.numel() + tab8 + b * c * 16,
+                                rgb_ops + n_cand * OPS_CANDIDATE)),
+        "flat K10q8": (lambda: pk.palette_sums_by_k_plain(
+            *hsv, *d["q8"], cfg), (hsv_bytes + tab8 + b * c * 32,
+                                   hsv_ops + n_cand * OPS_CANDIDATE)),
+        "flat K14": (lambda: pk.palette_sums_by_k_cwide_plain(
+            *hsv, *d["cw"], cfg), (hsv_bytes + cw_tab + b * c * 32,
+                                   hsv_ops + n_allowed * OPS_CANDIDATE)),
+    }
     out = {}
-    for key, (kern, plain, work) in flat.items():
+    for key, (plain, work) in flat.items():
+        kern = own[key]
         if not torch.equal(kern(), plain()):
             raise AssertionError(f"{key}: differs from its plain version")
         p1, k1, k2, p2 = (cuda_ms(plain, 1), cuda_ms(kern, 20),
@@ -1787,25 +1789,25 @@ def kernel_calls(cfg, inp):
         calls.update({
             pre + "K1": lambda x=x: pk.cell_counts_s_from_rgb(x, cfg),
             pre + "K3": lambda x=x, t=d["q1"]: pk.palette_sums_by_k_rgb_q1(
-                x, *t, cfg, ),
+                x, *t, cfg),
             pre + "K4q8": lambda x=x, t=d["q8"]: pk.palette_sums_by_k_rgb(
-                x, *t, cfg, ),
+                x, *t, cfg),
             pre + "K4qfull": lambda x=x, t=d["qfull"]:
-                pk.palette_sums_by_k_rgb(x, *t, cfg, ),
+                pk.palette_sums_by_k_rgb(x, *t, cfg),
             pre + "K9": lambda h=hsv: pk.cell_counts_from_hsv(*h, cfg),
             pre + "K10q8": lambda h=hsv, t=d["q8"]: pk.palette_sums_by_k(
-                *h, *t, cfg, ),
+                *h, *t, cfg),
             pre + "K10qfull": lambda h=hsv, t=d["qfull"]:
-                pk.palette_sums_by_k(*h, *t, cfg, ),
+                pk.palette_sums_by_k(*h, *t, cfg),
             pre + "K11": lambda x=xf: pk.cell_counts_s_from_rgb(x, cfg),
             pre + "K12": lambda x=xf, t=d["q1"]: pk.palette_sums_by_k_rgb_q1(
-                x, *t, cfg, ),
+                x, *t, cfg),
             pre + "K13q8": lambda x=xf, t=d["q8"]: pk.palette_sums_by_k_rgb(
-                x, *t, cfg, ),
+                x, *t, cfg),
             pre + "K13qfull": lambda x=xf, t=d["qfull"]:
-                pk.palette_sums_by_k_rgb(x, *t, cfg, ),
+                pk.palette_sums_by_k_rgb(x, *t, cfg),
             pre + "K14": lambda h=hsv, t=d["cw"]: pk.palette_sums_by_k_cwide(
-                *h, *t, cfg, ),
+                *h, *t, cfg),
             pre + "K15": lambda i=d["ids"]: pk.cell_counts_batched(i, c),
         })
     return calls

@@ -30,14 +30,20 @@
 //     stages the per-stage twiddle table (fft_plan.stage_twiddle_table:
 //     stage after stage, [q][k], the same float32 values as the full table)
 //     in shared memory once and every stage reads its twiddles
-//     contiguously, with no index modulo.  Each item keeps its r values in
-//     registers through the stage's butterfly; an item's position comes
-//     from (a, k) counters stepped per item instead of a division.  The
-//     radix-2 and radix-4 DFTs multiply only by the exact 1, -i, -1, i, so
-//     they are written as additions in the same order (the same nonzero
-//     bits).  The first stage (span 1, no twiddles) reads its items
-//     straight from the two rows, so the rows are never staged as such.
-//     Registers are capped at 80 a thread so that three blocks fit an SM.
+//     contiguously, with no index modulo.  Two adjacent stages whose
+//     radices multiply to at most 16 (4x4, 4x2, 3x5, ...) run as one pass:
+//     a thread holds the R1 R2 values that the two stages exchange only
+//     among themselves in registers, so 1920 = 4.4.4.2.3.5 takes three
+//     passes through shared memory, not six.  The buffers are XOR-swizzled
+//     in blocks of 16 (swz), so the stride-16 writes of a first pass and
+//     the contiguous reads meet no bank conflicts, at no extra memory.  An
+//     item's position comes from (a, k) counters stepped per item instead
+//     of a division.  The radix-2 and radix-4 DFTs multiply only by the
+//     exact 1, -i, -1, i, so they are written as additions in the same
+//     order (the same nonzero bits).  The first pass (span 1, no twiddles
+//     before it) reads its items straight from the two rows, so the rows
+//     are never staged as such.  Registers are capped at 80 a thread so
+//     that three blocks fit an SM.
 //   * K6b: one block per tile of `lanes` adjacent columns of one image
 //     (4 at H <= 1600, e.g. 1080p), so each row of the tile is one 32-byte
 //     sector of the half spectrum; |X|^2 in the epilogue.
@@ -144,27 +150,51 @@ __device__ float2* run_stages(float2* a, float2* b, const FftStages& st,
 }
 
 // ---------------------------------------------------------------- K6a ---
-// The r-point DFT of one item, V_t = v_0 + sum_{q>=1} v_q W_r^{qt} added in
-// ascending q, written to out[t * ns].  W_r^u is wr[u]; for r = 2 and 4 it
-// is exactly 1, -i, -1 or i, and the product is the swap and negation that
-// cmul gives for those values.
+// Adjacent stages of radices r1, r2 that one thread runs as one pass in
+// registers (fft_plan.FUSED_PAIRS: r1 r2 <= 16, in the order the plan
+// gives its radices).  Which stages fuse changes no bit of the output,
+// only the passes through shared memory.
+__host__ __device__ constexpr bool fused_pair(int r1, int r2) {
+  return (r1 == 4 && (r2 == 4 || r2 == 2 || r2 == 3)) ||
+         (r1 == 2 && (r2 == 3 || r2 == 5 || r2 == 7)) ||
+         (r1 == 3 && (r2 == 3 || r2 == 5));
+}
+
+// Where element i of a row buffer sits: XOR-swizzled within its block of
+// 16, so that a pass's stride-16 (or -8) writes and its contiguous reads
+// meet no bank conflicts; a buffer holds n rounded up to 16.
+__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 4) & 15); }
+
+// W_R^u = tw[u n / R] for the R-point DFT (none for R = 1, 2, 4).
 template <int R>
-__device__ __forceinline__ void item_dft(const float2 (&v)[R],
-                                         const float2 (&wr)[R], float2* out,
-                                         int ns) {
+__device__ __forceinline__ void dft_twiddles(float2 (&wr)[R],
+                                             const float2* __restrict__ tw,
+                                             int n) {
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    wr[u] = R == 1 || R == 2 || R == 4 ? float2{} : __ldg(&tw[u * (n / R)]);
+  }
+}
+
+// The R-point DFT of v into y, y_t = v_0 + sum_{q>=1} v_q W_R^{qt} added in
+// ascending q.  For R = 2 and 4, W_R^u is exactly 1, -i, -1 or i, and the
+// product is the swap and negation that cmul gives for those values.
+template <int R>
+__device__ __forceinline__ void dft(const float2 (&v)[R], const float2 (&wr)[R],
+                                    float2 (&y)[R]) {
   if constexpr (R == 2) {
-    out[0] = cadd(v[0], v[1]);
-    out[ns] = make_float2(__fsub_rn(v[0].x, v[1].x), __fsub_rn(v[0].y, v[1].y));
+    y[0] = cadd(v[0], v[1]);
+    y[1] = make_float2(__fsub_rn(v[0].x, v[1].x), __fsub_rn(v[0].y, v[1].y));
   } else if constexpr (R == 4) {
     // u = q t mod 4: W^1 = -i, W^2 = -1, W^3 = i.
-    out[0] = cadd(cadd(cadd(v[0], v[1]), v[2]), v[3]);
-    out[ns] = make_float2(
+    y[0] = cadd(cadd(cadd(v[0], v[1]), v[2]), v[3]);
+    y[1] = make_float2(
         __fsub_rn(__fsub_rn(__fadd_rn(v[0].x, v[1].y), v[2].x), v[3].y),
         __fadd_rn(__fsub_rn(__fsub_rn(v[0].y, v[1].x), v[2].y), v[3].x));
-    out[2 * ns] = make_float2(
+    y[2] = make_float2(
         __fsub_rn(__fadd_rn(__fsub_rn(v[0].x, v[1].x), v[2].x), v[3].x),
         __fsub_rn(__fadd_rn(__fsub_rn(v[0].y, v[1].y), v[2].y), v[3].y));
-    out[3 * ns] = make_float2(
+    y[3] = make_float2(
         __fadd_rn(__fsub_rn(__fsub_rn(v[0].x, v[1].y), v[2].x), v[3].y),
         __fsub_rn(__fsub_rn(__fadd_rn(v[0].y, v[1].x), v[2].y), v[3].x));
   } else {
@@ -176,37 +206,82 @@ __device__ __forceinline__ void item_dft(const float2 (&v)[R],
         const int u = (q * t) % R;
         acc = cadd(acc, u == 0 ? v[q] : cmul(v[q], wr[u]));
       }
-      out[t * ns] = acc;
+      y[t] = acc;
     }
   }
 }
 
-// One Stockham stage of radix R after span ns on one sequence, items
-// j = t0, t0 + nt, ... of m = n / R (stage() above, one lane): v_q =
-// src[j + q m] * stw[(q - 1) ns + k], k = j mod ns, the multiply skipped
-// at k = 0; out at (j - k) R + k = a ns R + k with a = j / ns.
-template <int R>
-__device__ void row_stage(const float2* __restrict__ src,
-                          float2* __restrict__ dst, int n, int ns,
-                          const float2* __restrict__ stw,
-                          const float2* __restrict__ tw, int t0, int nt) {
-  const int m = n / R;
-  float2 wr[R];
-#pragma unroll
-  for (int u = 0; u < R; ++u) wr[u] = R == 2 || R == 4 ? float2{} : __ldg(&tw[u * m]);
+// One pass of the row FFT after span ns: the Stockham stage of radix R1,
+// then (R2 > 1) the stage of radix R2 after span ns R1, with no exchange
+// between them.  Stage s's butterfly j = a ns + k reads x[j + q n/R1]
+// (times stw[ns - 1 + (q - 1) ns + k], skipped at k = 0) and writes
+// y[a ns R1 + t ns + k]; stage s+1's butterflies t ns + k + a' ns R1, t <
+// R1, read exactly the outputs of stage s's butterflies g + p n/(R1 R2), p
+// < R2, g = a' ns + k.  So item g does those R2 DFTs of R1 points, then R1
+// DFTs of R2 points (times stw[ns R1 - 1 + (p - 1) ns R1 + t ns + k],
+// skipped where t ns + k = 0), and writes y[a' ns R1 R2 + t' ns R1 + t ns +
+// k]: each output gets the operations of stockham_plain in its order.  The
+// first pass (kRows, ns = 1, no twiddles before it) reads the pair z = x0 +
+// i x1 straight from the rows (x1 == nullptr: zeros).  Items g = t0, t0 +
+// nt, ... of n / (R1 R2).
+template <int R1, int R2, bool kRows>
+__device__ void row_pass(const float* __restrict__ x0,
+                         const float* __restrict__ x1,
+                         const float2* __restrict__ src,
+                         float2* __restrict__ dst, int n, int ns,
+                         const float2* __restrict__ stw,
+                         const float2* __restrict__ tw, int t0, int nt) {
+  const int m1 = n / R1;
+  const int items = n / (R1 * R2);
+  const int ns1 = ns * R1;
+  const float2* stw1 = stw + (ns - 1);
+  const float2* stw2 = stw + (ns1 - 1);
+  float2 w1[R1];
+  float2 w2[R2];
+  dft_twiddles<R1>(w1, tw, n);
+  dft_twiddles<R2>(w2, tw, n);
+  // g = a ns + k, stepped by nt without a division.
   const int dk = nt % ns;
   const int da = nt / ns;
   int k = t0 % ns;
   int a = t0 / ns;
-  for (int j = t0; j < m; j += nt) {
-    float2 v[R];
-    v[0] = src[j];
+  for (int g = t0; g < items; g += nt) {
+    float2 u[R2][R1];
 #pragma unroll
-    for (int q = 1; q < R; ++q) {
-      v[q] = src[j + q * m];
-      if (k > 0) v[q] = cmul(v[q], stw[(q - 1) * ns + k]);
+    for (int p = 0; p < R2; ++p) {
+      const int j = g + p * items;
+      float2 v[R1];
+#pragma unroll
+      for (int q = 0; q < R1; ++q) {
+        const int i = j + q * m1;
+        if constexpr (kRows) {
+          v[q] = make_float2(__ldcs(&x0[i]), x1 ? __ldcs(&x1[i]) : 0.0f);
+        } else {
+          v[q] = src[swz(i)];
+          if (q > 0 && k > 0) v[q] = cmul(v[q], stw1[(q - 1) * ns + k]);
+        }
+      }
+      dft<R1>(v, w1, u[p]);
     }
-    item_dft<R>(v, wr, dst + a * ns * R + k, ns);
+    const int base = a * ns1 * R2 + k;
+#pragma unroll
+    for (int t = 0; t < R1; ++t) {
+      if constexpr (R2 == 1) {
+        dst[swz(base + t * ns)] = u[0][t];
+      } else {
+        const int k2 = t * ns + k;
+        float2 v[R2];
+#pragma unroll
+        for (int p = 0; p < R2; ++p) {
+          v[p] = u[p][t];
+          if (p > 0 && k2 > 0) v[p] = cmul(v[p], stw2[(p - 1) * ns1 + k2]);
+        }
+        float2 y[R2];
+        dft<R2>(v, w2, y);
+#pragma unroll
+        for (int tt = 0; tt < R2; ++tt) dst[swz(base + tt * ns1 + t * ns)] = y[tt];
+      }
+    }
     k += dk;
     a += da;
     if (k >= ns) {
@@ -216,39 +291,65 @@ __device__ void row_stage(const float2* __restrict__ src,
   }
 }
 
-// The first stage (span 1: no twiddles) of the pair z = x0 + i x1 read
-// straight from the rows (x1 == nullptr: zeros), into dst.
-template <int R>
-__device__ void row_first_stage(const float* __restrict__ x0,
-                                const float* __restrict__ x1,
-                                float2* __restrict__ dst, int n,
-                                const float2* __restrict__ tw, int t0,
-                                int nt) {
-  const int m = n / R;
-  float2 wr[R];
-#pragma unroll
-  for (int u = 0; u < R; ++u) wr[u] = R == 2 || R == 4 ? float2{} : __ldg(&tw[u * m]);
-  for (int j = t0; j < m; j += nt) {
-    float2 v[R];
-#pragma unroll
-    for (int q = 0; q < R; ++q) {
-      v[q] = make_float2(__ldcs(&x0[j + q * m]),
-                         x1 ? __ldcs(&x1[j + q * m]) : 0.0f);
-    }
-    item_dft<R>(v, wr, dst + j * R, 1);
+// row_pass for the radices of one pass (r2 = 1: a single stage), with one
+// switch outside the butterfly loop.  kWide: the plan has a radix of 7, 11
+// or 13; a kernel without (every shape of 2, 3 and 5 alone) leaves their
+// code out, so that their registers do not bound its own.
+template <bool kRows, bool kWide>
+__device__ void row_pass_of(int r1, int r2, const float* __restrict__ x0,
+                            const float* __restrict__ x1,
+                            const float2* __restrict__ src,
+                            float2* __restrict__ dst, int n, int ns,
+                            const float2* __restrict__ stw,
+                            const float2* __restrict__ tw, int t0, int nt) {
+#define PH_ROW_PASS(A, B) \
+  row_pass<A, B, kRows>(x0, x1, src, dst, n, ns, stw, tw, t0, nt)
+  switch (r1 * 16 + r2) {
+    case 4 * 16 + 4: PH_ROW_PASS(4, 4); break;
+    case 4 * 16 + 2: PH_ROW_PASS(4, 2); break;
+    case 4 * 16 + 3: PH_ROW_PASS(4, 3); break;
+    case 2 * 16 + 3: PH_ROW_PASS(2, 3); break;
+    case 2 * 16 + 5: PH_ROW_PASS(2, 5); break;
+    case 3 * 16 + 3: PH_ROW_PASS(3, 3); break;
+    case 3 * 16 + 5: PH_ROW_PASS(3, 5); break;
+    case 2 * 16 + 1: PH_ROW_PASS(2, 1); break;
+    case 3 * 16 + 1: PH_ROW_PASS(3, 1); break;
+    case 4 * 16 + 1: PH_ROW_PASS(4, 1); break;
+    case 5 * 16 + 1: PH_ROW_PASS(5, 1); break;
+    default:
+      if constexpr (kWide) {
+        switch (r1 * 16 + r2) {
+          case 2 * 16 + 7: PH_ROW_PASS(2, 7); break;
+          case 7 * 16 + 1: PH_ROW_PASS(7, 1); break;
+          case 11 * 16 + 1: PH_ROW_PASS(11, 1); break;
+          default: PH_ROW_PASS(13, 1); break;
+        }
+      }
+      break;
   }
+#undef PH_ROW_PASS
+}
+
+// The radix of the stage run with stage s in one pass, or 1.
+__host__ __device__ inline int pass_partner(const FftStages& st, int s) {
+  return s + 1 < st.count && fused_pair(st.radix[s], st.radix[s + 1])
+             ? st.radix[s + 1]
+             : 1;
 }
 
 // x: (rows, n) float32; out: (rows, half) float2.  Row pair p transforms
 // z = x[2p] + i x[2p+1] (x[2p+1] = 0 past the last row).  Group g of the
 // block's `pairs` groups takes pairs blockIdx.x * pairs + g, then the same
 // plus gridDim.x * pairs, and so on.  Shared memory: the stage twiddles
-// (tw_len float2, when stw_shared) | per group two buffers of n float2.
+// (tw_len float2, when stw_shared) | per group two buffers of seq float2
+// (n rounded up to 16, swizzled by swz).
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads, kRowBlocksPerSm)
     fft_rows_kernel(const float* __restrict__ x, int rows, FftStages st,
                     const float2* __restrict__ tw,
                     const float2* __restrict__ stage_tw, int tw_len,
-                    bool stw_shared, int pairs, float2* __restrict__ out) {
+                    bool stw_shared, int seq, int pairs,
+                    float2* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float2* smem = reinterpret_cast<float2*>(smem4);
   const int n = st.n;
@@ -260,7 +361,7 @@ __global__ void __launch_bounds__(kThreads, kRowBlocksPerSm)
     for (int i = threadIdx.x; i < n - 1; i += blockDim.x) smem[i] = stage_tw[i];
   }
   const float2* stw = stw_shared ? smem : stage_tw;
-  float2* const buf = smem + (stw_shared ? tw_len : 0) + 2LL * g * n;
+  float2* const buf = smem + (stw_shared ? tw_len : 0) + 2LL * g * seq;
   const long long n_pairs = (rows + 1) / 2;
   for (long long p0 = static_cast<long long>(blockIdx.x) * pairs; p0 < n_pairs;
        p0 += static_cast<long long>(gridDim.x) * pairs) {
@@ -271,47 +372,37 @@ __global__ void __launch_bounds__(kThreads, kRowBlocksPerSm)
     const float* x0 = x + r0 * n;
     const float* x1 = has1 ? x0 + n : nullptr;
     float2* z = buf;
-    float2* y = buf + n;
-    if (live) {
-      switch (st.count ? st.radix[0] : 0) {
-        case 0: if (t0 == 0) z[0] = make_float2(x0[0], x1 ? x1[0] : 0.0f); break;
-        case 2: row_first_stage<2>(x0, x1, z, n, tw, t0, nt); break;
-        case 3: row_first_stage<3>(x0, x1, z, n, tw, t0, nt); break;
-        case 4: row_first_stage<4>(x0, x1, z, n, tw, t0, nt); break;
-        case 5: row_first_stage<5>(x0, x1, z, n, tw, t0, nt); break;
-        case 7: row_first_stage<7>(x0, x1, z, n, tw, t0, nt); break;
-        case 11: row_first_stage<11>(x0, x1, z, n, tw, t0, nt); break;
-        default: row_first_stage<13>(x0, x1, z, n, tw, t0, nt); break;
-      }
+    float2* y = buf + seq;
+    if (live && st.count == 0 && t0 == 0) {
+      z[0] = make_float2(x0[0], x1 ? x1[0] : 0.0f);
     }
-    __syncthreads();
-    int ns = st.count ? st.radix[0] : 1;
-    const float2* stw_s = stw + (ns - 1);
-    for (int s = 1; s < st.count; ++s) {
-      const int r = st.radix[s];
+    int ns = 1;
+    for (int s = 0; s < st.count;) {
+      const int r1 = st.radix[s];
+      const int r2 = pass_partner(st, s);
       if (live) {
-        switch (r) {
-          case 2: row_stage<2>(z, y, n, ns, stw_s, tw, t0, nt); break;
-          case 3: row_stage<3>(z, y, n, ns, stw_s, tw, t0, nt); break;
-          case 4: row_stage<4>(z, y, n, ns, stw_s, tw, t0, nt); break;
-          case 5: row_stage<5>(z, y, n, ns, stw_s, tw, t0, nt); break;
-          case 7: row_stage<7>(z, y, n, ns, stw_s, tw, t0, nt); break;
-          case 11: row_stage<11>(z, y, n, ns, stw_s, tw, t0, nt); break;
-          default: row_stage<13>(z, y, n, ns, stw_s, tw, t0, nt); break;
+        if (s == 0) {
+          row_pass_of<true, kWide>(r1, r2, x0, x1, nullptr, z, n, ns, stw, tw,
+                                   t0, nt);
+        } else {
+          row_pass_of<false, kWide>(r1, r2, nullptr, nullptr, z, y, n, ns,
+                                    stw, tw, t0, nt);
         }
       }
       __syncthreads();
-      float2* t = z;
-      z = y;
-      y = t;
-      stw_s += (r - 1) * ns;
-      ns *= r;
+      if (s > 0) {
+        float2* t = z;
+        z = y;
+        y = t;
+      }
+      ns *= r1 * r2;
+      s += r2 > 1 ? 2 : 1;
     }
     if (live) {
       float2* o0 = out + r0 * half;
       for (int k = t0; k < half; k += nt) {
-        const float2 zk = z[k];
-        const float2 zc = z[k == 0 ? 0 : n - k];   // Z[-k], conjugated below
+        const float2 zk = z[swz(k)];
+        const float2 zc = z[swz(k == 0 ? 0 : n - k)];   // Z[-k], conjugated below
         __stcs(&o0[k], make_float2(__fmul_rn(__fadd_rn(zk.x, zc.x), 0.5f),
                                    __fmul_rn(__fsub_rn(zk.y, zc.y), 0.5f)));
         if (has1) {
@@ -373,17 +464,35 @@ extern "C" int ph_fft_rows(const void* pgm, int rows, const FftStages* st,
                            const void* twiddles, const void* stage_twiddles,
                            void* spec, void* stream) {
   const int n = st->n;
-  const size_t pair_bytes = 2 * static_cast<size_t>(n) * sizeof(float2);
+  // A row buffer: n rounded up to the swizzle's blocks of 16 (so at most
+  // MAX_LENGTH = 14528, a multiple of 16, when n is).
+  const int seq = (n + 15) & ~15;
+  const size_t pair_bytes = 2 * static_cast<size_t>(seq) * sizeof(float2);
   // Even, so that the buffers after the table stay 16-byte aligned.
   const int tw_len = n & ~1;
   const size_t tw_bytes = tw_len * sizeof(float2);
   const bool stw_shared = tw_bytes + pair_bytes <= kMaxShared;
   const size_t base = stw_shared ? tw_bytes : 0;
+  // The most items of one pass: a group of 256 / pairs threads should do
+  // each pass in at most two rounds.
+  int most = 1;
+  bool wide = false;
+  for (int s = 0; s < st->count; ++s) wide = wide || st->radix[s] > 5;
+  auto kernel = wide ? fft_rows_kernel<true> : fft_rows_kernel<false>;
+  for (int s = 0; s < st->count;) {
+    const int r2 = pass_partner(*st, s);
+    const int items = n / (st->radix[s] * r2);
+    most = items > most ? items : most;
+    s += r2 > 1 ? 2 : 1;
+  }
   // The most row pairs (1, 2 or 4) whose buffers fit kRowSharedTarget.
   int pairs = kMaxRowPairs;
-  while (pairs > 1 && base + pairs * pair_bytes > kRowSharedTarget) pairs >>= 1;
+  while (pairs > 1 && (base + pairs * pair_bytes > kRowSharedTarget ||
+                       2 * (kThreads / pairs) < most)) {
+    pairs >>= 1;
+  }
   const size_t bytes = base + pairs * pair_bytes;
-  cudaError_t err = allow_shared(fft_rows_kernel, bytes);
+  cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return err;
   int device = 0;
   int sms = 0;
@@ -394,18 +503,18 @@ extern "C" int ph_fft_rows(const void* pgm, int rows, const FftStages* st,
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fft_rows_kernel, kThreads, bytes);
+        &per_sm, kernel, kThreads, bytes);
   }
   if (err != cudaSuccess) return err;
   const long long groups = ((rows + 1) / 2 + pairs - 1) / pairs;
   const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(groups < resident ? groups : resident);
   if (grid == 0) return cudaSuccess;
-  fft_rows_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pgm), rows, *st,
       static_cast<const float2*>(twiddles),
-      static_cast<const float2*>(stage_twiddles), tw_len, stw_shared, pairs,
-      static_cast<float2*>(spec));
+      static_cast<const float2*>(stage_twiddles), tw_len, stw_shared, seq,
+      pairs, static_cast<float2*>(spec));
   return cudaGetLastError();
 }
 

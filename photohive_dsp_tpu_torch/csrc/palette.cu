@@ -479,13 +479,16 @@ __global__ void __launch_bounds__(kThreads)
             // Candidates ascend with sentinels (>= C) last.  A cell with
             // one candidate has no tie to break: the first minimum of one
             // finite distance is that candidate.
+            // The next candidate is read before this one's distance, so a
+            // step waits for one shared-memory load, not two.
             if (q == 1 || row[1] >= c) {
               k = row[0] < c ? row[0] : c;
             } else {
-              for (int j = 0; j < q; ++j) {
-                const int kk = row[j];
-                if (kk >= c) break;
+              int kk = row[0];
+              for (int j = 1; kk < c; ++j) {
+                const int next = j < q ? row[j] : c;
                 visit(kk);
+                kk = next;
               }
             }
           } else {

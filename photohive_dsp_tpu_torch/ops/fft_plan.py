@@ -54,6 +54,29 @@ def stage_radices(n: int) -> Tuple[int, ...]:
         f for f in fs if f != 2)
 
 
+# Adjacent stage radices (r1, r2) that the row kernel runs as one pass in
+# registers (csrc/fft.cu fused_pair): r1 r2 <= 16, in the order
+# stage_radices gives them.
+FUSED_PAIRS = frozenset({(4, 4), (4, 2), (4, 3), (2, 3), (2, 5), (2, 7),
+                         (3, 3), (3, 5)})
+
+
+def row_passes(radices) -> Tuple[Tuple[int, int], ...]:
+    """The row kernel's passes over ``radices``: (r1, r2) for two stages
+    run as one, (r, 1) for a stage alone; pairs are taken greedily from
+    the first stage."""
+    out, s = [], 0
+    while s < len(radices):
+        pair = tuple(radices[s:s + 2])
+        if pair in FUSED_PAIRS:
+            out.append(pair)
+            s += 2
+        else:
+            out.append((radices[s], 1))
+            s += 1
+    return tuple(out)
+
+
 def fft_kernel_eligible(height: int, width: int) -> bool:
     """Whether the FFT kernels take an (height, width) image: both sides
     factor into RADIX_PRIMES and fit in shared memory."""

@@ -196,63 +196,86 @@ def test_get_report_non_smooth_shape_matches_jax():
     assert_match(report_fields(got), report_fields(want))
 
 
+def _dft(vr, vi, r, lp):
+    """K6a's r-point DFT: ascending q, the multiply skipped where q t = 0
+    mod r, and for r = 2 and 4 additions only (their twiddles are exactly
+    1, -i, -1, i)."""
+    if r == 1:
+        return [(vr[0], vi[0])]
+    if r == 2:
+        return [(vr[0] + vr[1], vi[0] + vi[1]),
+                (vr[0] - vr[1], vi[0] - vi[1])]
+    if r == 4:
+        return [(((vr[0] + vr[1]) + vr[2]) + vr[3],
+                 ((vi[0] + vi[1]) + vi[2]) + vi[3]),
+                (((vr[0] + vi[1]) - vr[2]) - vi[3],
+                 ((vi[0] - vr[1]) - vi[2]) + vr[3]),
+                (((vr[0] - vr[1]) + vr[2]) - vr[3],
+                 ((vi[0] - vi[1]) + vi[2]) - vi[3]),
+                (((vr[0] - vi[1]) - vr[2]) + vi[3],
+                 ((vi[0] + vr[1]) - vi[2]) - vr[3])]
+    m = lp.n // r
+    twr, twi = lp.twiddles[:, 0], lp.twiddles[:, 1]
+    outs = []
+    for t in range(r):
+        ar, ai = vr[0], vi[0]
+        for q in range(1, r):
+            u = (q * t) % r
+            if u == 0:
+                ar, ai = ar + vr[q], ai + vi[q]
+            else:
+                pr, pi = tfk._cmul(vr[q], vi[q], twr[u * m], twi[u * m])
+                ar, ai = ar + pr, ai + pi
+        outs.append((ar, ai))
+    return outs
+
+
+def _twiddled(vr, vi, stw, first, span, k):
+    """v_q times the per-stage twiddle stw[first + (q - 1) span + k] for q
+    >= 1, the multiply skipped where k = 0."""
+    vr, vi = list(vr), list(vi)
+    for q in range(1, len(vr)):
+        w = stw[first + (q - 1) * span + k]
+        pr, pi = tfk._cmul(vr[q], vi[q], w[:, 0], w[:, 1])
+        vr[q] = torch.where(k > 0, pr, vr[q])
+        vi[q] = torch.where(k > 0, pi, vi[q])
+    return vr, vi
+
+
 def _row_kernel_schedule(re, im, lp):
-    """K6a's arithmetic as csrc/fft.cu fft_rows_kernel orders it, in torch:
-    each stage's twiddles from the per-stage table, the multiply skipped at
-    k = 0, and the radix-2 and radix-4 DFTs as additions (their twiddles
-    are exactly 1, -i, -1, i)."""
+    """K6a's arithmetic as csrc/fft.cu row_pass orders it, in torch: passes
+    of one stage or of two fused stages (fft_plan.row_passes), item g of a
+    pass after span ns doing the R2 first-stage DFTs of its R1 R2 values,
+    then R1 second-stage DFTs, each stage's twiddles from the per-stage
+    table."""
     n, rows, ns = lp.n, re.shape[0], 1
     stw = lp.stage_twiddles
-    twr, twi = lp.twiddles[:, 0], lp.twiddles[:, 1]
-    off = 0
-    for r in lp.radices:
-        m = n // r
-        k = torch.arange(m) % ns
-        vr = list(re.reshape(rows, r, m).unbind(1))
-        vi = list(im.reshape(rows, r, m).unbind(1))
-        for q in range(1, r):
-            w = stw[off + (q - 1) * ns + k]
-            pr, pi = tfk._cmul(vr[q], vi[q], w[:, 0], w[:, 1])
-            vr[q] = torch.where(k > 0, pr, vr[q])
-            vi[q] = torch.where(k > 0, pi, vi[q])
-        if r == 2:
-            outs = [(vr[0] + vr[1], vi[0] + vi[1]),
-                    (vr[0] - vr[1], vi[0] - vi[1])]
-        elif r == 4:
-            outs = [(((vr[0] + vr[1]) + vr[2]) + vr[3],
-                     ((vi[0] + vi[1]) + vi[2]) + vi[3]),
-                    (((vr[0] + vi[1]) - vr[2]) - vi[3],
-                     ((vi[0] - vr[1]) - vi[2]) + vr[3]),
-                    (((vr[0] - vr[1]) + vr[2]) - vr[3],
-                     ((vi[0] - vi[1]) + vi[2]) - vi[3]),
-                    (((vr[0] - vi[1]) - vr[2]) + vi[3],
-                     ((vi[0] + vr[1]) - vi[2]) - vr[3])]
-        else:
-            outs = []
-            for t in range(r):
-                ar, ai = vr[0], vi[0]
-                for q in range(1, r):
-                    u = (q * t) % r
-                    if u == 0:
-                        ar, ai = ar + vr[q], ai + vi[q]
-                    else:
-                        pr, pi = tfk._cmul(vr[q], vi[q], twr[u * m],
-                                           twi[u * m])
-                        ar, ai = ar + pr, ai + pi
-                outs.append((ar, ai))
-
-        def scatter(vals):
-            return (torch.stack(vals, dim=1).reshape(rows, r, m // ns, ns)
-                    .permute(0, 2, 1, 3).reshape(rows, n))
-
-        re = scatter([o[0] for o in outs])
-        im = scatter([o[1] for o in outs])
-        off += (r - 1) * ns
-        ns *= r
+    for r1, r2 in fft_plan.row_passes(lp.radices):
+        items, m1, ns1 = n // (r1 * r2), n // r1, ns * r1
+        g = torch.arange(items)
+        k, a = g % ns, g // ns
+        u = []
+        for p in range(r2):
+            j = g + p * items
+            vr, vi = _twiddled([re[:, j + q * m1] for q in range(r1)],
+                               [im[:, j + q * m1] for q in range(r1)],
+                               stw, ns - 1, ns, k)
+            u.append(_dft(vr, vi, r1, lp))
+        out_r, out_i = torch.empty_like(re), torch.empty_like(im)
+        base = a * ns1 * r2 + k
+        for t in range(r1):
+            vr, vi = _twiddled([u[p][t][0] for p in range(r2)],
+                               [u[p][t][1] for p in range(r2)],
+                               stw, ns1 - 1, ns1, t * ns + k)
+            for tt, (yr, yi) in enumerate(_dft(vr, vi, r2, lp)):
+                out_r[:, base + tt * ns1 + t * ns] = yr
+                out_i[:, base + tt * ns1 + t * ns] = yi
+        re, im = out_r, out_i
+        ns *= r1 * r2
     return re, im
 
 
-@pytest.mark.parametrize("n", [1920, 1080, 1001, 64, 12, 2])
+@pytest.mark.parametrize("n", [1920, 1080, 1001, 64, 12, 2, 14520, 640, 15])
 def test_row_kernel_schedule_matches_plain(n):
     """K6a's schedule gives stockham_plain's values bit for bit (torch.equal:
     only the sign of an exact zero may differ), zeros in the input

@@ -413,12 +413,19 @@ def test_cuda_batch_runner_matches_cpu(variant, cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w", [(1, 3, 1920), (3, 5, 1001), (1, 7, 3840),
-                                   (1, 3, 14520), (4, 1080, 1920)])
+                                   (1, 3, 14520), (4, 1080, 1920),
+                                   (1, 3, 1080), (1, 3, 480), (1, 3, 12),
+                                   (1, 3, 10), (1, 3, 14), (1, 3, 9),
+                                   (1, 3, 64), (1, 3, 5), (1, 3, 3),
+                                   (1, 3, 2), (1, 3, 1)])
 def test_cuda_row_fft_bit_equal(b, h, w, cuda_device):
     """K6a equals fft_rows_plain bit for bit: an odd row count (the last
-    row pairs with zeros), 1001 = 7 * 11 * 13 (four row pairs a block),
-    3840, 14520 = 2^3 * 3 * 5 * 11^2 (the stage twiddles in device
-    memory), the 1080p batch."""
+    row pairs with zeros), 1001 = 7 * 11 * 13 (single stages), 3840,
+    14520 = 2^3 * 3 * 5 * 11^2 (the stage twiddles in device memory), the
+    1080p batch, and lengths whose passes (fft_plan.row_passes) are each
+    fused pair and single stage not met above: 1080 (4x2, 3x3, 3x5), 480
+    (2x3), 12 (4x3), 10 (2x5), 14 (2x7), 9, 64 (4x4, then 4 alone), 5,
+    3, 2 and 1 (no stage)."""
     x = torch.from_numpy(np.random.default_rng(w).standard_normal(
         (b, h, w)).astype(np.float32)).to(cuda_device)
     x[0, 0, ::7] = 0.0
