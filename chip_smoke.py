@@ -78,13 +78,10 @@ H, W = 1080, 1920
 SH, SW = 4320, 7680       # the spatial path's frame: 33 MP
 SEED = 0
 DEVICE = "cuda"
-K1_S_RTOL = 1e-6          # saturation sum vs its plain version
-SUMS_RTOL = 1e-5          # palette hue/s/v sums vs their plain versions
 # The FFT kernels equal their plain versions bit for bit (the same float32
 # operations in the same order); both meet the JAX package's bar against
 # float64 rfft2 (tests/test_pallas_fft.py).
 FFT_SNR_DB = 90.0
-POLAR_RTOL = 1e-6         # polar sums vs plain: logf rounding only
 # K5's s1, s2 vs plain: float32 per-thread sums there, float64 here.
 SHARP_RTOL = 1e-5
 SENTINEL_TAIL = 4096      # hue-sentinel pixels after K9/K10's real ones
@@ -285,6 +282,34 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device ms of one call of fn: ``iters`` calls captured in one CUDA
+    graph, timed by events around its replay, so the host's launch
+    overhead (a wrapper's checks, allocations and ctypes call, tens of
+    microseconds) is not counted.  The wrappers launch on the current
+    stream and never synchronise, so they capture as they are."""
+    fn()
+    sync()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / iters
+
+
 # --------------------------------------------------------------- phases ---
 
 def phase_device() -> str:
@@ -339,7 +364,7 @@ def phase_kernels(images, cfg, tables):
         sync()
         if not torch.equal(counts, counts0):
             raise AssertionError(f"{ids['K1']} {name}: counts differ")
-        if not rel_err(s_sum, s_sum0) < K1_S_RTOL:
+        if not torch.equal(s_sum, s_sum0):
             raise AssertionError(f"{ids['K1']} {name}: s_sum rel err "
                                  f"{rel_err(s_sum, s_sum0)}")
         err[ids["K1"]] = float((s_sum - s_sum0).abs().max())
@@ -365,8 +390,7 @@ def phase_kernels(images, cfg, tables):
             sync()
             if not torch.equal(got[..., 3], want[..., 3]):
                 raise AssertionError(f"{key} {name}: counts differ")
-            bad = (got - want).abs() > SUMS_RTOL * want.abs()
-            if bool(bad.any()):
+            if not torch.equal(got, want):
                 raise AssertionError(f"{key} {name}: sums rel err "
                                      f"{rel_err(got, want)}")
             err[key] = float((got - want).abs().max())
@@ -624,26 +648,12 @@ def phase_blur_kernels(images, cfg):
     inputs the timing phase reuses."""
     from photohive_dsp_tpu_torch.config import ReportConfig
     from photohive_dsp_tpu_torch.ops import fft_kernels as fk
-    from photohive_dsp_tpu_torch.ops import polar_kernels as pk
     from photohive_dsp_tpu_torch.ops.blur import PolarTables, \
         blur_bins_lognorm
     from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
 
     a, r = cfg.angle_partitions, cfg.radius_partitions
     rng = np.random.default_rng(SEED + 2)
-
-    def polar_check(flat, ids, nb, label):
-        sums = pk.polar_bin_sums_lognorm(flat, ids, nb)
-        again = pk.polar_bin_sums_lognorm(flat, ids, nb)
-        want = pk.polar_bin_sums_lognorm_plain(flat, ids, nb)
-        sync()
-        if not torch.equal(sums, again):
-            raise AssertionError(f"K7+K8 {label}: two launches differ")
-        bad = (sums - want).abs() > POLAR_RTOL * want.abs()
-        if bool(bad.any()):
-            raise AssertionError(f"K7+K8 {label}: rel err "
-                                 f"{rel_err(sums, want)}")
-        return float((sums - want).abs().max()), rel_err(sums, want)
 
     err, kin = {}, {}
     for h, w, b in BLUR_SHAPES:
@@ -673,25 +683,49 @@ def phase_blur_kernels(images, cfg):
             raise AssertionError(f"K6 {label}: {snr_k} dB (kernels), "
                                  f"{snr_p} dB (plain) vs float64")
         flat = mag.reshape(b, -1)
-        e_polar, r_polar = polar_check(flat, polar.bin_ids, a * r, label)
+        e_polar = check_polar(flat, polar.bin_ids, polar.bin_counts, label)
         zero = blur_bins_lognorm(torch.zeros_like(x), plan, polar, a, r)
         sync()
         if not bool(torch.isfinite(zero).all()) or bool(zero.any()):
             raise AssertionError(f"{label}: zero frame gives nonzero bins")
         log(f"  {label}: K6a/K6b equal plain bit for bit; |rfft2|^2 "
             f"{snr_k:.1f} dB (plain {snr_p:.1f} dB) vs float64; K7+K8 "
-            f"bit-identical twice, rel err {r_polar:.2e}; zero frame -> "
-            f"zero bins")
+            f"sums, max and means equal plain bit for bit, twice; zero "
+            f"frame -> zero bins")
         if (h, w) == (H, W):
             err = {"K6a": e_rows, "K6b": e_cols, "K7+K8": e_polar}
             kin = dict(x=x, plan=plan, polar=polar, spec=spec0, flat=flat)
     big = ReportConfig(angle_partitions=360, radius_partitions=100)
     nb = big.angle_partitions * big.radius_partitions
-    ids = PolarTables.for_shape(H, W, big, DEVICE).bin_ids
-    e_big, r_big = polar_check(kin["flat"], ids, nb, "360x100 bins")
+    big_tables = PolarTables.for_shape(H, W, big, DEVICE)
+    check_polar(kin["flat"], big_tables.bin_ids, big_tables.bin_counts,
+                "360x100 bins")
     log(f"  K7+K8 global-atomics branch, {nb} bins ({8 * nb} B table): "
-        f"bit-identical twice, rel err {r_big:.2e}")
+        f"equal plain bit for bit, twice")
     return err, kin
+
+
+def check_polar(flat, ids, counts, label: str) -> float:
+    """K7+K8 on (B, P) |X|^2: its sums and maxima, and its means with
+    ``counts``, each launched twice, against the plain versions bit for
+    bit; returns the sums' max abs error (0)."""
+    from photohive_dsp_tpu_torch.ops import polar_kernels as pol
+
+    nb = counts.shape[0]
+    got = [pol.polar_bin_sums_lognorm(flat, ids, nb) for _ in range(2)]
+    means = [pol.polar_bin_means_lognorm(flat, ids, counts)
+             for _ in range(2)]
+    sums0, mx0 = pol.polar_bin_sums_lognorm_plain(flat, ids, nb)
+    means0 = pol.polar_bin_means_lognorm_plain(flat, ids, counts)
+    sync()
+    for (sums, mx), m in zip(got, means):
+        for what, x, x0 in (("sums", sums, sums0), ("max", mx, mx0),
+                            ("means", m, means0)):
+            if not torch.equal(x, x0):
+                raise AssertionError(
+                    f"K7+K8 {label}: {what} differ from plain, max abs err "
+                    f"{float((x - x0).abs().max())}")
+    return float((got[0][0] - sums0).abs().max())
 
 
 # K6a's edge cases, (B, H, W): odd row counts (the last row pairs with
@@ -816,6 +850,97 @@ def phase_palette_sums_edges(cfg) -> None:
     log(f"  palette sums K3, K4 (q=8, q_full), K10 (q=8, q_full), K12, K13, "
         f"K14 equal plain bit for bit on: "
         + "; ".join(label for label, _, _ in cases))
+
+
+def all_triples(b: int = 1) -> np.ndarray:
+    """(B, 3, 4096, 4096) uint8: every RGB triple once an image."""
+    i = np.arange(1 << 24, dtype=np.uint32)
+    rgb = np.stack([i >> 16, (i >> 8) & 255, i & 255]).astype(np.uint8)
+    return np.broadcast_to(rgb.reshape(1, 3, 4096, 4096),
+                           (b, 3, 4096, 4096)).copy()
+
+
+def check_cell_counts(x, cfg, label: str) -> None:
+    """The cell histogram on (B, 3, H, W) uint8 frames on the card, bit
+    for bit against the plain versions: K1 on the uint8 frames, K11 on
+    their float32 planes, K9 on their flat HSV with a sentinel tail, K15
+    on the flat HSV's cell ids."""
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops.colorspace import u8_to_unit_f32
+
+    hsv = flat_hsv(x, 777)
+    ids = cell_ids(hsv, cfg)
+    runs = [("K1", pk.cell_counts_s_from_rgb, pk.cell_counts_s_from_rgb_plain,
+             (x, cfg)),
+            ("K11", pk.cell_counts_s_from_rgb,
+             pk.cell_counts_s_from_rgb_plain,
+             (u8_to_unit_f32(x).contiguous(), cfg)),
+            ("K9", pk.cell_counts_from_hsv, pk.cell_counts_from_hsv_plain,
+             (*hsv, cfg)),
+            ("K15", pk.cell_counts_batched, pk.cell_counts_batched_plain,
+             (ids, cfg.num_cells))]
+    for key, kern, plain, args in runs:
+        got, want = kern(*args), plain(*args)
+        sync()
+        for g, w in zip(got if isinstance(got, tuple) else [got],
+                        want if isinstance(want, tuple) else [want]):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{key} {label}: differs from plain")
+
+
+# (B, H, W): the polar kernel's edges, on a real spectrum.
+POLAR_EDGE_SHAPE = (2, 1080, 1920)
+
+
+def phase_cell_and_polar_edges(cfg) -> None:
+    """The cell histogram (K1, K9, K11, K15) on a one-colour batch and on
+    every RGB triple (a 4096x4096 frame, at the default 18x2x3 grid and at
+    12x3x2), with the palette-sums kernel on every triple too (the shared
+    front end); K7+K8 (sums, max, means) on a spectrum whose bins are one
+    bin (one run a warp), one below the gate everywhere, one with ids out
+    of range, and one whose pixel count is no multiple of 4."""
+    from photohive_dsp_tpu_torch.config import ReportConfig
+    from photohive_dsp_tpu_torch.ops.blur import PolarTables
+    from photohive_dsp_tpu_torch.ops.fft_kernels import magnitude2
+    from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
+
+    check_cell_counts(torch.as_tensor(one_colour_frames(4, H, W),
+                                      device=DEVICE), cfg,
+                      "one colour 1080x1920 B=4")
+    triples = torch.as_tensor(all_triples(), device=DEVICE)
+    grids = [cfg, ReportConfig(h_partitions=12, s_partitions=3,
+                               v_partitions=2)]
+    for c in grids:
+        grid = f"{c.h_partitions}x{c.s_partitions}x{c.v_partitions}"
+        check_cell_counts(triples, c, f"all 2^24 triples, {grid}")
+        check_palette_sums_routes(triples, c, f"all 2^24 triples, {grid}")
+    log("  K1, K9, K11, K15 equal plain bit for bit on a one-colour batch "
+        "and on all 2^24 RGB triples (18x2x3 and 12x3x2 grids); K3, K4, "
+        "K10, K12-K14 too on the triples")
+
+    b, h, w = POLAR_EDGE_SHAPE
+    rng = np.random.default_rng(SEED + 8)
+    x = torch.as_tensor(rng.standard_normal((b, h, w), dtype=np.float32),
+                        device=DEVICE)
+    mag2 = magnitude2(x, FftPlan.for_shape(h, w, DEVICE)).reshape(b, -1)
+    tables = PolarTables.for_shape(h, w, cfg, DEVICE)
+    nb = tables.bin_counts.shape[0]
+    p = mag2.shape[1]
+    one_bin = torch.full((p,), nb // 3, dtype=torch.int32, device=DEVICE)
+    stray = tables.bin_ids.clone()
+    stray[::3] = -1
+    stray[1::7] = nb + 5
+    below = (mag2 / (mag2.amax() * 1.01)).contiguous()
+    odd = p - 3
+    cases = [("one bin", mag2, one_bin, tables.bin_counts),
+             ("below the gate", below, tables.bin_ids, tables.bin_counts),
+             ("ids out of range", mag2, stray, tables.bin_counts),
+             (f"{odd} px", mag2[:, :odd].contiguous(),
+              tables.bin_ids[:odd].contiguous(), tables.bin_counts)]
+    for label, m, ids, counts in cases:
+        check_polar(m, ids, counts, label)
+    log(f"  K7+K8 sums, max and means equal plain bit for bit on {b}x{h}x"
+        f"{w} spectra: " + "; ".join(c[0] for c in cases))
 
 
 # The kernels each path must launch (ops/_cuda.LAUNCHES names).
@@ -1235,7 +1360,7 @@ def spatial_kernels(group, frames, box_sets, cfg) -> dict:
     at 4320x7680: K9, K10 (q=8 and q_full) and K14 on the frame's flat HSV
     (33 MP, accumulators bit-equal), K5 on its luma with the zero halo and
     each box set (within SHARP_RTOL), K7+K8 on the rank's |X|^2 and bin ids
-    (within POLAR_RTOL).  Returns max abs errors."""
+    (bit for bit, with the rank's maximum).  Returns max abs errors."""
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import polar_kernels as pol
     from photohive_dsp_tpu_torch.ops import quantize as qz
@@ -1280,14 +1405,14 @@ def spatial_kernels(group, frames, box_sets, cfg) -> dict:
         stats = spatial.rgb_stats(rgb, 0, SH, SW, group)
         dc = (stats[0] + stats[1] + stats[2]) / 3.0
         mag2 = spatial.power_spectrum(pgm, dc, tabs.wc, SH, SW, group)
-        got = from_fixed(pol.polar_bin_sums_lognorm(mag2, ids, nb,
-                                                    fixed=True))
-        want = from_fixed(pol.polar_bin_sums_lognorm_plain(mag2, ids, nb,
-                                                           fixed=True))
+        acc, mx = pol.polar_bin_sums_lognorm(mag2, ids, nb, fixed=True)
+        acc0, mx0 = pol.polar_bin_sums_lognorm_plain(mag2, ids, nb,
+                                                     fixed=True)
+        got, want = from_fixed(acc), from_fixed(acc0)
         sync()
-        if bool(((got - want).abs() > POLAR_RTOL * want.abs()).any()):
+        if not (torch.equal(acc, acc0) and torch.equal(mx, mx0)):
             raise AssertionError(f"K7+K8 spatial {name}: rel err "
-                                 f"{rel_err(got, want)}")
+                                 f"{rel_err(got, want)}, max {mx} vs {mx0}")
         err["K7+K8"] = max(err["K7+K8"], float((got - want).abs().max()))
         log(f"  spatial {name} {SH}x{SW}, the rank's inputs: K9, K10 (q=8, "
             f"q_full), K14 accumulators equal plain; K5 ({', '.join(box_sets)}) "
@@ -1405,7 +1530,8 @@ def margin_sort_compares(sal: torch.Tensor) -> int:
 def stage_times(images, cfg, tables):
     """The blur stage at B=1 and B=8 on the noise frame: the torch route
     (rfft2 + normalisation, then the gather) against the kernels (K6a+K6b,
-    then max + K7+K8 + gain), in turns torch, kernels, kernels, torch."""
+    then K7+K8 with its max, gain and means), in turns torch, kernels,
+    kernels, torch."""
     from photohive_dsp_tpu_torch.ops.blur import blur_profile_bins, \
         lognorm_bin_means
     from photohive_dsp_tpu_torch.ops.fft import magnitude_fft_normalized
@@ -1432,8 +1558,48 @@ def stage_times(images, cfg, tables):
         k = [(u + v) / 2 for u, v in zip(k1, k2)]
         log(f"  blur stage B={b} 1080x1920: torch route fft+norm {t[0]:.4f} "
             f"ms + polar bins {t[1]:.4f} ms = {sum(t):.4f} ms; kernels "
-            f"K6a+K6b {k[0]:.4f} ms + max/K7+K8/gain {k[1]:.4f} ms = "
+            f"K6a+K6b {k[0]:.4f} ms + K7+K8 (sums, max, gain, means) "
+            f"{k[1]:.4f} ms = "
             f"{sum(k):.4f} ms")
+
+
+# K6a's other widths, (B, H, W): 1001 = 7 x 11 x 13 (the plan's radix-7,
+# 11 and 13 passes), 1092x1001 (the blur shape of phase 3) and 14520 =
+# 2^3 x 3 x 5 x 11^2 (its stage twiddles in device memory; 2904 rows, the
+# 5:1 frame the report takes).
+ROW_FFT_WIDTHS = [(4, 1001, 1001), (4, 1092, 1001), (4, 2904, 14520)]
+
+
+def row_fft_width_times(smi: str) -> None:
+    """K6a against torch.fft.rfft(dim=-1) at ROW_FFT_WIDTHS, in turns
+    library, kernel, kernel, library, with each row's bound."""
+    from photohive_dsp_tpu_torch.ops import fft_kernels as fk
+    from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
+
+    rng = np.random.default_rng(SEED + 9)
+    for b, h, w in ROW_FFT_WIDTHS:
+        x = torch.as_tensor(rng.standard_normal((b, h, w), dtype=np.float32),
+                            device=DEVICE)
+        plan = FftPlan.for_shape(h, w, DEVICE)
+        l1, k1, k2, l2 = (graph_ms(lambda: torch.fft.rfft(x, dim=-1), 5),
+                          graph_ms(lambda: fk.fft_rows(x, plan), 5),
+                          graph_ms(lambda: fk.fft_rows(x, plan), 5),
+                          graph_ms(lambda: torch.fft.rfft(x, dim=-1), 5))
+        ms, by = bound(*row_fft_work(b, h, w))
+        kern, lib = (k1 + k2) / 2, (l1 + l2) / 2
+        log(f"  K6a B={b} {h}x{w}: kernel {kern:.4f} ms, torch.fft.rfft "
+            f"{lib:.4f} ms ({lib / kern:.2f}x), bound {ms:.5f} ms ({by}) "
+            f"({smi})")
+        del x
+
+
+def row_fft_work(b: int, h: int, w: int):
+    """(bytes, float32 ops) of K6a on (B, H, W): the rows in, the half
+    spectrum out, the twiddles; 5 W log2 W a complex FFT of a row pair and
+    the split of its two spectra."""
+    half = w // 2 + 1
+    return (b * h * w * 4 + b * h * half * 8 + w * 8,
+            (b * h + 1) // 2 * 5 * w * np.log2(w) + b * h * half * 6)
 
 
 def sharpness_stage_times(images):
@@ -1527,8 +1693,8 @@ def flat_frame_times(cfg) -> dict:
         kern = own[key]
         if not torch.equal(kern(), plain()):
             raise AssertionError(f"{key}: differs from its plain version")
-        p1, k1, k2, p2 = (cuda_ms(plain, 1), cuda_ms(kern, 20),
-                          cuda_ms(kern, 20), cuda_ms(plain, 1))
+        p1, k1, k2, p2 = (cuda_ms(plain, 1), graph_ms(kern), graph_ms(kern),
+                          cuda_ms(plain, 1))
         out[key] = ((k1 + k2) / 2, (p1 + p2) / 2, work)
     return out
 
@@ -1568,6 +1734,7 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
     log(f"  full_report_batched B=8 1080x1920 u8 (device-resident, 3 boxes,"
         f" none thin): {1e3 * dt:.3f} ms per batch, {mps:.1f} MP/s")
     stage_times(images, cfg, tables)
+    row_fft_width_times(smi)
     sharpness_stage_times(images)
 
     c = cfg.num_cells
@@ -1607,7 +1774,7 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
                 lambda: fk.fft_rows_plain(fx, plan)),
         "K6b": (lambda: fk.fft_cols(spec, plan),
                 lambda: fk.fft_cols_plain(spec, plan)),
-        "K7+K8": (lambda: pol.polar_bin_sums_lognorm(flat, ids, nb),
+        "K7+K8": (lambda: polar_sums_max(flat, ids, nb),
                   lambda: pol.polar_bin_sums_lognorm_plain(flat, ids, nb)),
         "K5": (lambda: sk.sharpness_sums(skin["pgm"], skin["bt"]),
                lambda: sk.sharpness_sums_plain(skin["pgm"], skin["bt"])),
@@ -1644,10 +1811,10 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
         # plain, library, kernel, kernel, library, plain; the mean of each
         lib = library.get(key)
         p1 = cuda_ms(plain, PLAIN_ITERS.get(key, 3))
-        l1 = cuda_ms(lib, 20) if lib else None
-        k1 = cuda_ms(kern, 20)
-        k2 = cuda_ms(kern, 20)
-        l2 = cuda_ms(lib, 20) if lib else None
+        l1 = graph_ms(lib) if lib else None
+        k1 = graph_ms(kern)
+        k2 = graph_ms(kern)
+        l2 = graph_ms(lib) if lib else None
         p2 = cuda_ms(plain, PLAIN_ITERS.get(key, 3))
         times[key] = ((k1 + k2) / 2, (p1 + p2) / 2,
                       (l1 + l2) / 2 if lib else None)
@@ -1655,7 +1822,7 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
             f"{times[key][1]:.4f} ms, library "
             f"{'%.4f ms' % times[key][2] if lib else 'none'}")
     k6 = times["K6a"][0] + times["K6b"][0]
-    rfft2 = cuda_ms(lambda: torch.fft.rfft2(fx).abs().square(), 20)
+    rfft2 = graph_ms(lambda: torch.fft.rfft2(fx).abs().square())
     times["K6"] = (k6, None, rfft2)
     log(f"  K6a+K6b {k6:.4f} ms vs torch.fft.rfft2 + |.|^2 {rfft2:.4f} ms "
         f"(B={fx.shape[0]} f32 {H}x{W})")
@@ -1688,9 +1855,7 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
     fb, fh, fw = fx.shape
     half = fw // 2 + 1
     spec_bytes = fb * fh * half * 8
-    work["K6a"] = (fx.numel() * 4 + spec_bytes + fw * 8,
-                   (fb * fh + 1) // 2 * 5 * fw * np.log2(fw)
-                   + fb * fh * half * 6)
+    work["K6a"] = row_fft_work(fb, fh, fw)
     work["K6b"] = (spec_bytes + fb * fh * half * 4 + fh * 8,
                    fb * half * 5 * fh * np.log2(fh) + fb * fh * half * 3)
     # K6 as one function, |rfft2|^2: the luma read once and the half
@@ -1699,8 +1864,10 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
     work["K6"] = (fx.numel() * 4 + fb * fh * half * 4,
                   work["K6a"][1] + work["K6b"][1])
     n_gated = int((flat >= 1.0).sum())
-    work["K7+K8"] = (flat.numel() * 4 + ids.numel() * 4 + fb * nb * 4,
-                     flat.numel() + 3 * n_gated)
+    # K7+K8: the spectrum and ids in, the sums and maxima out; a gate and
+    # a max compare a pixel, logf, its scaling and add a gated pixel.
+    work["K7+K8"] = (flat.numel() * 4 + ids.numel() * 4 + fb * nb * 4
+                     + fb * 4, 2 * flat.numel() + 3 * n_gated)
     # K5: the luma in and around the boxes, the boxes, the (B, 10, 2)
     # float64 sums; OPS_SHARP_PX per pixel of box area.
     sb = skin["pgm"].shape[0]
@@ -1747,10 +1914,12 @@ def kernel_time_inputs(cfg):
     SEED alone with the package on sys.path (this checkout's or another's):
     B=4 1080x1920 uint8 frames (noise, structured, hue wheel, noise), their
     float32 planes, flat HSV with a sentinel tail and its cell ids, the
-    palette tables of the batch, the luma without its mean, and a batch of
-    4 one-colour frames with its tables."""
+    palette tables of the batch, the luma without its mean, its |X|^2 and
+    polar tables, and a batch of 4 one-colour frames with its tables."""
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import quantize as qz
+    from photohive_dsp_tpu_torch.ops.blur import PolarTables
+    from photohive_dsp_tpu_torch.ops.fft_kernels import magnitude2
     from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
 
     rng = np.random.default_rng(SEED)
@@ -1759,7 +1928,9 @@ def kernel_time_inputs(cfg):
     c = cfg.num_cells
     _, q_full = qz.palette_widths(cfg)
     octree = qz.OctreeTables.for_config(cfg, DEVICE)
-    out = {"x_dc": luma_dc(images), "plan": FftPlan.for_shape(H, W, DEVICE)}
+    out = {"x_dc": luma_dc(images), "plan": FftPlan.for_shape(H, W, DEVICE),
+           "polar": PolarTables.for_shape(H, W, cfg, DEVICE)}
+    out["mag2"] = magnitude2(out["x_dc"], out["plan"]).reshape(4, -1)
     for name, frames in (("", np.stack([planar(im) for im in images])),
                          ("flat", one_colour_frames(4, H, W))):
         x = torch.as_tensor(frames, device=DEVICE)
@@ -1776,14 +1947,29 @@ def kernel_time_inputs(cfg):
     return out
 
 
+def polar_sums_max(mag2, ids, nb):
+    """K7+K8's sums and each image's maximum: one launch here, the launch
+    and an ``amax`` in a checkout whose kernel returns the sums alone."""
+    from photohive_dsp_tpu_torch.ops import polar_kernels as pol
+
+    out = pol.polar_bin_sums_lognorm(mag2, ids, nb)
+    return out if isinstance(out, tuple) else (out, mag2.amax(dim=1))
+
+
 def kernel_calls(cfg, inp):
-    """{key: call} of the palette kernels and K6a on kernel_time_inputs;
-    "flat ..." keys run the one-colour batch."""
+    """{key: call} of the palette kernels, K6a, K7+K8 (sums and maxima) and
+    the blur tail after the FFT (blur.lognorm_bin_means) on
+    kernel_time_inputs; "flat ..." keys run the one-colour batch."""
     from photohive_dsp_tpu_torch.ops import fft_kernels as fk
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops.blur import lognorm_bin_means
 
     c = cfg.num_cells
-    calls = {"K6a": lambda: fk.fft_rows(inp["x_dc"], inp["plan"])}
+    a, r = cfg.angle_partitions, cfg.radius_partitions
+    mag2, polar = inp["mag2"], inp["polar"]
+    calls = {"K6a": lambda: fk.fft_rows(inp["x_dc"], inp["plan"]),
+             "K7+K8": lambda: polar_sums_max(mag2, polar.bin_ids, a * r),
+             "blur tail": lambda: lognorm_bin_means(mag2, polar, a, r)}
     for pre, d in (("", inp[""]), ("flat ", inp["flat"])):
         x, xf, hsv = d["u8"], d["f32"], d["hsv"]
         calls.update({
@@ -1814,10 +2000,22 @@ def kernel_calls(cfg, inp):
 
 
 def kernel_times(cfg) -> dict:
-    """Mean ms of two runs of 20 launches of each of kernel_calls, in the
-    package on sys.path."""
-    calls = kernel_calls(cfg, kernel_time_inputs(cfg))
-    return {k: (cuda_ms(f, 20) + cuda_ms(f, 20)) / 2 for k, f in calls.items()}
+    """Mean device ms (graph_ms) of two runs of 20 launches of each of
+    kernel_calls, in the package on sys.path; and "report B=8": the ms of
+    one full_report_batched call on 8 device-resident frames (the four
+    frames twice) with main_boxes, host included (cuda_ms, 10 calls)."""
+    import photohive_dsp_tpu_torch as pt
+
+    inp = kernel_time_inputs(cfg)
+    calls = kernel_calls(cfg, inp)
+    out = {k: (graph_ms(f) + graph_ms(f)) / 2 for k, f in calls.items()}
+    frames = torch.cat([inp[""]["u8"]] * 2)
+    boxes, valid = pt.set_bounding_boxes(main_boxes(H, W))
+    bx, vd = np.stack([boxes] * 8), np.stack([valid] * 8)
+    tables = pt.ReportTables.build(H, W, cfg, DEVICE)
+    out["report B=8"] = cuda_ms(
+        lambda: pt.full_report_batched(frames, bx, vd, tables, cfg), 10)
+    return out
 
 
 def parent_kernel_times(parent: str) -> dict:
@@ -1972,6 +2170,7 @@ def main(argv) -> int:
     err.update(blur_err)
     phase_row_fft_edges()
     phase_palette_sums_edges(cfg)
+    phase_cell_and_polar_edges(cfg)
     log("phase 4: main path")
     main_out = phase_main_path(images, cfg)
     launches = {"main path": main_out[0]}

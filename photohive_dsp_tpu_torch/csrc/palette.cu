@@ -38,11 +38,12 @@
 // K10 drops them.
 //
 // What bounds them on an H100: each pixel costs three loads (3 B as u8,
-// 12 B as f32), then ~60 float ops including IEEE divisions for HSV and
-// the cell id, then its adds into the tables.  A 1080p frame reads 6.2 MB
-// (u8) or 24.9 MB (f32), a few microseconds at 3.35 TB/s, so the kernels
-// are bound by instruction issue and by the adds into shared memory when
-// many pixels share a cell (flat images).
+// 12 B as f32), then ~60 float ops including two IEEE divisions for HSV
+// (the cell id takes none: hsv_cells.cuh bin_index), then its adds into
+// the tables.  A 1080p frame reads 6.2 MB (u8) or 24.9 MB (f32), a few
+// microseconds at 3.35 TB/s, so the kernels are bound by instruction issue
+// and by the adds into shared memory when many pixels share a cell (flat
+// images).
 //
 // Design.  The TPU kernels turned the histogram and the sums into one-hot
 // matrix products on the MXU, with bf16 splits to keep them exact.  Here
@@ -56,7 +57,12 @@
 // outputs; K9, K10 and K14 return the accumulator itself.  Each thread
 // takes 4 adjacent pixels at a time (one 4-byte load per uint8 plane, one
 // float4 per float plane, where the pixel count is a multiple of 4), and
-// uint8 decodes through a 256-entry table of x / 255 in shared memory.
+// uint8 decodes through a table of x / 255 in shared memory.  The grid is
+// one wave of the blocks the card holds at once (one_wave), so each
+// block's table set-up and flush is paid once per SM slot.
+//
+// K1/K9/K11/K15 (cell_counts_s_kernel) add one count a pixel with a
+// native 32-bit shared-memory atomic.
 //
 // K3/K4/K10/K14 (palette_sums_kernel) add four values a pixel (three
 // 64-bit sums and a count), so their adds are what they spend.  On sm_90 a
@@ -70,15 +76,13 @@
 // once; other warps add pixel by pixel, with native atomics.  Each thread
 // finds the slots of its 4 pixels before the warp adds, so the warp waits
 // for its longest candidate walk once a step.  A K4/K10 pixel reads each
-// candidate's centre as one float4.  The grid is one wave of the blocks
-// the card holds at once, so each block's table set-up and flush is paid
-// once per SM slot, not once per 8192 pixels.
+// candidate's centre as one float4.
 //
 // The flat-HSV kernels read 12 B per real pixel (4 B per sentinel pixel)
 // and skip the HSV arithmetic.  K14's bitmask is C * ceil(C/32) words
 // (1.8 KB at C=112) and sits in shared memory like K4's candidate table;
 // past kSharedBudget (C=2164: 585 KB) it is read from device memory, as
-// K4's table is.  K15 reads 4 B per id and does one atomic.
+// K4's table is.  K15 reads 4 B per id and adds as K1 does.
 //
 // Every sum is exact and order-free: counts are integers, and hue, s and v
 // (all >= 0 and <= 360) are added as 64-bit fixed point with 28 fraction
@@ -97,8 +101,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Pixels a block of K1 / K9 / K15 covers.
-constexpr long long kPixelsPerBlock = kThreads * 32;
 // Pixels a thread takes at a time.
 constexpr int kVec = 4;
 constexpr float kFixedOne = 268435456.0f;  // 2^28
@@ -135,33 +137,44 @@ struct Pixel {
   bool real;
 };
 
+// What a pixel source reads: the cell thresholds (CellBounds) and, for
+// uint8, the decode table in shared memory.
+struct FrontEnd {
+  CellBounds bounds;
+  const float* unit;
+};
+
 // Pixel sources.  load4() gives pixels i..i+3 of image b (i a multiple of
 // kVec); pixels at or past `end` are not real.  With vec, the planes are
 // read with one 4-pixel load each (the pixel count is a multiple of 4 and
-// the planes aligned).
+// the planes aligned).  kUnitFloats: the floats of the decode table the
+// source needs; kBounds: whether it needs the cell thresholds.
 //
 // Planar RGB, (B, 3, P) uint8 or float32: every pixel is real.  uint8
-// decodes through `unit` (fill_unit_table).
+// decodes through fe.unit (fill_unit_table).
 template <typename T>
 struct RgbPixels {
-  static constexpr bool kUnit = sizeof(T) == 1;
+  static constexpr int kUnitFloats = sizeof(T) == 1 ? 256 : 0;
+  static constexpr bool kBounds = true;
   const T* rgb;
   long long pixels;
   bool vec;
   __device__ __forceinline__ void load4(int b, long long i, long long end,
                                         const CellParams& p,
-                                        const float* unit,
+                                        const FrontEnd& fe,
                                         Pixel (&px)[kVec]) const {
     const T* img = rgb + static_cast<long long>(b) * 3 * pixels;
     float c[3][kVec];
     if (vec && i + kVec <= end) {
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
-        if constexpr (kUnit) {
+        if constexpr (kUnitFloats > 0) {
           const unsigned w =
               *reinterpret_cast<const unsigned*>(img + ch * pixels + i);
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) c[ch][j] = unit[(w >> (8 * j)) & 255u];
+          for (int j = 0; j < kVec; ++j) {
+            c[ch][j] = fe.unit[(w >> (8 * j)) & 255u];
+          }
         } else {
           const float4 w =
               __ldg(reinterpret_cast<const float4*>(img + ch * pixels + i));
@@ -177,8 +190,8 @@ struct RgbPixels {
 #pragma unroll
         for (int ch = 0; ch < 3; ++ch) {
           const T x = i + j < end ? img[ch * pixels + i + j] : T(0);
-          if constexpr (kUnit) {
-            c[ch][j] = unit[x];
+          if constexpr (kUnitFloats > 0) {
+            c[ch][j] = fe.unit[x];
           } else {
             c[ch][j] = x;
           }
@@ -188,8 +201,8 @@ struct RgbPixels {
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       px[j].real = i + j < end;
-      rgb_hsv_cell(c[0][j], c[1][j], c[2][j], p, px[j].h, px[j].s, px[j].v,
-                   px[j].cell);
+      rgb_hsv_cell(c[0][j], c[1][j], c[2][j], p, fe.bounds, px[j].h,
+                   px[j].s, px[j].v, px[j].cell);
     }
   }
 };
@@ -197,14 +210,16 @@ struct RgbPixels {
 // Flat HSV, three (B, P) float32 planes; a hue below 0 (or NaN) is the
 // sentinel of a pixel outside the image.
 struct HsvPixels {
-  static constexpr bool kUnit = false;
+  static constexpr int kUnitFloats = 0;
+  static constexpr bool kBounds = true;
   const float* h;
   const float* s;
   const float* v;
   long long pixels;
   bool vec;
   __device__ __forceinline__ void load4(int b, long long i, long long end,
-                                        const CellParams& p, const float*,
+                                        const CellParams& p,
+                                        const FrontEnd& fe,
                                         Pixel (&px)[kVec]) const {
     const long long o = static_cast<long long>(b) * pixels + i;
     if (vec && i + kVec <= end) {
@@ -225,7 +240,9 @@ struct HsvPixels {
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       px[j].real = px[j].real && px[j].h >= 0.0f;
-      if (px[j].real) px[j].cell = hsv_cell(px[j].h, px[j].s, px[j].v, p);
+      if (px[j].real) {
+        px[j].cell = hsv_cell(px[j].h, px[j].s, px[j].v, p, fe.bounds);
+      }
     }
   }
 };
@@ -233,12 +250,14 @@ struct HsvPixels {
 // Precomputed cell ids, (B, P) int32: an id outside [0, C) counts for
 // nothing.  No saturation (s = 0).
 struct CellIdPixels {
-  static constexpr bool kUnit = false;
+  static constexpr int kUnitFloats = 0;
+  static constexpr bool kBounds = false;
   const int* ids;
   long long pixels;
   bool vec;
   __device__ __forceinline__ void load4(int b, long long i, long long end,
-                                        const CellParams& p, const float*,
+                                        const CellParams& p,
+                                        const FrontEnd&,
                                         Pixel (&px)[kVec]) const {
     const long long o = static_cast<long long>(b) * pixels + i;
     int id[kVec];
@@ -260,37 +279,64 @@ struct CellIdPixels {
   }
 };
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// The floats a kernel's front end takes in shared memory: the decode
+// table, then the thresholds padded to a whole float4.
+template <typename Src>
+__host__ __device__ __forceinline__ int front_end_floats(const CellParams& p) {
+  return Src::kUnitFloats + (Src::kBounds ? (bounds_len(p) + 3) & ~3 : 0);
+}
+
+// Fills the front end at sh (front_end_floats) and synchronises the block
+// (after the caller's own fills); returns what this thread reads.
+template <typename Src>
+__device__ __forceinline__ FrontEnd fill_front_end(const CellParams& p,
+                                                   float* sh) {
+  if (Src::kUnitFloats) fill_unit_table(sh);
+  float* bounds = sh + Src::kUnitFloats;
+  if (Src::kBounds) fill_bounds(p, bounds);
+  __syncthreads();
+  return FrontEnd{Src::kBounds ? cell_bounds(p, bounds) : CellBounds{}, sh};
+}
+
 // ----------------------------------------------------- K1 / K9 / K15 ---
-// acc: (B, C + 1) u64 = [count per cell..., fixed-point sum of s].
+// acc: (B, C + 1) u64 = [count per cell..., fixed-point sum of s].  Shared
+// layout: the front end (front_end_floats) | counts (C u32).  Block (x, b)
+// takes pixels [x run, (x + 1) run) of image b, run a multiple of kVec *
+// kThreads, in warp-uniform steps of 32 x kVec adjacent pixels.
 template <typename Src>
 __global__ void __launch_bounds__(kThreads)
-    cell_counts_s_kernel(Src src, CellParams p, u64* __restrict__ acc) {
-  extern __shared__ u64 smem[];
+    cell_counts_s_kernel(Src src, CellParams p, long long run,
+                         u64* __restrict__ acc) {
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
   const int c = p.num_cells;
-  float* unit = reinterpret_cast<float*>(smem);
-  unsigned int* cnt = reinterpret_cast<unsigned int*>(unit + 256);
-  if (Src::kUnit) fill_unit_table(unit);
+  unsigned* cnt = reinterpret_cast<unsigned*>(sh + front_end_floats<Src>(p));
   for (int i = threadIdx.x; i < c; i += blockDim.x) cnt[i] = 0u;
-  __syncthreads();
+  const FrontEnd fe = fill_front_end<Src>(p, sh);
 
   const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
   const long long pixels = src.pixels;
-  const long long start = blockIdx.x * kPixelsPerBlock;
-  const long long end =
-      start + kPixelsPerBlock < pixels ? start + kPixelsPerBlock : pixels;
+  const long long start = blockIdx.x * run;
+  const long long end = start + run < pixels ? start + run : pixels;
   u64 s_fx = 0;
-  for (long long i = start + kVec * threadIdx.x; i < end;
-       i += kVec * blockDim.x) {
+  for (long long w0 = start + 32LL * kVec * warp; w0 < end;
+       w0 += 32LL * kVec * kWarps) {
     Pixel px[kVec];
-    src.load4(b, i, end, p, unit, px);
+    src.load4(b, w0 + kVec * (threadIdx.x & 31), end, p, fe, px);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       if (!px[j].real) continue;
+      // A native 32-bit shared atomic: lanes on one counter cost little
+      // (a one-colour batch is no slower than noise), so the adds are not
+      // grouped (PERF.md).
       atomicAdd(&cnt[px[j].cell], 1u);
       s_fx += to_fixed(px[j].s);
     }
   }
-  for (int o = 16; o > 0; o >>= 1) s_fx += __shfl_down_sync(0xffffffffu, s_fx, o);
+  for (int o = 16; o > 0; o >>= 1) s_fx += __shfl_down_sync(kFull, s_fx, o);
   __syncthreads();
 
   u64* out = acc + static_cast<long long>(b) * (c + 1);
@@ -319,8 +365,6 @@ enum SlotRule {
   kCandidates,  // K4 / K10: first minimum over the cell's q candidates
   kAllowedBits  // K14: first minimum over the set bits of the cell's row
 };
-
-constexpr unsigned kFull = 0xffffffffu;
 
 // The sum of x over the warp's 32 lanes, exact for x < 2^37 (two 32-bit
 // reductions of a 27-bit split).
@@ -388,8 +432,9 @@ __device__ __forceinline__ void add_pixel(int k, u64 h, u64 s, u64 v,
   if (k >= 0) add_slot(t, c, k, h, s, v, 1u);
 }
 
-// Shared layout: the sum table (kTableWords C u32) | uint8 decode (256
-// float) | values (K3: the hue offset of each cell; else the centre of
+// Shared layout: the sum table (kTableWords C u32) | front end
+// (front_end_floats: the uint8 decode, 256 floats, and the thresholds) |
+// values (K3: the hue offset of each cell; else the centre of
 // each slot as float4 h, s, v, 0) | cell table.  Block (x, b) takes
 // pixels [x run, (x + 1) run) of image b, run a multiple of kVec *
 // kThreads and at most kMaxRun.
@@ -404,8 +449,8 @@ __global__ void __launch_bounds__(kThreads)
   const int c = p.num_cells;
   const int b = blockIdx.y;
   unsigned* table = reinterpret_cast<unsigned*>(smem4);
-  float* unit = reinterpret_cast<float*>(table + kTableWords * c);
-  float* vals = unit + 256;
+  float* front = reinterpret_cast<float*>(table + kTableWords * c);
+  float* vals = front + front_end_floats<Src>(p);
   const float4* ctr = reinterpret_cast<const float4*>(vals);
   // The cell table has q entries a cell (K14: q bitmask words).
   int* tab_sh = reinterpret_cast<int*>(vals + (kQ1 ? c : 4 * c));
@@ -414,7 +459,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* gval = val_tab + static_cast<long long>(b) * (kQ1 ? c : 3 * c);
 
   for (int i = threadIdx.x; i < kTableWords * c; i += blockDim.x) table[i] = 0u;
-  if (Src::kUnit) fill_unit_table(unit);
+  const FrontEnd fe = fill_front_end<Src>(p, front);
   if (kQ1) {
     for (int i = threadIdx.x; i < c; i += blockDim.x) vals[i] = gval[i];
   } else {
@@ -437,7 +482,7 @@ __global__ void __launch_bounds__(kThreads)
   for (long long w0 = start + 32LL * kVec * warp; w0 < end;
        w0 += 32LL * kVec * kWarps) {
     Pixel px[kVec];
-    src.load4(b, w0 + kVec * (threadIdx.x & 31), end, p, unit, px);
+    src.load4(b, w0 + kVec * (threadIdx.x & 31), end, p, fe, px);
     // The slots of the lane's kVec pixels first, then the warp's adds: the
     // warp waits for its longest candidate walk once a step, not once a
     // pixel.
@@ -493,7 +538,7 @@ __global__ void __launch_bounds__(kThreads)
             }
           } else {
             for (int w = 0; w < q; ++w) {
-              for (unsigned int bits = static_cast<unsigned int>(row[w]); bits;
+              for (unsigned bits = static_cast<unsigned>(row[w]); bits;
                    bits &= bits - 1u) {
                 visit(32 * w + __ffs(static_cast<int>(bits)) - 1);
               }
@@ -539,12 +584,6 @@ __global__ void palette_sums_finish(const u64* __restrict__ acc, int c,
   }
 }
 
-dim3 pixel_grid(int batch, long long pixels) {
-  return dim3(static_cast<unsigned>((pixels + kPixelsPerBlock - 1) /
-                                    kPixelsPerBlock),
-              static_cast<unsigned>(batch));
-}
-
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -570,6 +609,25 @@ cudaError_t resident_blocks(Kernel kernel, size_t bytes, long long* out) {
   return err;
 }
 
+// One wave of `kernel`: as many runs an image as the card holds blocks
+// over the batch, each a whole number of the block's steps (kVec pixels a
+// thread), at most max_run pixels.  Sets the grid and the run.
+template <typename Kernel>
+cudaError_t one_wave(Kernel kernel, size_t bytes, int batch, long long pixels,
+                     long long max_run, dim3* grid, long long* run) {
+  long long resident = 0;
+  const cudaError_t err = resident_blocks(kernel, bytes, &resident);
+  if (err != cudaSuccess) return err;
+  constexpr long long kStep = static_cast<long long>(kVec) * kThreads;
+  const long long runs = (resident + batch - 1) / batch;
+  long long r = (pixels + runs - 1) / runs;
+  r = (r + kStep - 1) / kStep * kStep;
+  *run = r < max_run ? r : max_run;
+  *grid = dim3(static_cast<unsigned>((pixels + *run - 1) / *run),
+               static_cast<unsigned>(batch));
+  return cudaSuccess;
+}
+
 // sums_out == nullptr (K10, K14) leaves the result in acc (fixed point).
 template <typename Src, int kRule>
 cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
@@ -578,7 +636,9 @@ cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
                                 cudaStream_t stream) {
   constexpr bool kQ1 = kRule == kSlotOfCell;
   const int c = p.num_cells;
-  const size_t base = (kTableWords * c + 256 + (kQ1 ? c : 4 * c)) * sizeof(float);
+  const size_t base =
+      (kTableWords * c + front_end_floats<Src>(p) + (kQ1 ? c : 4 * c)) *
+      sizeof(float);
   const size_t tab = (kQ1 ? c : static_cast<size_t>(c) * q) * sizeof(int);
   const bool tab_in_shared = base + tab <= kSharedBudget;
   const size_t bytes = base + (tab_in_shared ? tab : 0);
@@ -589,18 +649,10 @@ cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
                         stream);
   if (err != cudaSuccess) return err;
   if (batch > 0 && src.pixels > 0) {
-    long long resident = 0;
-    err = resident_blocks(kernel, bytes, &resident);
+    dim3 grid;
+    long long run = 0;
+    err = one_wave(kernel, bytes, batch, src.pixels, kMaxRun, &grid, &run);
     if (err != cudaSuccess) return err;
-    // One wave: as many runs an image as the card holds blocks over the
-    // batch, each a whole number of the block's steps, at most kMaxRun.
-    constexpr long long kStep = static_cast<long long>(kVec) * kThreads;
-    const long long runs = (resident + batch - 1) / batch;
-    long long run = (src.pixels + runs - 1) / runs;
-    run = (run + kStep - 1) / kStep * kStep;
-    run = run < kMaxRun ? run : kMaxRun;
-    const dim3 grid(static_cast<unsigned>((src.pixels + run - 1) / run),
-                    static_cast<unsigned>(batch));
     kernel<<<grid, kThreads, bytes, stream>>>(src, p, cell_tab, val_tab, q,
                                               tab_in_shared, run, acc);
   }
@@ -615,7 +667,7 @@ cudaError_t launch_cell_counts_s(Src src, int batch, const CellParams& p,
                                  int* counts, float* s_sum, u64* acc,
                                  cudaStream_t stream) {
   const int c = p.num_cells;
-  const size_t bytes = 256 * sizeof(float) + c * sizeof(unsigned int);
+  const size_t bytes = (front_end_floats<Src>(p) + c) * sizeof(float);
   auto kernel = cell_counts_s_kernel<Src>;
   cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return err;
@@ -623,7 +675,12 @@ cudaError_t launch_cell_counts_s(Src src, int batch, const CellParams& p,
                         stream);
   if (err != cudaSuccess) return err;
   if (batch > 0 && src.pixels > 0) {
-    kernel<<<pixel_grid(batch, src.pixels), kThreads, bytes, stream>>>(src, p, acc);
+    dim3 grid;
+    long long run = 0;
+    // A block's counts are 32-bit: at most 2^32 - 1 pixels a run.
+    err = one_wave(kernel, bytes, batch, src.pixels, 1LL << 31, &grid, &run);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, bytes, stream>>>(src, p, run, acc);
   }
   if (counts) {
     cell_counts_s_finish<<<batch, kThreads, 0, stream>>>(acc, c, counts, s_sum);

@@ -61,30 +61,34 @@ def reset_launch_counts() -> None:
 
 class CellParams(ctypes.Structure):
     """Mirror of ``struct CellParams`` in csrc/hsv_cells.cuh: the float32
-    constants of the HSV -> cell-id mapping (ops/quantize.assign_cells)."""
+    constants of the HSV -> cell-id mapping (ops/quantize.assign_cells) and
+    the device address of its index thresholds
+    (``palette_kernels.index_bounds``)."""
 
     _fields_ = [(name, ctypes.c_float) for name in (
-        "black_thresh", "gray_thresh", "cell_lv", "cell_ls", "cell_lh",
-        "v_clip", "s_clip", "h_clip", "max_sv", "inv360")] + \
+        "black_thresh", "gray_thresh", "inv_lv", "inv_ls", "inv_lh",
+        "max_sv", "inv360")] + \
         [(name, ctypes.c_int) for name in (
-            "s_partitions", "v_partitions", "gray_start", "black_id",
-            "num_cells")]
+            "v_top", "s_top", "h_top", "s_partitions", "v_partitions",
+            "gray_start", "black_id", "num_cells")] + \
+        [("bounds", ctypes.c_void_p)]
 
     @classmethod
-    def for_config(cls, cfg) -> "CellParams":
+    def for_config(cls, cfg, tops, bounds: torch.Tensor) -> "CellParams":
+        """``tops``: the (v, s, h) largest indices; ``bounds``: their
+        thresholds on the kernel's device, [v | s | h], top + 2 floats
+        each (the caller keeps the tensor alive during the launch)."""
         f32 = np.float32
         return cls(
             black_thresh=f32(cfg.black_thresh),
             gray_thresh=f32(cfg.gray_thresh),
-            cell_lv=f32(cfg.cell_Lv), cell_ls=f32(cfg.cell_Ls),
-            cell_lh=f32(cfg.cell_Lh),
-            v_clip=f32(cfg.v_partitions - 1e-6),
-            s_clip=f32(cfg.s_partitions - 1e-6),
-            h_clip=f32(cfg.h_partitions - 1e-6),
+            inv_lv=f32(1.0 / cfg.cell_Lv), inv_ls=f32(1.0 / cfg.cell_Ls),
+            inv_lh=f32(1.0 / cfg.cell_Lh),
             max_sv=f32(0.999999), inv360=f32(1.0 / 360.0),
+            v_top=tops[0], s_top=tops[1], h_top=tops[2],
             s_partitions=cfg.s_partitions, v_partitions=cfg.v_partitions,
             gray_start=cfg.gray_start, black_id=cfg.black_id,
-            num_cells=cfg.num_cells)
+            num_cells=cfg.num_cells, bounds=bounds.data_ptr())
 
 
 class FftStages(ctypes.Structure):
@@ -137,8 +141,9 @@ _SIGNATURES = {
     "ph_fft_rows": [_P, _I, _STAGES, _P, _P, _P, _P],
     # (spec, batch, half, stages, twiddles, mag2_out, stream)
     "ph_fft_cols": [_P, _I, _I, _STAGES, _P, _P, _P],
-    # (mag2, bin_ids, batch, pixels, num_bins, acc, sums_out, stream)
-    "ph_polar_bin_sums_lognorm": [_P, _P, _I, _LL, _I, _P, _P, _P],
+    # (mag2, bin_ids, batch, pixels, num_bins, bin_counts, acc, max_out,
+    #  out, stream)
+    "ph_polar_lognorm": [_P, _P, _I, _LL, _I, _P, _P, _P, _P, _P],
 }
 
 

@@ -12,10 +12,11 @@ The bin of every FFT pixel depends only on the image shape (ops/geometry.py).
 Two routes give the bins, both the same from run to run:
 
   * ``blur_bins_lognorm`` (shapes inside fft_plan.fft_kernel_eligible):
-    the FFT kernels (K6a, K6b), the per-image max, the log-gated bin sums
-    of the polar kernel (K7+K8, exact fixed point), then the gain and the
-    means; the counterpart of ``pallas_fft.blur_bins_scrambled_lognorm``.
-    The normalised spectrum never exists.
+    the FFT kernels (K6a, K6b), then the polar kernel (K7+K8): the
+    log-gated bin sums (exact fixed point) and the per-image max in one
+    pass, the gain and the means in its finish; the counterpart of
+    ``pallas_fft.blur_bins_scrambled_lognorm``.  The normalised spectrum
+    never exists.
   * ``blur_profile_bins`` (all other shapes): a static gather of the
     normalised spectrum (ops/fft.py) into per-bin padded rows and a row
     sum, the JAX package's gather route; no scatter and no float atomics
@@ -34,7 +35,7 @@ from .fft_kernels import magnitude2
 from .fft_plan import FftPlan
 from .filtering import trailing_circular_box
 from .geometry import polar_geometry
-from .polar_kernels import polar_bin_sums_lognorm
+from .polar_kernels import mean_per_bin, polar_bin_means_lognorm
 from .stats import div_const
 
 
@@ -86,10 +87,8 @@ def bin_means(sums: torch.Tensor, bin_counts: torch.Tensor,
               num_angle_bins: int, num_radius_bins: int) -> torch.Tensor:
     """(B, A*R) bin sums and (A*R,) pixel counts -> (B, A, R) means; empty
     bins are 0."""
-    counts = bin_counts.to(sums.dtype)
-    means = torch.where(bin_counts > 0, sums / torch.clamp(counts, min=1.0),
-                        torch.zeros_like(sums))
-    return means.reshape(sums.shape[0], num_angle_bins, num_radius_bins)
+    return mean_per_bin(sums, bin_counts).reshape(
+        sums.shape[0], num_angle_bins, num_radius_bins)
 
 
 def blur_bins_lognorm(pgm_dc: torch.Tensor, plan: FftPlan,
@@ -112,19 +111,10 @@ def lognorm_bin_means(mag2: torch.Tensor, tables: PolarTables,
                       num_angle_bins: int, num_radius_bins: int)\
         -> torch.Tensor:
     """The half of ``blur_bins_lognorm`` after the FFT: (B, P) |X|^2 in the
-    FFT kernels' layout -> (B, A, R) normalised bin means."""
-    sums = polar_bin_sums_lognorm(mag2, tables.bin_ids,
-                                  num_angle_bins * num_radius_bins)
-    return bin_means(sums * lognorm_gain(mag2.amax(dim=1))[:, None],
-                     tables.bin_counts, num_angle_bins, num_radius_bins)
-
-
-def lognorm_gain(mx: torch.Tensor) -> torch.Tensor:
-    """The per-image gain G_s = 1 / (2 log(sqrt(max) + 1)) of the
-    log-gated sums, 0 for a zero spectrum."""
-    denom = 2.0 * torch.log(torch.sqrt(mx) + 1.0)
-    return torch.where(denom > 0.0, 1.0 / torch.clamp(denom, min=1e-30),
-                       torch.zeros_like(denom))
+    FFT kernels' layout -> (B, A, R) normalised bin means (one launch of
+    the polar kernel: sums, max, gain and means)."""
+    means = polar_bin_means_lognorm(mag2, tables.bin_ids, tables.bin_counts)
+    return means.reshape(mag2.shape[0], num_angle_bins, num_radius_bins)
 
 
 def _angle_table(a: int) -> np.ndarray:

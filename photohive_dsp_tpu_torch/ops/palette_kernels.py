@@ -32,7 +32,9 @@ row-sharded report adds across ranks before ``counts_s_from_fixed`` /
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from ..config import MAX_NUM_PIXELS
@@ -97,10 +99,83 @@ def _flat_hsv_cells(h, s, v, cfg):
     return torch.where(real, cells, cfg.num_cells), real
 
 
+# ------------------------------------------------ cell-id thresholds ---
+
+def _index_specs(cfg):
+    """(base, step, clip) of quantize.assign_cells' v, s and h indices,
+    each trunc(clip((x - base) / step, 0, clip)) in float32 (no base: x /
+    step)."""
+    return ((cfg.black_thresh, cfg.cell_Lv, cfg.v_partitions - 1e-6),
+            (cfg.gray_thresh, cfg.cell_Ls, cfg.s_partitions - 1e-6),
+            (None, cfg.cell_Lh, cfg.h_partitions - 1e-6))
+
+
+def cell_index(x: np.ndarray, base, step, clip) -> np.ndarray:
+    """One index of ``assign_cells`` on float32 ``x``, in numpy's float32
+    (IEEE, round to nearest: the same bits as torch's and the kernels'
+    division)."""
+    f32 = np.float32
+    with np.errstate(invalid="ignore", over="ignore"):
+        y = x if base is None else x - f32(base)
+        return np.clip(y / f32(step), f32(0), f32(clip)).astype(np.int64)
+
+
+def _keys(x: np.ndarray) -> np.ndarray:
+    """float32 -> int64 keys in the floats' order (+0 and -0 both 0)."""
+    bits = x.view(np.int32).astype(np.int64)
+    return np.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+
+def _floats(keys: np.ndarray) -> np.ndarray:
+    """Inverse of ``_keys`` (key 0 -> +0)."""
+    bits = np.where(keys < 0, (-keys) | 0x80000000, keys)
+    return bits.astype(np.uint32).view(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def index_bounds(cfg):
+    """The thresholds the kernels find the cell id with
+    (csrc/hsv_cells.cuh bin_index): for each of assign_cells' v, s and h
+    indices, ``(top, t)`` with top the largest index (trunc of the clip)
+    and t = [-inf, t_1, ..., t_top, NaN] float32, t_k the least float32
+    whose index is k or more.  An index never decreases as its input
+    grows, so it is the number of t_k an input reaches, for every float32.
+    Found by bisection over the float32 values."""
+    out = []
+    inf = np.array([np.inf], np.float32)
+    for spec in _index_specs(cfg):
+        top = int(cell_index(inf, *spec)[0])
+        k = np.arange(1, top + 1)
+        lo = np.full(top, _keys(-inf)[0])   # index 0 < k
+        hi = np.full(top, _keys(inf)[0])    # index top >= k
+        while bool((hi - lo > 1).any()):
+            mid = (lo + hi) // 2
+            up = cell_index(_floats(mid), *spec) >= k
+            hi = np.where(up, mid, hi)
+            lo = np.where(up, lo, mid)
+        out.append((top, np.concatenate(
+            [-inf, _floats(hi), np.array([np.nan], np.float32)])))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_bounds(cfg, device: torch.device):
+    """(tops, [v | s | h] thresholds as one tensor on ``device``)."""
+    bounds = index_bounds(cfg)
+    return (tuple(top for top, _ in bounds),
+            torch.as_tensor(np.concatenate([t for _, t in bounds]),
+                            device=device))
+
+
+def _cell_params(cfg, device: torch.device):
+    tops, bounds = _device_bounds(cfg, device)
+    return ctypes.byref(_cuda.CellParams.for_config(cfg, tops, bounds))
+
+
 def _launch_args(rgb: torch.Tensor, cfg):
     b, _, hh, ww = rgb.shape
     return (_cuda.ptr(rgb), int(rgb.dtype == torch.uint8), b, hh * ww,
-            ctypes.byref(_cuda.CellParams.for_config(cfg)))
+            _cell_params(cfg, rgb.device))
 
 
 def _count(name: str, rgb: torch.Tensor) -> None:
@@ -112,7 +187,7 @@ def _count(name: str, rgb: torch.Tensor) -> None:
 
 def _hsv_launch_args(h, s, v, cfg):
     return (_cuda.ptr(h), _cuda.ptr(s), _cuda.ptr(v), h.shape[0], h.shape[1],
-            ctypes.byref(_cuda.CellParams.for_config(cfg)))
+            _cell_params(cfg, h.device))
 
 
 # ----------------------------------------------------- K1 / K9 / K15 ---

@@ -38,13 +38,13 @@ import torch.distributed as dist
 from ..config import ReportConfig
 from ..models.pipeline import ReportData
 from ..ops import palette_kernels as pk
-from ..ops.blur import bin_means, lognorm_gain, vectorize_blur_profile
+from ..ops.blur import bin_means, vectorize_blur_profile
 from ..ops.colorspace import (downsample_rgb, rgb_to_hsv, rgb_to_pgm,
                               u8_to_unit_f32)
 from ..ops.fixed_point import from_fixed
 from ..ops.geometry import polar_geometry
 from ..ops.margin_sort import margin_sort
-from ..ops.polar_kernels import polar_bin_sums_lognorm
+from ..ops.polar_kernels import lognorm_gain, polar_bin_sums_lognorm
 from ..ops.quantize import (OctreeTables, palette_finalize_by_k,
                             palette_kernel_variant, palette_sums_by_k_auto,
                             parent_assignment_from_order, saliency_f32)
@@ -210,13 +210,13 @@ def _sharded_blur_bins(pgm_local: torch.Tensor, dc: torch.Tensor,
     """Distributed 2-D rFFT of the DC-removed luma -> (A, R) normalised
     bin means, the same on every rank."""
     mag2 = power_spectrum(pgm_local, dc, wc, height, width, group)
-    mx = mag2.amax()
-    dist.all_reduce(mx, dist.ReduceOp.MAX, group=group)
     a, r = cfg.angle_partitions, cfg.radius_partitions
-    acc = polar_bin_sums_lognorm(mag2, flat_ids, a * r, fixed=True)
+    # The kernel's pass gives the rank's maximum beside its sums.
+    acc, mx = polar_bin_sums_lognorm(mag2, flat_ids, a * r, fixed=True)
+    dist.all_reduce(mx, dist.ReduceOp.MAX, group=group)
     dist.all_reduce(acc, SUM, group=group)
-    return bin_means(from_fixed(acc) * lognorm_gain(mx), bin_counts, a,
-                     r)[0]
+    return bin_means(from_fixed(acc) * lognorm_gain(mx)[:, None],
+                     bin_counts, a, r)[0]
 
 
 def spatial_report_body(rgb_local: torch.Tensor, down_local: torch.Tensor,

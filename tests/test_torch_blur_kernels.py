@@ -23,7 +23,8 @@ from photohive_dsp_tpu_torch.ops import _cuda
 from photohive_dsp_tpu_torch.ops import fft_kernels as tfk
 from photohive_dsp_tpu_torch.ops import fft_plan
 from photohive_dsp_tpu_torch.ops import polar_kernels as tpolar
-from photohive_dsp_tpu_torch.ops.blur import PolarTables, blur_bins_lognorm
+from photohive_dsp_tpu_torch.ops.blur import PolarTables, bin_means, \
+    blur_bins_lognorm, lognorm_bin_means
 
 from .test_pallas_fft import _unscramble
 from .test_torch_pipeline import assert_match, report_fields
@@ -101,7 +102,7 @@ def test_polar_plain_matches_pallas_interpret():
             jnp.asarray(mag2), jnp.asarray(local_ids), jnp.asarray(dict_ids),
             nb, log_gate=True))
     got = tpolar.polar_bin_sums_lognorm(
-        torch.from_numpy(mag2), torch.from_numpy(ids), nb).numpy()
+        torch.from_numpy(mag2), torch.from_numpy(ids), nb)[0].numpy()
     assert snr_db(want, got) > 120
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
@@ -134,6 +135,54 @@ def test_blur_bins_lognorm_black_frame_zero_bins():
                             cfg.angle_partitions, cfg.radius_partitions)
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, torch.zeros_like(got))
+
+
+def _spectrum(b=2, h=120, w=160, seed=7):
+    """(B, H * (W // 2 + 1)) |X|^2 of noise, and the polar tables."""
+    x = np.random.default_rng(seed).standard_normal((b, h, w)).astype(
+        np.float32)
+    plan = fft_plan.FftPlan.for_shape(h, w)
+    mag2 = tfk.magnitude2_plain(torch.from_numpy(x), plan).reshape(b, -1)
+    return mag2, PolarTables.for_shape(h, w, TCfg())
+
+
+@pytest.mark.parametrize("case", ["one bin", "below the gate"])
+def test_polar_plain_max_is_amax(case):
+    """The plain version's maximum is amax over each image: on a spectrum
+    whose pixels are all in one bin (one run a warp in the kernel), and on
+    one below the gate everywhere (every sum 0)."""
+    mag2, tables = _spectrum()
+    nb = tables.bin_counts.shape[0]
+    ids = tables.bin_ids
+    if case == "one bin":
+        ids = torch.full_like(ids, nb // 2)
+    else:
+        mag2 = mag2 / (mag2.amax() * 1.5)
+    for fixed in (False, True):
+        sums, mx = tpolar.polar_bin_sums_lognorm(mag2, ids, nb, fixed=fixed)
+        assert torch.equal(mx, mag2.amax(dim=1))
+        assert sums.shape == (2, nb)
+        if case == "one bin":
+            assert not bool(sums[:, nb // 2 + 1:].any())
+            assert bool((sums[:, nb // 2] > 0).all())
+        else:
+            assert not bool(sums.any())
+
+
+def test_lognorm_bin_means_is_the_old_composition():
+    """blur.lognorm_bin_means on the means route equals, bit for bit, the
+    composition it replaced: the sums times the gain of amax, then the
+    means (and a zero spectrum gives zeros)."""
+    mag2, tables = _spectrum()
+    a, r = TCfg().angle_partitions, TCfg().radius_partitions
+    for m in (mag2, torch.zeros_like(mag2)):
+        sums, _ = tpolar.polar_bin_sums_lognorm_plain(m, tables.bin_ids,
+                                                      a * r)
+        want = bin_means(sums * tpolar.lognorm_gain(m.amax(dim=1))[:, None],
+                         tables.bin_counts, a, r)
+        got = lognorm_bin_means(m, tables, a, r)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("h,w,a,r", [(1080, 1920, 72, 40),

@@ -145,8 +145,8 @@ def test_cuda_fft_kernels_match_plain(b, h, w, cuda_device):
 @pytest.mark.parametrize("a,r", [(72, 40), (360, 100)],
                          ids=["shared_table", "global_atomics"])
 def test_cuda_polar_kernel_matches_plain_and_repeats(a, r, cuda_device):
-    """Exact fixed-point sums: the kernel differs from the plain version
-    only by logf's rounding (<= 1e-6 relative), and two launches are
+    """Exact fixed-point sums: the kernel equals the plain version bit for
+    bit (the same logf), with each image's maximum, and two launches are
     bit-identical.  360x100 bins overflow the shared table."""
     h, w = 360, 512
     cfg = ReportConfig(angle_partitions=a, radius_partitions=r)
@@ -156,11 +156,11 @@ def test_cuda_polar_kernel_matches_plain_and_repeats(a, r, cuda_device):
     mag2 = tfk.magnitude2(torch.from_numpy(x).to(cuda_device),
                           plan).reshape(2, -1)
     ids = PolarTables.for_shape(h, w, cfg, cuda_device).bin_ids
-    got = tpolar.polar_bin_sums_lognorm(mag2, ids, a * r)
-    again = tpolar.polar_bin_sums_lognorm(mag2, ids, a * r)
-    want = tpolar.polar_bin_sums_lognorm_plain(mag2, ids, a * r)
-    assert torch.equal(got, again)
-    assert bool(((got - want).abs() <= 1e-6 * want.abs()).all())
+    got, mx = tpolar.polar_bin_sums_lognorm(mag2, ids, a * r)
+    again, mx_again = tpolar.polar_bin_sums_lognorm(mag2, ids, a * r)
+    want, mx_want = tpolar.polar_bin_sums_lognorm_plain(mag2, ids, a * r)
+    assert torch.equal(got, again) and torch.equal(mx, mx_again)
+    assert torch.equal(got, want) and torch.equal(mx, mx_want)
 
 
 @pytest.mark.cuda
@@ -507,3 +507,69 @@ def test_cuda_palette_sums_routes_c2164(cuda_device):
     u8 = np.round(noise_rgb(1, 64, 255, seed=13) * 255).astype(np.uint8)
     _assert_palette_sums_all_routes(u8, ReportConfig(h_partitions=360),
                                     cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [_one_colour, _stripes, noise_rgb])
+@pytest.mark.parametrize("b,h,w", [(2, 61, 67), (4, 360, 512)])
+def test_cuda_cell_counts_routes_bit_equal(make, b, h, w, cuda_device):
+    """The cell histogram bit for bit against its plain versions on a
+    one-colour frame (one run of lanes a warp), stripes and noise: K1 on
+    uint8, K11 on its float32 planes, K9 on its flat HSV with a sentinel
+    tail, K15 on those pixels' cell ids (sentinels -> C)."""
+    from photohive_dsp_tpu_torch.ops.colorspace import u8_to_unit_f32
+
+    u8 = make(b, h, w)
+    if u8.dtype != np.uint8:
+        u8 = np.round(u8 * 255).astype(np.uint8)
+    x = torch.from_numpy(u8).to(cuda_device)
+    f32 = u8_to_unit_f32(x).contiguous()
+    for rgb in (x, f32):
+        for got, want in zip(tpk.cell_counts_s_from_rgb(rgb, TCFG),
+                             tpk.cell_counts_s_from_rgb_plain(rgb, TCFG)):
+            assert torch.equal(got, want), rgb.dtype
+    hsv = _flat_hsv_with_tail(f32.cpu().numpy(), cuda_device)
+    assert torch.equal(tpk.cell_counts_from_hsv(*hsv, TCFG),
+                       tpk.cell_counts_from_hsv_plain(*hsv, TCFG))
+    real = hsv[0] >= 0
+    ids = torch.where(real, tq.assign_cells(torch.where(real, hsv[0], 0.0),
+                                            hsv[1], hsv[2], TCFG), C)
+    ids = ids.to(torch.int32).contiguous()
+    assert torch.equal(tpk.cell_counts_batched(ids, C),
+                       tpk.cell_counts_batched_plain(ids, C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one bin", "below the gate",
+                                  "ids out of range", "odd length"])
+def test_cuda_polar_edges_bit_equal(case, cuda_device):
+    """K7+K8's sums, maxima and means bit for bit against the plain
+    versions: every pixel in one bin (one run a warp), a spectrum below the
+    gate everywhere, ids outside [0, A*R), and a pixel count that is no
+    multiple of the 4-pixel loads."""
+    h, w = 360, 512
+    cfg = ReportConfig()
+    x = np.random.default_rng(11).standard_normal((2, h, w)).astype(
+        np.float32)
+    mag2 = tfk.magnitude2(torch.from_numpy(x).to(cuda_device),
+                          FftPlan.for_shape(h, w, cuda_device)).reshape(2, -1)
+    tables = PolarTables.for_shape(h, w, cfg, cuda_device)
+    ids, counts = tables.bin_ids, tables.bin_counts
+    nb = counts.shape[0]
+    if case == "one bin":
+        ids = torch.full_like(ids, 7)
+    elif case == "below the gate":
+        mag2 = mag2 / (mag2.amax() * 1.01)
+    elif case == "ids out of range":
+        ids = ids.clone()
+        ids[::3] = -1
+        ids[1::7] = nb + 5
+    else:
+        mag2 = mag2[:, :-3].contiguous()
+        ids = ids[:-3].contiguous()
+    got, mx = tpolar.polar_bin_sums_lognorm(mag2, ids, nb)
+    want, mx0 = tpolar.polar_bin_sums_lognorm_plain(mag2, ids, nb)
+    assert torch.equal(got, want) and torch.equal(mx, mx0)
+    assert torch.equal(tpolar.polar_bin_means_lognorm(mag2, ids, counts),
+                       tpolar.polar_bin_means_lognorm_plain(mag2, ids,
+                                                            counts))
