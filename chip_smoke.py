@@ -20,9 +20,9 @@ each of which raises on failure:
      a hue-wheel batch (q_full), and the cell-id histogram (K15) against
      K9's counts; the FFT kernels (K6a, K6b) and the polar kernel (K7+K8) at
      1080x1920 B=4, 2160x3840 B=1 and 1092x1001 B=2, the FFT also against
-     float64 rfft2 (>= 90 dB), the polar sums twice (bit-identical), a zero
-     frame, and a 360x100-bin table (the polar kernel's global-atomics
-     branch);
+     float64 rfft2 (>= 90 dB), the polar sums, maxima and bin means twice
+     (bit-identical), a zero frame, and a 360x100-bin table (the polar
+     kernel's global-atomics branch);
   4. main path against the CPU path, with the kernel launch counts of that
      run (each of its kernels at least once, K5 included);
   5. corpus path: run_corpus over 256 uint8 frames of 720x1280, 1080x1920
@@ -42,16 +42,20 @@ each of which raises on failure:
      HSV, the luma with its halo, the rank's |X|^2);
   7. timing: warm get_report latency, batch-8 throughput, the corpus
      path's MP/s, the spatial call's wall time, the blur and sharpness
-     stages by their plain routes and by the kernels at B=1 and B=8, and
-     each kernel's time beside its plain version's, its bound and a library
+     stages by their plain routes and by the kernels at B=1 and B=8, K6a
+     against torch.fft.rfft at ROW_FFT_WIDTHS, and each kernel's device
+     time (graph_ms) beside its plain version's, its bound and a library
      call's.
 
 Phase 3 also holds K6a to its plain version on its edge cases (odd row
 counts, widths 1001, 3840 and 14520, and short widths that reach each of
 its fused passes: ROW_FFT_EDGES) and the palette-sums kernel (K3, K4,
 K10, K12-K14) on a one-colour batch, two-colour stripes, a pixel count
-that is no multiple of 4, and C=2164; phase 7 also times the one-colour
-batch.
+that is no multiple of 4, and C=2164; the cell histogram (K1, K9, K11,
+K15) on a one-colour batch and, with the palette-sums kernel, on a frame
+of all 2^24 RGB triples at two grids; and K7+K8 on one-bin, below-gate,
+out-of-range-id and odd-length spectra.  Phase 7 also times the
+one-colour batch.
 
 Prints the kernels' JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  Exits nonzero without that line when a
@@ -59,8 +63,11 @@ phase fails or no CUDA device is present.  Imports no JAX.
 
     python3 chip_smoke.py                     # what the checks need
     python3 chip_smoke.py --parent DIR        # also time the palette
-        # kernels and K6a of the checkout at DIR against this one's, on the
-        # same inputs, in turns parent, this, this, parent
+        # kernels, K6a, K7+K8, the blur tail and a B=8 report of the
+        # checkout at DIR against this one's, on the same inputs, in turns
+        # parent, this, this, parent
+    python3 chip_smoke.py --kernel-times DIR  # those times alone, for the
+        # checkout at DIR (one JSON line)
 """
 
 from __future__ import annotations

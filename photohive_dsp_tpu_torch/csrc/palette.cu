@@ -58,8 +58,7 @@
 // takes 4 adjacent pixels at a time (one 4-byte load per uint8 plane, one
 // float4 per float plane, where the pixel count is a multiple of 4), and
 // uint8 decodes through a table of x / 255 in shared memory.  The grid is
-// one wave of the blocks the card holds at once (one_wave), so each
-// block's table set-up and flush is paid once per SM slot.
+// one wave of the blocks the card holds at once (one_wave.cuh).
 //
 // K1/K9/K11/K15 (cell_counts_s_kernel) add one count a pixel with a
 // native 32-bit shared-memory atomic.
@@ -96,6 +95,7 @@
 #include <stdint.h>
 
 #include "hsv_cells.cuh"
+#include "one_wave.cuh"
 
 namespace {
 
@@ -591,43 +591,6 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Blocks of `kernel` with `bytes` of shared memory the card holds at once.
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, size_t bytes, long long* out) {
-  int device = 0;
-  int sms = 0;
-  int per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, bytes);
-  }
-  *out = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  return err;
-}
-
-// One wave of `kernel`: as many runs an image as the card holds blocks
-// over the batch, each a whole number of the block's steps (kVec pixels a
-// thread), at most max_run pixels.  Sets the grid and the run.
-template <typename Kernel>
-cudaError_t one_wave(Kernel kernel, size_t bytes, int batch, long long pixels,
-                     long long max_run, dim3* grid, long long* run) {
-  long long resident = 0;
-  const cudaError_t err = resident_blocks(kernel, bytes, &resident);
-  if (err != cudaSuccess) return err;
-  constexpr long long kStep = static_cast<long long>(kVec) * kThreads;
-  const long long runs = (resident + batch - 1) / batch;
-  long long r = (pixels + runs - 1) / runs;
-  r = (r + kStep - 1) / kStep * kStep;
-  *run = r < max_run ? r : max_run;
-  *grid = dim3(static_cast<unsigned>((pixels + *run - 1) / *run),
-               static_cast<unsigned>(batch));
-  return cudaSuccess;
-}
-
 // sums_out == nullptr (K10, K14) leaves the result in acc (fixed point).
 template <typename Src, int kRule>
 cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
@@ -651,7 +614,8 @@ cudaError_t launch_palette_sums(Src src, int batch, const CellParams& p,
   if (batch > 0 && src.pixels > 0) {
     dim3 grid;
     long long run = 0;
-    err = one_wave(kernel, bytes, batch, src.pixels, kMaxRun, &grid, &run);
+    err = one_wave<kThreads, kVec>(kernel, bytes, batch, src.pixels, kMaxRun,
+                                   &grid, &run);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, bytes, stream>>>(src, p, cell_tab, val_tab, q,
                                               tab_in_shared, run, acc);
@@ -678,7 +642,8 @@ cudaError_t launch_cell_counts_s(Src src, int batch, const CellParams& p,
     dim3 grid;
     long long run = 0;
     // A block's counts are 32-bit: at most 2^32 - 1 pixels a run.
-    err = one_wave(kernel, bytes, batch, src.pixels, 1LL << 31, &grid, &run);
+    err = one_wave<kThreads, kVec>(kernel, bytes, batch, src.pixels,
+                                   1LL << 31, &grid, &run);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, bytes, stream>>>(src, p, run, acc);
   }

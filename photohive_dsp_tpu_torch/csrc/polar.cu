@@ -20,10 +20,10 @@
 //
 // Design.  The MXU's one-hot trick and its separate combine step do not
 // apply: a block owns a run of one image's pixels (one wave of blocks over
-// the batch) and keeps the whole A*R table in shared memory (72x40 bins:
-// 23 KB), and flushes its nonzero bins into a per-image accumulator in
-// device memory with 64-bit integer atomics; a finishing kernel converts
-// it.  Every value is added as 64-bit fixed point (28 fraction bits,
+// the batch: one_wave.cuh), keeps the whole A*R table in shared memory
+// (72x40 bins: 23 KB), and flushes its nonzero bins into a per-image
+// accumulator in device memory with 64-bit integer atomics; a finishing
+// kernel converts it.  Every value is added as 64-bit fixed point (28 fraction bits,
 // rounded to nearest once), so the sums are exact, order-free and the same
 // from run to run; g < 89 for any finite float32, so 2^28 * 89 * 1.2e8
 // pixels stays below 2^64.  The plain version (ops/polar_kernels.py) uses
@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "one_wave.cuh"
 
 namespace {
 
@@ -180,32 +182,6 @@ bool aligned(const void* ptr, size_t bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
 }
 
-// One wave of `kernel`: as many runs an image as the card holds blocks
-// over the batch, each a whole number of the block's steps.
-template <typename Kernel>
-cudaError_t one_wave(Kernel kernel, size_t bytes, int batch, long long pixels,
-                     dim3* grid, long long* run) {
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, bytes);
-  }
-  if (err != cudaSuccess) return err;
-  constexpr long long kStep = static_cast<long long>(kVec) * kThreads;
-  const long long resident =
-      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const long long runs = (resident + batch - 1) / batch;
-  long long r = (pixels + runs - 1) / runs;
-  *run = (r + kStep - 1) / kStep * kStep;
-  *grid = dim3(static_cast<unsigned>((pixels + *run - 1) / *run),
-               static_cast<unsigned>(batch));
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // mag2: (batch, pixels) float32, finite; bin_ids: (pixels,) int32, ids
@@ -243,14 +219,16 @@ extern "C" int ph_polar_lognorm(const void* mag2, const void* bin_ids,
                                    static_cast<int>(bytes));
       }
       if (err == cudaSuccess) {
-        err = one_wave(kernel, bytes, batch, pixels, &grid, &run);
+        err = one_wave<kThreads, kVec>(kernel, bytes, batch, pixels, pixels,
+                                       &grid, &run);
       }
       if (err != cudaSuccess) return err;
       kernel<<<grid, kThreads, bytes, st>>>(x, ids, pixels, num_bins, vec,
                                             run, a, m);
     } else {
       auto kernel = polar_lognorm_kernel<false>;
-      err = one_wave(kernel, 0, batch, pixels, &grid, &run);
+      err = one_wave<kThreads, kVec>(kernel, 0, batch, pixels, pixels, &grid,
+                                     &run);
       if (err != cudaSuccess) return err;
       kernel<<<grid, kThreads, 0, st>>>(x, ids, pixels, num_bins, vec, run,
                                         a, m);
