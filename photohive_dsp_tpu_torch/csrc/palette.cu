@@ -148,7 +148,8 @@ struct FrontEnd {
 // kVec); pixels at or past `end` are not real.  With vec, the planes are
 // read with one 4-pixel load each (the pixel count is a multiple of 4 and
 // the planes aligned).  kUnitFloats: the floats of the decode table the
-// source needs; kBounds: whether it needs the cell thresholds.
+// source needs; kBounds: whether it needs the cell thresholds (and has a
+// saturation to sum).
 //
 // Planar RGB, (B, 3, P) uint8 or float32: every pixel is real.  uint8
 // decodes through fe.unit (fill_unit_table).
@@ -333,7 +334,7 @@ __global__ void __launch_bounds__(kThreads)
       // (a one-colour batch is no slower than noise), so the adds are not
       // grouped (PERF.md).
       atomicAdd(&cnt[px[j].cell], 1u);
-      s_fx += to_fixed(px[j].s);
+      if (Src::kBounds) s_fx += to_fixed(px[j].s);
     }
   }
   for (int o = 16; o > 0; o >>= 1) s_fx += __shfl_down_sync(kFull, s_fx, o);
