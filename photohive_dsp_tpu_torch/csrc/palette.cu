@@ -41,7 +41,7 @@
 // 12 B as f32), then ~60 float ops including two IEEE divisions for HSV
 // (the cell id takes none: hsv_cells.cuh bin_index), then its adds into
 // the tables.  A 1080p frame reads 6.2 MB (u8) or 24.9 MB (f32), a few
-// microseconds at 3.35 TB/s, so the kernels are bound by instruction issue
+// microseconds at 3.35 TB/s, so the kernels are bound by instruction rate
 // and by the adds into shared memory when many pixels share a cell (flat
 // images).
 //
