@@ -43,13 +43,15 @@ each of which raises on failure:
   7. timing: warm get_report latency, batch-8 throughput, the corpus
      path's MP/s, the spatial call's wall time, the blur and sharpness
      stages by their plain routes and by the kernels at B=1 and B=8, K6a
-     against torch.fft.rfft at ROW_FFT_WIDTHS, and each kernel's device
+     against torch.fft.rfft at ROW_FFT_WIDTHS, K6b against torch.fft.fft
+     of the columns at COL_FFT_HEIGHTS, and each kernel's device
      time (graph_ms) beside its plain version's, its bound and a library
      call's.
 
 Phase 3 also holds K6a to its plain version on its edge cases (odd row
 counts, widths 1001, 3840 and 14520, and short widths that reach each of
-its fused passes: ROW_FFT_EDGES) and the palette-sums kernel (K3, K4,
+its fused passes: ROW_FFT_EDGES), K6b on heights that reach each of
+its passes and tile layouts (COL_FFT_EDGES), the palette-sums kernel (K3, K4,
 K10, K12-K14) on a one-colour batch, two-colour stripes, a pixel count
 that is no multiple of 4, and C=2164; the cell histogram (K1, K9, K11,
 K15) on a one-colour batch and, with the palette-sums kernel, on a frame
@@ -63,7 +65,7 @@ phase fails or no CUDA device is present.  Imports no JAX.
 
     python3 chip_smoke.py                     # what the checks need
     python3 chip_smoke.py --parent DIR        # also time the palette
-        # kernels, K6a, K7+K8, the blur tail and a B=8 report of the
+        # kernels, K6a, K6b, K7+K8, the blur tail and a B=8 report of the
         # checkout at DIR against this one's, on the same inputs, in turns
         # parent, this, this, parent
     python3 chip_smoke.py --kernel-times DIR  # those times alone, for the
@@ -764,6 +766,44 @@ def phase_row_fft_edges() -> None:
             raise AssertionError(f"K6a {b}x{h}x{w}: differs from plain, max "
                                  f"abs err {float((got - want).abs().max())}")
     log(f"  K6a equals plain bit for bit at {ROW_FFT_EDGES} (B, H, W)")
+
+
+# K6b's edge cases, (B, H, W): heights whose passes (fft_plan.row_passes)
+# reach every fused pair (1080: 4x2, 3x3, 3x5; 720: 4x4; 480: 2x3; 1092 and
+# 12: 4x3; 10: 2x5; 14: 2x7; 15 and 9: one pass, first and last) and every
+# single stage (64: 4; 720: 5; 7, 11, 13, 143 = 11 x 13 and 1001; 3; 2),
+# H = 1; the tile layouts of fft_plan.col_tile (4 lanes; 2 at 2160; 1 with
+# the twiddle table in shared memory at 4320, in device memory at 7000 and
+# 14520, the tallest); half widths that are no multiple of the tile
+# (1001: 501; 30: 16 of 4 lanes is one, so 9: 5 and 6: 4 too).
+COL_FFT_EDGES = [(1, 1080, 30), (2, 1092, 1001), (1, 2160, 10),
+                 (1, 4320, 6), (1, 7000, 6), (1, 14520, 4), (1, 720, 9),
+                 (1, 480, 9), (1, 143, 9), (1, 1001, 9), (1, 64, 9),
+                 (1, 12, 9), (1, 10, 9), (1, 14, 9), (1, 15, 9), (1, 9, 9),
+                 (1, 7, 9), (1, 11, 9), (1, 13, 9), (1, 5, 9), (1, 3, 9),
+                 (1, 2, 9), (1, 1, 9)]
+
+
+def phase_col_fft_edges() -> None:
+    """K6b against fft_cols_plain bit for bit on COL_FFT_EDGES, on a half
+    spectrum of noise with a zero column and zero rows."""
+    from photohive_dsp_tpu_torch.ops import fft_kernels as fk
+    from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
+
+    rng = np.random.default_rng(SEED + 10)
+    for b, h, w in COL_FFT_EDGES:
+        spec = torch.as_tensor(rng.standard_normal((b, h, w // 2 + 1, 2),
+                                                   dtype=np.float32),
+                               device=DEVICE)
+        spec[0, :, 0] = 0.0
+        spec[0, ::3, -1] = 0.0
+        plan = FftPlan.for_shape(h, w, DEVICE)
+        got, want = fk.fft_cols(spec, plan), fk.fft_cols_plain(spec, plan)
+        sync()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6b {b}x{h}x{w}: differs from plain, max "
+                                 f"abs err {float((got - want).abs().max())}")
+    log(f"  K6b equals plain bit for bit at {COL_FFT_EDGES} (B, H, W)")
 
 
 def one_colour_frames(b: int, h: int, w: int) -> np.ndarray:
@@ -1600,6 +1640,53 @@ def row_fft_width_times(smi: str) -> None:
         del x
 
 
+# K6b's other heights, (B, H, W): the blur shapes of phase 3 besides
+# 1080x1920 (2160: the tile of 2 lanes; 1092: radices 4, 3, 7, 13).
+COL_FFT_HEIGHTS = [(1, 2160, 3840), (2, 1092, 1001)]
+
+
+def col_fft_height_times(smi: str) -> None:
+    """K6b against torch.fft.fft(dim=1) then abs().square() at
+    COL_FFT_HEIGHTS, in turns library, kernel, kernel, library, with each
+    row's bound."""
+    from photohive_dsp_tpu_torch.ops import fft_kernels as fk
+
+    for (b, h, w), (spec, plan) in zip(COL_FFT_HEIGHTS,
+                                       col_fft_inputs().values()):
+        zc = torch.view_as_complex(spec)
+        l1, k1, k2, l2 = (
+            graph_ms(lambda: torch.fft.fft(zc, dim=1).abs().square(), 5),
+            graph_ms(lambda: fk.fft_cols(spec, plan), 5),
+            graph_ms(lambda: fk.fft_cols(spec, plan), 5),
+            graph_ms(lambda: torch.fft.fft(zc, dim=1).abs().square(), 5))
+        ms, by = bound(*col_fft_work(b, h, w))
+        kern, lib = (k1 + k2) / 2, (l1 + l2) / 2
+        log(f"  K6b B={b} {h}x{w}: kernel {kern:.4f} ms, torch.fft.fft + "
+            f"|.|^2 {lib:.4f} ms ({lib / kern:.2f}x), bound {ms:.5f} ms "
+            f"({by}) ({smi})")
+
+
+def col_fft_inputs() -> dict:
+    """{"K6b HxW B=b": (spec, plan)} at COL_FFT_HEIGHTS: a half spectrum of
+    noise from SEED (K6b's time does not depend on the values)."""
+    from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
+
+    rng = np.random.default_rng(SEED + 11)
+    return {f"K6b {h}x{w} B={b}": (
+        torch.as_tensor(rng.standard_normal((b, h, w // 2 + 1, 2),
+                                            dtype=np.float32), device=DEVICE),
+        FftPlan.for_shape(h, w, DEVICE)) for b, h, w in COL_FFT_HEIGHTS}
+
+
+def col_fft_work(b: int, h: int, w: int):
+    """(bytes, float32 ops) of K6b on (B, H, W//2+1) complex: the half
+    spectrum in, |X|^2 out, the twiddles; 5 H log2 H a complex FFT of a
+    column and 3 for its |X|^2."""
+    half = w // 2 + 1
+    return (b * h * half * 12 + h * 8,
+            b * half * 5 * h * np.log2(max(h, 2)) + b * h * half * 3)
+
+
 def row_fft_work(b: int, h: int, w: int):
     """(bytes, float32 ops) of K6a on (B, H, W): the rows in, the half
     spectrum out, the twiddles; 5 W log2 W a complex FFT of a row pair and
@@ -1742,6 +1829,7 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
         f" none thin): {1e3 * dt:.3f} ms per batch, {mps:.1f} MP/s")
     stage_times(images, cfg, tables)
     row_fft_width_times(smi)
+    col_fft_height_times(smi)
     sharpness_stage_times(images)
 
     c = cfg.num_cells
@@ -1861,10 +1949,8 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
                               work[key][1])
     fb, fh, fw = fx.shape
     half = fw // 2 + 1
-    spec_bytes = fb * fh * half * 8
     work["K6a"] = row_fft_work(fb, fh, fw)
-    work["K6b"] = (spec_bytes + fb * fh * half * 4 + fh * 8,
-                   fb * half * 5 * fh * np.log2(fh) + fb * fh * half * 3)
+    work["K6b"] = col_fft_work(fb, fh, fw)
     # K6 as one function, |rfft2|^2: the luma read once and the half
     # spectrum written once; the intermediate K6a writes and K6b reads
     # back is the two-pass design's cost, not the function's.
@@ -1917,16 +2003,18 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
 
 
 def kernel_time_inputs(cfg):
-    """The inputs phase 7 times the palette kernels and K6a on, made from
-    SEED alone with the package on sys.path (this checkout's or another's):
-    B=4 1080x1920 uint8 frames (noise, structured, hue wheel, noise), their
-    float32 planes, flat HSV with a sentinel tail and its cell ids, the
-    palette tables of the batch, the luma without its mean, its |X|^2 and
-    polar tables, and a batch of 4 one-colour frames with its tables."""
+    """The inputs phase 7 times the palette kernels, K6a and K6b on, made
+    from SEED alone with the package on sys.path (this checkout's or
+    another's): B=4 1080x1920 uint8 frames (noise, structured, hue wheel,
+    noise), their float32 planes, flat HSV with a sentinel tail and its
+    cell ids, the palette tables of the batch, the luma without its mean,
+    its half spectrum (K6a's output), its |X|^2 and polar tables, the half
+    spectra of col_fft_inputs, and a batch of 4 one-colour frames with its
+    tables."""
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import quantize as qz
     from photohive_dsp_tpu_torch.ops.blur import PolarTables
-    from photohive_dsp_tpu_torch.ops.fft_kernels import magnitude2
+    from photohive_dsp_tpu_torch.ops.fft_kernels import fft_rows, magnitude2
     from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
 
     rng = np.random.default_rng(SEED)
@@ -1937,7 +2025,9 @@ def kernel_time_inputs(cfg):
     octree = qz.OctreeTables.for_config(cfg, DEVICE)
     out = {"x_dc": luma_dc(images), "plan": FftPlan.for_shape(H, W, DEVICE),
            "polar": PolarTables.for_shape(H, W, cfg, DEVICE)}
+    out["spec"] = fft_rows(out["x_dc"], out["plan"])
     out["mag2"] = magnitude2(out["x_dc"], out["plan"]).reshape(4, -1)
+    out["cols"] = col_fft_inputs()
     for name, frames in (("", np.stack([planar(im) for im in images])),
                          ("flat", one_colour_frames(4, H, W))):
         x = torch.as_tensor(frames, device=DEVICE)
@@ -1964,9 +2054,10 @@ def polar_sums_max(mag2, ids, nb):
 
 
 def kernel_calls(cfg, inp):
-    """{key: call} of the palette kernels, K6a, K7+K8 (sums and maxima) and
-    the blur tail after the FFT (blur.lognorm_bin_means) on
-    kernel_time_inputs; "flat ..." keys run the one-colour batch."""
+    """{key: call} of the palette kernels, K6a, K6b (also at
+    COL_FFT_HEIGHTS), K7+K8 (sums and maxima) and the blur tail after the
+    FFT (blur.lognorm_bin_means) on kernel_time_inputs; "flat ..." keys run
+    the one-colour batch."""
     from photohive_dsp_tpu_torch.ops import fft_kernels as fk
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops.blur import lognorm_bin_means
@@ -1975,8 +2066,11 @@ def kernel_calls(cfg, inp):
     a, r = cfg.angle_partitions, cfg.radius_partitions
     mag2, polar = inp["mag2"], inp["polar"]
     calls = {"K6a": lambda: fk.fft_rows(inp["x_dc"], inp["plan"]),
+             "K6b": lambda: fk.fft_cols(inp["spec"], inp["plan"]),
              "K7+K8": lambda: polar_sums_max(mag2, polar.bin_ids, a * r),
              "blur tail": lambda: lognorm_bin_means(mag2, polar, a, r)}
+    for key, (spec, plan) in inp["cols"].items():
+        calls[key] = lambda s=spec, p=plan: fk.fft_cols(s, p)
     for pre, d in (("", inp[""]), ("flat ", inp["flat"])):
         x, xf, hsv = d["u8"], d["f32"], d["hsv"]
         calls.update({
@@ -2038,9 +2132,9 @@ def parent_kernel_times(parent: str) -> dict:
 
 
 def compare_parent(parent: str, cfg, smi: str) -> None:
-    """The palette kernels and K6a of the checkout at ``parent`` against
-    this one's on the same inputs and card, in turns parent, this, this,
-    parent; each run's means."""
+    """kernel_times of the checkout at ``parent`` against this one's on
+    the same inputs and card, in turns parent, this, this, parent; each
+    run's means."""
     runs = [parent_kernel_times(parent), kernel_times(cfg),
             kernel_times(cfg), parent_kernel_times(parent)]
     log(f"  kernel ms, parent {parent} against this checkout, in turns "
@@ -2176,6 +2270,7 @@ def main(argv) -> int:
     blur_err, bkin = phase_blur_kernels(images, cfg)
     err.update(blur_err)
     phase_row_fft_edges()
+    phase_col_fft_edges()
     phase_palette_sums_edges(cfg)
     phase_cell_and_polar_edges(cfg)
     log("phase 4: main path")

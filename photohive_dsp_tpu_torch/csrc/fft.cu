@@ -45,17 +45,26 @@
 //     are never staged as such.  Registers are capped at 80 a thread so
 //     that three blocks fit an SM.
 //   * K6b: one block per tile of `lanes` adjacent columns of one image
-//     (4 at H <= 1600, e.g. 1080p), so each row of the tile is one 32-byte
-//     sector of the half spectrum; |X|^2 in the epilogue.
+//     (fft_plan.col_tile: 4 while two blocks fit an SM, e.g. H = 1080, so
+//     each row of the tile is one 32-byte sector of the half spectrum; 2 at
+//     2160; 1 past ~3200), with K6a's passes run on each column of the
+//     tile: two stages a pass in registers, the per-stage twiddle table in
+//     shared memory (in device memory past ~7000), (a, k) counters.  The
+//     first pass reads its values straight from the half spectrum and the
+//     last writes |X|^2 straight to mag2 (streaming loads and stores), so
+//     a tile goes through shared memory only between passes: twice at
+//     1080 = (4,2)(3,3)(3,5), where the old design went through it eight
+//     times (a load, six stages, a store).  The tile buffers interleave the
+//     columns, their rows XOR-swizzled within a 128-byte line (col_at).
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxStages = 16;
-// Shared memory a column tile aims for (two buffers of H x lanes complex),
-// so that two blocks fit on one SM.
-constexpr size_t kColSharedTarget = 100 * 1024;
+// K6b: blocks an SM should hold (fft_plan.col_tile aims its shared
+// memory at two).
+constexpr int kColBlocksPerSm = 2;
 // K6a: blocks an SM should hold (registers are capped for it: 80 a
 // thread; the radix-11 and -13 paths spill a little), at most this many
 // row pairs a block, and the shared memory a block aims for (its buffers
@@ -84,69 +93,6 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 w) {
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
-}
-
-// One Stockham stage of radix R after span ns on `lanes` interleaved
-// sequences (element i of lane l at i * lanes + l):
-//   j < n/R, k = j % ns:  v_q = src[j + q n/R] * W_{ns R}^{q k}
-//   dst[(j - k) R + k + t ns] = sum_q v_q W_R^{q t}
-template <int R>
-__device__ void stage(const float2* __restrict__ src, float2* __restrict__ dst,
-                      int n, int ns, int lanes, int lane_bits,
-                      const float2* __restrict__ tw) {
-  const int m = n / R;
-  const int tw_step = n / (ns * R);
-  float2 wr[R];
-#pragma unroll
-  for (int u = 0; u < R; ++u) wr[u] = __ldg(&tw[u * m]);
-  for (int item = threadIdx.x; item < m * lanes; item += blockDim.x) {
-    const int l = item & (lanes - 1);
-    const int j = item >> lane_bits;
-    const int k = j % ns;
-    float2 v[R];
-#pragma unroll
-    for (int q = 0; q < R; ++q) {
-      v[q] = src[(j + q * m) * lanes + l];
-      if (q > 0 && k > 0) v[q] = cmul(v[q], __ldg(&tw[q * k * tw_step]));
-    }
-    const int base = (j - k) * R + k;
-#pragma unroll
-    for (int t = 0; t < R; ++t) {
-      float2 acc = v[0];
-#pragma unroll
-      for (int q = 1; q < R; ++q) {
-        const int u = (q * t) % R;
-        acc = cadd(acc, u == 0 ? v[q] : cmul(v[q], wr[u]));
-      }
-      dst[(base + t * ns) * lanes + l] = acc;
-    }
-  }
-}
-
-// Runs every stage; the input is in a, b is scratch of the same size.
-// Returns the buffer that holds the transform (natural order).
-__device__ float2* run_stages(float2* a, float2* b, const FftStages& st,
-                              int lanes, int lane_bits,
-                              const float2* __restrict__ tw) {
-  int ns = 1;
-  for (int s = 0; s < st.count; ++s) {
-    const int r = st.radix[s];
-    switch (r) {
-      case 2: stage<2>(a, b, st.n, ns, lanes, lane_bits, tw); break;
-      case 3: stage<3>(a, b, st.n, ns, lanes, lane_bits, tw); break;
-      case 4: stage<4>(a, b, st.n, ns, lanes, lane_bits, tw); break;
-      case 5: stage<5>(a, b, st.n, ns, lanes, lane_bits, tw); break;
-      case 7: stage<7>(a, b, st.n, ns, lanes, lane_bits, tw); break;
-      case 11: stage<11>(a, b, st.n, ns, lanes, lane_bits, tw); break;
-      default: stage<13>(a, b, st.n, ns, lanes, lane_bits, tw); break;
-    }
-    __syncthreads();
-    float2* t = a;
-    a = b;
-    b = t;
-    ns *= r;
-  }
-  return a;
 }
 
 // ---------------------------------------------------------------- K6a ---
@@ -359,6 +305,7 @@ __global__ void __launch_bounds__(kThreads, kRowBlocksPerSm)
   const int t0 = threadIdx.x - g * nt;
   if (stw_shared) {
     for (int i = threadIdx.x; i < n - 1; i += blockDim.x) smem[i] = stage_tw[i];
+    __syncthreads();   // a fused first pass reads its second stage's part
   }
   const float2* stw = stw_shared ? smem : stage_tw;
   float2* const buf = smem + (stw_shared ? tw_len : 0) + 2LL * g * seq;
@@ -417,32 +364,207 @@ __global__ void __launch_bounds__(kThreads, kRowBlocksPerSm)
 }
 
 // ---------------------------------------------------------------- K6b ---
-// spec: (B, H, half) float2; mag2: (B, H, half) float32.  Block (tile, b)
-// transforms columns [tile * lanes, tile * lanes + lanes) of image b.
-__global__ void fft_cols_kernel(const float2* __restrict__ spec, int half,
-                                FftStages st, const float2* __restrict__ tw,
-                                int lanes, int lane_bits,
-                                float* __restrict__ mag2) {
-  extern __shared__ float2 smem[];
-  const int h = st.n;
-  const int c0 = blockIdx.x * lanes;
-  const long long img = static_cast<long long>(blockIdx.y) * h * half;
-  for (int item = threadIdx.x; item < h * lanes; item += blockDim.x) {
-    const int c = c0 + (item & (lanes - 1));
-    const long long i = item >> lane_bits;
-    smem[item] = c < half ? spec[img + i * half + c] : make_float2(0.0f, 0.0f);
-  }
-  __syncthreads();
-  const float2* y = run_stages(smem, smem + h * lanes, st, lanes, lane_bits,
-                               tw);
-  for (int item = threadIdx.x; item < h * lanes; item += blockDim.x) {
-    const int c = c0 + (item & (lanes - 1));
-    const long long i = item >> lane_bits;
-    if (c < half) {
-      const float2 v = y[item];
-      mag2[img + i * half + c] =
-          __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
+// Where element i of column l sits in a tile buffer of 2^lane_bits
+// interleaved columns (i * lanes + l before the swizzle): row i is
+// XOR-swizzled by its bits 3 and 4 within its group of 16 / lanes rows
+// (one 128-byte line), so that the stride-8 and stride-16 writes of a
+// first pass and the contiguous reads of the next meet (almost) no bank
+// conflicts, at no extra memory (fft_plan.col_tile rounds a buffer up to
+// a line).
+__device__ __forceinline__ int col_at(int i, int l, int lane_bits) {
+  return ((i ^ (((i >> 3) ^ (i >> 4)) & ((16 >> lane_bits) - 1)))
+          << lane_bits) | l;
+}
+
+// One thread's view of a pass over a column tile: its column l (live: c <
+// half) and its first item g0 and step ng of the pass's butterflies.
+struct ColPass {
+  const float2* col;   // the half spectrum at (row 0, this column)
+  float* out;          // mag2 at (row 0, this column)
+  const float2* src;   // the tile buffer a pass reads (not the first)
+  float2* dst;         // the tile buffer a pass writes (not the last)
+  const float2* stw;   // the stage twiddles
+  const float2* tw;    // the full twiddle table
+  int half, l, lane_bits, n, ns, g0, ng;
+};
+
+// row_pass's arithmetic on the thread's column of a tile: item g of the
+// pass after span ns, the same float32 operations in the same order.
+// kFirst (ns = 1): the values come straight from the half spectrum, rows
+// `half` apart; kLast: |y|^2 goes straight to mag2, else y to the tile
+// buffer.
+template <int R1, int R2, bool kFirst, bool kLast>
+__device__ void col_pass(const ColPass& p) {
+  const int n = p.n;
+  const int ns = p.ns;
+  const int m1 = n / R1;
+  const int items = n / (R1 * R2);
+  const int ns1 = ns * R1;
+  const float2* stw1 = p.stw + (ns - 1);
+  const float2* stw2 = p.stw + (ns1 - 1);
+  float2 w1[R1];
+  float2 w2[R2];
+  dft_twiddles<R1>(w1, p.tw, n);
+  dft_twiddles<R2>(w2, p.tw, n);
+  auto put = [&](int i, float2 y) {
+    if constexpr (kLast) {
+      __stcs(&p.out[static_cast<size_t>(i) * p.half],
+             __fadd_rn(__fmul_rn(y.x, y.x), __fmul_rn(y.y, y.y)));
+    } else {
+      p.dst[col_at(i, p.l, p.lane_bits)] = y;
     }
+  };
+  const int dk = p.ng % ns;
+  const int da = p.ng / ns;
+  int k = p.g0 % ns;
+  int a = p.g0 / ns;
+  for (int g = p.g0; g < items; g += p.ng) {
+    float2 u[R2][R1];
+#pragma unroll
+    for (int q2 = 0; q2 < R2; ++q2) {
+      const int j = g + q2 * items;
+      float2 v[R1];
+#pragma unroll
+      for (int q = 0; q < R1; ++q) {
+        const int i = j + q * m1;
+        if constexpr (kFirst) {
+          v[q] = __ldcs(&p.col[static_cast<size_t>(i) * p.half]);
+        } else {
+          v[q] = p.src[col_at(i, p.l, p.lane_bits)];
+          if (q > 0 && k > 0) v[q] = cmul(v[q], stw1[(q - 1) * ns + k]);
+        }
+      }
+      dft<R1>(v, w1, u[q2]);
+    }
+    const int base = a * ns1 * R2 + k;
+#pragma unroll
+    for (int t = 0; t < R1; ++t) {
+      if constexpr (R2 == 1) {
+        put(base + t * ns, u[0][t]);
+      } else {
+        const int k2 = t * ns + k;
+        float2 v[R2];
+#pragma unroll
+        for (int q2 = 0; q2 < R2; ++q2) {
+          v[q2] = u[q2][t];
+          if (q2 > 0 && k2 > 0) v[q2] = cmul(v[q2], stw2[(q2 - 1) * ns1 + k2]);
+        }
+        float2 y[R2];
+        dft<R2>(v, w2, y);
+#pragma unroll
+        for (int tt = 0; tt < R2; ++tt) put(base + tt * ns1 + t * ns, y[tt]);
+      }
+    }
+    k += dk;
+    a += da;
+    if (k >= ns) {
+      k -= ns;
+      ++a;
+    }
+  }
+}
+
+// col_pass for the radices of one pass, as row_pass_of.
+template <bool kFirst, bool kLast, bool kWide>
+__device__ void col_pass_radices(int r1, int r2, const ColPass& p) {
+#define PH_COL_PASS(A, B) col_pass<A, B, kFirst, kLast>(p)
+  switch (r1 * 16 + r2) {
+    case 4 * 16 + 4: PH_COL_PASS(4, 4); break;
+    case 4 * 16 + 2: PH_COL_PASS(4, 2); break;
+    case 4 * 16 + 3: PH_COL_PASS(4, 3); break;
+    case 2 * 16 + 3: PH_COL_PASS(2, 3); break;
+    case 2 * 16 + 5: PH_COL_PASS(2, 5); break;
+    case 3 * 16 + 3: PH_COL_PASS(3, 3); break;
+    case 3 * 16 + 5: PH_COL_PASS(3, 5); break;
+    case 2 * 16 + 1: PH_COL_PASS(2, 1); break;
+    case 3 * 16 + 1: PH_COL_PASS(3, 1); break;
+    case 4 * 16 + 1: PH_COL_PASS(4, 1); break;
+    case 5 * 16 + 1: PH_COL_PASS(5, 1); break;
+    default:
+      if constexpr (kWide) {
+        switch (r1 * 16 + r2) {
+          case 2 * 16 + 7: PH_COL_PASS(2, 7); break;
+          case 7 * 16 + 1: PH_COL_PASS(7, 1); break;
+          case 11 * 16 + 1: PH_COL_PASS(11, 1); break;
+          default: PH_COL_PASS(13, 1); break;
+        }
+      }
+      break;
+  }
+#undef PH_COL_PASS
+}
+
+// spec: (B, H, half) float2; mag2: (B, H, half) float32.  Block (tile, b)
+// transforms columns [tile * lanes, tile * lanes + lanes) of image b in
+// passes of one or two stages (pass_partner, as K6a): the first reads its
+// values straight from spec, the last writes |X|^2 straight to mag2 (a
+// row of the tile is 32 bytes of spec at 4 lanes, one sector), and the
+// passes between go through two tile buffers (col_at).  Shared memory
+// (fft_plan.col_tile): the stage twiddles (tw_len float2, when
+// stw_shared) | two buffers of seq float2.  Thread t takes column t %
+// lanes and every (blockDim.x / lanes)-th butterfly of a pass from t /
+// lanes; the threads of a column past half sit the passes out.
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads, kColBlocksPerSm)
+    fft_cols_kernel(const float2* __restrict__ spec, int half, FftStages st,
+                    const float2* __restrict__ tw,
+                    const float2* __restrict__ stage_tw, int tw_len,
+                    bool stw_shared, int seq, int lane_bits,
+                    float* __restrict__ mag2) {
+  extern __shared__ float4 smem4[];
+  float2* smem = reinterpret_cast<float2*>(smem4);
+  const int n = st.n;
+  if (stw_shared) {
+    for (int i = threadIdx.x; i < n - 1; i += blockDim.x) smem[i] = stage_tw[i];
+    __syncthreads();
+  }
+  float2* x = smem + (stw_shared ? tw_len : 0);
+  float2* y = x + seq;
+  const int l = threadIdx.x & ((1 << lane_bits) - 1);
+  const int c = (blockIdx.x << lane_bits) + l;
+  const bool live = c < half;
+  const size_t at = static_cast<size_t>(blockIdx.y) * n * half + c;
+  ColPass p{spec + at, mag2 + at, x, x, stw_shared ? smem : stage_tw, tw,
+            half, l, lane_bits, n, 1,
+            static_cast<int>(threadIdx.x >> lane_bits),
+            static_cast<int>(blockDim.x >> lane_bits)};
+  if (st.count == 0) {
+    if (live && p.g0 == 0) {
+      const float2 v = __ldcs(p.col);
+      __stcs(p.out, __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)));
+    }
+    return;
+  }
+  for (int s = 0; s < st.count;) {
+    const int r1 = st.radix[s];
+    const int r2 = pass_partner(st, s);
+    const int next = s + (r2 > 1 ? 2 : 1);
+    const bool last = next == st.count;
+    if (live) {
+      if (s == 0) {
+        if (last) {
+          col_pass_radices<true, true, kWide>(r1, r2, p);
+        } else {
+          col_pass_radices<true, false, kWide>(r1, r2, p);
+        }
+      } else if (last) {
+        col_pass_radices<false, true, kWide>(r1, r2, p);
+      } else {
+        col_pass_radices<false, false, kWide>(r1, r2, p);
+      }
+    }
+    if (last) break;
+    __syncthreads();
+    // The first pass wrote x; each later one reads x and writes y.
+    if (s > 0) {
+      float2* t = x;
+      x = y;
+      y = t;
+    }
+    p.src = x;
+    p.dst = y;
+    p.ns *= r1 * r2;
+    s = next;
   }
 }
 
@@ -518,24 +640,35 @@ extern "C" int ph_fft_rows(const void* pgm, int rows, const FftStages* st,
   return cudaGetLastError();
 }
 
+// Mirror of ops/_cuda.ColTile: fft_plan.col_tile of the column length.
+struct ColTile {
+  int lane_bits;
+  int stw_shared;
+  int tw_len;
+  int seq;
+  int bytes;
+};
+
 // spec: (batch, H, half, 2) -> mag2: (batch, H, half), H = st->n.
+// stage_twiddles: the plan's (H - 1, 2) per-stage table.
 extern "C" int ph_fft_cols(const void* spec, int batch, int half,
                            const FftStages* st, const void* twiddles,
+                           const void* stage_twiddles, const ColTile* tile,
                            void* mag2, void* stream) {
-  int lanes = 4;
-  int lane_bits = 2;
-  while (lanes > 1 && 2 * static_cast<size_t>(st->n) * lanes * sizeof(float2) >
-                          kColSharedTarget) {
-    lanes >>= 1;
-    --lane_bits;
-  }
-  const size_t bytes = 2 * static_cast<size_t>(st->n) * lanes * sizeof(float2);
-  cudaError_t err = allow_shared(fft_cols_kernel, bytes);
+  if (tile->bytes > static_cast<int>(kMaxShared)) return cudaErrorInvalidValue;
+  bool wide = false;
+  for (int s = 0; s < st->count; ++s) wide = wide || st->radix[s] > 5;
+  auto kernel = wide ? fft_cols_kernel<true> : fft_cols_kernel<false>;
+  cudaError_t err = allow_shared(kernel, tile->bytes);
   if (err != cudaSuccess) return err;
+  const int lanes = 1 << tile->lane_bits;
   const dim3 grid((half + lanes - 1) / lanes, batch);
-  fft_cols_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  if (grid.x == 0 || grid.y == 0) return cudaSuccess;
+  kernel<<<grid, kThreads, tile->bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(spec), half, *st,
-      static_cast<const float2*>(twiddles), lanes, lane_bits,
+      static_cast<const float2*>(twiddles),
+      static_cast<const float2*>(stage_twiddles), tile->tw_len,
+      tile->stw_shared != 0, tile->seq, tile->lane_bits,
       static_cast<float*>(mag2));
   return cudaGetLastError();
 }

@@ -107,11 +107,20 @@ class FftStages(ctypes.Structure):
                    radix=(ctypes.c_int * cls.MAX_STAGES)(*radices))
 
 
+class ColTile(ctypes.Structure):
+    """Mirror of ``struct ColTile`` in csrc/fft.cu: the column kernel's tile
+    (``fft_plan.col_tile``)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "lane_bits", "stw_shared", "tw_len", "seq", "bytes")]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _PARAMS = ctypes.POINTER(CellParams)
 _STAGES = ctypes.POINTER(FftStages)
+_COL_TILE = ctypes.POINTER(ColTile)
 _SIGNATURES = {
     # (rgb, is_u8, batch, pixels, params, counts_out, s_out, acc, stream)
     "ph_cell_counts_s": [_P, _I, _I, _LL, _PARAMS, _P, _P, _P, _P],
@@ -139,8 +148,9 @@ _SIGNATURES = {
     "ph_sharpness_sums": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # (pgm, rows, stages, twiddles, stage_twiddles, spec_out, stream)
     "ph_fft_rows": [_P, _I, _STAGES, _P, _P, _P, _P],
-    # (spec, batch, half, stages, twiddles, mag2_out, stream)
-    "ph_fft_cols": [_P, _I, _I, _STAGES, _P, _P, _P],
+    # (spec, batch, half, stages, twiddles, stage_twiddles, tile, mag2_out,
+    #  stream)
+    "ph_fft_cols": [_P, _I, _I, _STAGES, _P, _P, _COL_TILE, _P, _P],
     # (mag2, bin_ids, batch, pixels, num_bins, bin_counts, acc, max_out,
     #  out, stream)
     "ph_polar_lognorm": [_P, _P, _I, _LL, _I, _P, _P, _P, _P, _P],

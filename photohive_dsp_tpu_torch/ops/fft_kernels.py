@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from . import _cuda
-from .fft_plan import FftPlan, LengthPlan
+from .fft_plan import FftPlan, LengthPlan, col_tile
 
 
 def _check_plan(t: torch.Tensor, plan: FftPlan) -> None:
@@ -152,8 +152,10 @@ def fft_cols(spec: torch.Tensor, plan: FftPlan) -> torch.Tensor:
     b = spec.shape[0]
     mag2 = torch.empty((b, plan.height, plan.half), dtype=torch.float32,
                        device=spec.device)
+    tile = _cuda.ColTile(*col_tile(plan.height))
     _cuda.launch("ph_fft_cols", spec, _cuda.ptr(spec), b, plan.half,
                  _stages(plan.cols), _cuda.ptr(plan.cols.twiddles),
+                 _cuda.ptr(plan.cols.stage_twiddles), ctypes.byref(tile),
                  _cuda.ptr(mag2))
     _cuda.LAUNCHES["fft_cols"] += 1
     return mag2

@@ -9,8 +9,10 @@ exp(-2 pi i t / n), t < n, computed in float64 and stored as float32; every
 twiddle a stage needs is an entry of it (stage s of radix r after a span
 ns multiplies by W_{ns r}^{q k} = table[q k n / (ns r)], and its r-point
 DFT uses W_r^u = table[u n / r]).  The plan also lays the stage twiddles
-out per stage (``stage_twiddle_table``), so that the row kernel reads a
+out per stage (``stage_twiddle_table``), so that the kernels read a
 stage's twiddles contiguously: the same float32 values, gathered once.
+``col_tile`` chooses how the column kernel lays a tile of columns out in
+shared memory.
 
 Unlike the TPU kernels, the gate asks nothing of the (8, 128) tiling: both
 sides must factor into {2, 3, 5, 7, 11, 13} and fit the kernels' shared
@@ -54,7 +56,7 @@ def stage_radices(n: int) -> Tuple[int, ...]:
         f for f in fs if f != 2)
 
 
-# Adjacent stage radices (r1, r2) that the row kernel runs as one pass in
+# Adjacent stage radices (r1, r2) that both kernels run as one pass in
 # registers (csrc/fft.cu fused_pair): r1 r2 <= 16, in the order
 # stage_radices gives them.
 FUSED_PAIRS = frozenset({(4, 4), (4, 2), (4, 3), (2, 3), (2, 5), (2, 7),
@@ -62,9 +64,9 @@ FUSED_PAIRS = frozenset({(4, 4), (4, 2), (4, 3), (2, 3), (2, 5), (2, 7),
 
 
 def row_passes(radices) -> Tuple[Tuple[int, int], ...]:
-    """The row kernel's passes over ``radices``: (r1, r2) for two stages
-    run as one, (r, 1) for a stage alone; pairs are taken greedily from
-    the first stage."""
+    """The kernels' passes over ``radices`` (the row kernel's and the
+    column kernel's alike): (r1, r2) for two stages run as one, (r, 1) for
+    a stage alone; pairs are taken greedily from the first stage."""
     out, s = [], 0
     while s < len(radices):
         pair = tuple(radices[s:s + 2])
@@ -75,6 +77,52 @@ def row_passes(radices) -> Tuple[Tuple[int, int], ...]:
             out.append((radices[s], 1))
             s += 1
     return tuple(out)
+
+
+# What one block may take on an H100, and what a column tile aims for so
+# that two blocks fit an SM (228 KB, 1 KB of it reserved for each block).
+MAX_SHARED = 232448
+COL_SHARED_TARGET = 113 * 1024
+
+
+class ColTile(NamedTuple):
+    """The column kernel's tile for columns of length n (csrc/fft.cu
+    fft_cols_kernel): ``lanes`` adjacent columns a block (a power of 2,
+    ``lane_bits`` its log), two buffers of ``seq`` float2 (n x lanes
+    rounded up to a 128-byte line, which the swizzle stays within), after
+    the stage twiddle table (``tw_len`` float2, n - 1 rounded up to even)
+    when ``stw_shared``; ``bytes`` of shared memory in all."""
+
+    lane_bits: int
+    stw_shared: bool
+    tw_len: int
+    seq: int
+    bytes: int
+
+    @property
+    def lanes(self) -> int:
+        return 1 << self.lane_bits
+
+
+def col_tile(n: int) -> ColTile:
+    """The widest tile of 4, 2 or 1 columns whose buffers and twiddle
+    table fit COL_SHARED_TARGET; past that, one column with the table in
+    device memory, in at most MAX_SHARED (n <= MAX_LENGTH)."""
+    tw_len = n & ~1
+
+    def tile(lane_bits, shared):
+        seq = (n * (1 << lane_bits) + 15) & ~15
+        return ColTile(lane_bits, shared, tw_len, seq,
+                       8 * (tw_len if shared else 0) + 16 * seq)
+
+    for lane_bits in (2, 1, 0):
+        t = tile(lane_bits, True)
+        if t.bytes <= COL_SHARED_TARGET:
+            return t
+    t = tile(0, False)
+    if t.bytes > COL_SHARED_TARGET and tile(0, True).bytes <= MAX_SHARED:
+        return tile(0, True)
+    return t
 
 
 def fft_kernel_eligible(height: int, width: int) -> bool:

@@ -4,6 +4,8 @@ and against ``pallas_fft.magnitude2_scrambled`` in interpret mode, the
 polar kernel's plain version (K7+K8) against ``polar_bin_sums_local``, and
 ``blur_bins_lognorm`` against ``blur_bins_scrambled_lognorm``."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -338,3 +340,138 @@ def test_row_kernel_schedule_matches_plain(n):
     got = _row_kernel_schedule(re, im, lp)
     want = tfk.stockham_plain(re, im, lp)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _col_at(i, l, lane_bits):
+    """csrc/fft.cu col_at: row i of column l in a tile buffer, the row
+    XOR-swizzled by its bits 3 and 4 within a 128-byte line."""
+    return ((i ^ (((i >> 3) ^ (i >> 4)) & ((16 >> lane_bits) - 1)))
+            << lane_bits) | l
+
+
+def _col_kernel_schedule(spec, lp):
+    """K6b's arithmetic as csrc/fft.cu fft_cols_kernel orders it, in torch:
+    the half spectrum cut into tiles of fft_plan.col_tile's lanes (zeros
+    past the last column), the passes of fft_plan.row_passes with
+    row_pass's item order and per-stage twiddles, the first pass reading
+    the columns, the last writing |y|^2, and the passes between going
+    through tile buffers of ``seq`` slots laid out by col_at.  Each buffer
+    starts as NaN, so a read of a slot no pass wrote shows."""
+    b, n, half, _ = spec.shape
+    tile = fft_plan.col_tile(n)
+    lanes, lb = tile.lanes, tile.lane_bits
+    tiles = -(-half // lanes)
+    cols = torch.zeros((b, n, tiles * lanes, 2))
+    cols[:, :, :half] = spec
+    # (N, lanes, n): the columns of each tile.
+    cols = cols.reshape(b, n, tiles, lanes, 2).permute(0, 2, 3, 1, 4)
+    xr = cols[..., 0].reshape(-1, lanes, n)
+    xi = cols[..., 1].reshape(-1, lanes, n)
+    lane = torch.arange(lanes)[:, None]
+    stw = lp.stage_twiddles
+    passes = fft_plan.row_passes(lp.radices)
+    if not passes:
+        out = xr * xr + xi * xi
+    ns = 1
+    for pi, (r1, r2) in enumerate(passes):
+        items, m1, ns1 = n // (r1 * r2), n // r1, ns * r1
+        g = torch.arange(items)
+        k, a = g % ns, g // ns
+
+        def read(i):
+            if pi == 0:
+                return xr[:, :, i], xi[:, :, i]
+            at = _col_at(i[None, :], lane, lb)
+            return buf_r[:, at], buf_i[:, at]
+
+        u = []
+        for p in range(r2):
+            j = g + p * items
+            vals = [read(j + q * m1) for q in range(r1)]
+            vr, vi = _twiddled([v[0] for v in vals], [v[1] for v in vals],
+                               stw, ns - 1, ns, k)
+            u.append(_dft(vr, vi, r1, lp))
+        last = pi == len(passes) - 1
+        if last:
+            out = torch.full_like(xr, float("nan"))
+        else:
+            new_r = torch.full((xr.shape[0], tile.seq), float("nan"))
+            new_i = torch.full_like(new_r, float("nan"))
+        base = a * ns1 * r2 + k
+        for t in range(r1):
+            vr, vi = _twiddled([u[p][t][0] for p in range(r2)],
+                               [u[p][t][1] for p in range(r2)],
+                               stw, ns1 - 1, ns1, t * ns + k)
+            for tt, (yr, yi) in enumerate(_dft(vr, vi, r2, lp)):
+                i = base + tt * ns1 + t * ns
+                if last:
+                    out[:, :, i] = yr * yr + yi * yi
+                else:
+                    at = _col_at(i[None, :], lane, lb)
+                    new_r[:, at], new_i[:, at] = yr, yi
+        if not last:
+            buf_r, buf_i = new_r, new_i
+        ns *= r1 * r2
+    out = out.reshape(b, tiles, lanes, n).permute(0, 3, 1, 2)
+    return out.reshape(b, n, tiles * lanes)[:, :, :half]
+
+
+@pytest.mark.parametrize("n", [1080, 2160, 1092, 720, 480, 143, 1001, 14520,
+                               15, 2, 1])
+def test_col_kernel_schedule_matches_plain(n):
+    """K6b's schedule (passes, twiddle indexing, tile layout) gives
+    fft_cols_plain's |X|^2 bit for bit, zero rows and a zero column in the
+    input included, on a half width that is no multiple of the tile."""
+    rng = np.random.default_rng(n)
+    w = 9                                   # half = 5
+    spec = rng.standard_normal((2, n, w // 2 + 1, 2)).astype(np.float32)
+    spec[0, :, 0] = 0.0
+    spec[1, ::3] = 0.0
+    spec = torch.from_numpy(spec)
+    plan = fft_plan.FftPlan.for_shape(n, w)
+    got = _col_kernel_schedule(spec, plan.cols)
+    assert torch.equal(got, tfk.fft_cols_plain(spec, plan))
+
+
+def _admitted_lengths():
+    return [n for n in range(1, fft_plan.MAX_LENGTH + 1)
+            if fft_plan.factor(n) is not None]
+
+
+def test_col_tile_fits_and_lays_out_every_admitted_height():
+    """For every length the gate admits: the column tile fits an H100
+    block's shared memory (csrc/fft.cu kMaxShared), its buffer holds every
+    (row, column) of the tile at a slot of its own (col_at is one to one
+    into seq), the twiddle table's room holds the n - 1 stage twiddles,
+    and the passes run every stage radix in order."""
+    src = (Path(fft_plan.__file__).parent.parent / "csrc" / "fft.cu"
+           ).read_text()
+    assert f"kMaxShared = {fft_plan.MAX_SHARED};" in src
+    lengths = _admitted_lengths()
+    assert len(lengths) == 858 and lengths[-1] == 14520
+    for n in lengths:
+        tile = fft_plan.col_tile(n)
+        assert tile.bytes <= fft_plan.MAX_SHARED
+        assert tile.bytes == 8 * tile.tw_len * tile.stw_shared + 16 * tile.seq
+        assert tile.tw_len % 2 == 0 and tile.tw_len >= n - 1
+        assert tile.seq % 16 == 0
+        at = _col_at(np.arange(n)[:, None], np.arange(tile.lanes)[None, :],
+                     tile.lane_bits)
+        assert at.max() < tile.seq and np.unique(at).size == at.size
+        passes = fft_plan.row_passes(fft_plan.stage_radices(n))
+        assert all(p in fft_plan.FUSED_PAIRS or p[1] == 1 for p in passes)
+        assert tuple(r for p in passes for r in p if r > 1) == \
+            fft_plan.stage_radices(n)
+
+
+@pytest.mark.parametrize("n,lanes,shared", [(1080, 4, True), (1092, 4, True),
+                                            (2160, 2, True), (4320, 1, True),
+                                            (7000, 1, False),
+                                            (14520, 1, False)])
+def test_col_tile_widest_that_fits(n, lanes, shared):
+    """col_tile takes 4 columns a block while two blocks fit an SM, then 2,
+    then 1, and past that moves the twiddle table to device memory."""
+    tile = fft_plan.col_tile(n)
+    assert (tile.lanes, tile.stw_shared) == (lanes, shared)
+    assert tile.bytes <= (fft_plan.COL_SHARED_TARGET if n < 14520
+                          else fft_plan.MAX_SHARED)
