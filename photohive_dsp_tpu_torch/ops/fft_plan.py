@@ -79,23 +79,20 @@ def row_passes(radices) -> Tuple[Tuple[int, int], ...]:
     return tuple(out)
 
 
-# What one block may take on an H100, and what a column tile aims for so
-# that two blocks fit an SM (228 KB, 1 KB of it reserved for each block).
+# What one block may take on an H100, and the column kernel's threads a
+# block (csrc/fft.cu kColThreads; one such block an SM).
 MAX_SHARED = 232448
-COL_SHARED_TARGET = 113 * 1024
+COL_THREADS = 512
 
 
 class ColTile(NamedTuple):
     """The column kernel's tile for columns of length n (csrc/fft.cu
     fft_cols_kernel): ``lanes`` adjacent columns a block (a power of 2,
-    ``lane_bits`` its log), two buffers of ``seq`` float2 (n x lanes
-    rounded up to a 128-byte line, which the swizzle stays within), after
-    the stage twiddle table (``tw_len`` float2, n - 1 rounded up to even)
-    when ``stw_shared``; ``bytes`` of shared memory in all."""
+    ``lane_bits`` its log), two buffers of ``seq`` float2 each (n x lanes
+    rounded up to a 128-byte line, which the swizzle stays within),
+    ``bytes`` of shared memory."""
 
     lane_bits: int
-    stw_shared: bool
-    tw_len: int
     seq: int
     bytes: int
 
@@ -105,24 +102,14 @@ class ColTile(NamedTuple):
 
 
 def col_tile(n: int) -> ColTile:
-    """The widest tile of 4, 2 or 1 columns whose buffers and twiddle
-    table fit COL_SHARED_TARGET; past that, one column with the table in
-    device memory, in at most MAX_SHARED (n <= MAX_LENGTH)."""
-    tw_len = n & ~1
-
-    def tile(lane_bits, shared):
+    """The widest tile of 8, 4, 2 or 1 columns whose two buffers fit
+    MAX_SHARED: 8 at n = 1080, 4 at 2160, 2 at 4320, 1 past 7264 (one
+    column takes 16 n bytes, so n <= MAX_LENGTH fits)."""
+    for lane_bits in (3, 2, 1, 0):
         seq = (n * (1 << lane_bits) + 15) & ~15
-        return ColTile(lane_bits, shared, tw_len, seq,
-                       8 * (tw_len if shared else 0) + 16 * seq)
-
-    for lane_bits in (2, 1, 0):
-        t = tile(lane_bits, True)
-        if t.bytes <= COL_SHARED_TARGET:
-            return t
-    t = tile(0, False)
-    if t.bytes > COL_SHARED_TARGET and tile(0, True).bytes <= MAX_SHARED:
-        return tile(0, True)
-    return t
+        if 16 * seq <= MAX_SHARED:
+            return ColTile(lane_bits, seq, 16 * seq)
+    raise ValueError(f"no column tile of length {n} fits {MAX_SHARED} B")
 
 
 def fft_kernel_eligible(height: int, width: int) -> bool:

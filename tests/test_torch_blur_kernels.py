@@ -439,22 +439,21 @@ def _admitted_lengths():
 
 
 def test_col_tile_fits_and_lays_out_every_admitted_height():
-    """For every length the gate admits: the column tile fits an H100
-    block's shared memory (csrc/fft.cu kMaxShared), its buffer holds every
-    (row, column) of the tile at a slot of its own (col_at is one to one
-    into seq), the twiddle table's room holds the n - 1 stage twiddles,
-    and the passes run every stage radix in order."""
+    """For every length the gate admits: the column tile's two buffers fit
+    an H100 block's shared memory (csrc/fft.cu kMaxShared), a block's
+    threads (kColThreads) split evenly over its columns, each buffer holds
+    every (row, column) of the tile at a slot of its own (col_at is one
+    to one into seq), and the passes run every stage radix in order."""
     src = (Path(fft_plan.__file__).parent.parent / "csrc" / "fft.cu"
            ).read_text()
     assert f"kMaxShared = {fft_plan.MAX_SHARED};" in src
+    assert f"kColThreads = {fft_plan.COL_THREADS};" in src
     lengths = _admitted_lengths()
     assert len(lengths) == 858 and lengths[-1] == 14520
     for n in lengths:
         tile = fft_plan.col_tile(n)
-        assert tile.bytes <= fft_plan.MAX_SHARED
-        assert tile.bytes == 8 * tile.tw_len * tile.stw_shared + 16 * tile.seq
-        assert tile.tw_len % 2 == 0 and tile.tw_len >= n - 1
-        assert tile.seq % 16 == 0
+        assert tile.bytes == 16 * tile.seq <= fft_plan.MAX_SHARED
+        assert tile.seq % 16 == 0 and fft_plan.COL_THREADS % tile.lanes == 0
         at = _col_at(np.arange(n)[:, None], np.arange(tile.lanes)[None, :],
                      tile.lane_bits)
         assert at.max() < tile.seq and np.unique(at).size == at.size
@@ -464,14 +463,14 @@ def test_col_tile_fits_and_lays_out_every_admitted_height():
             fft_plan.stage_radices(n)
 
 
-@pytest.mark.parametrize("n,lanes,shared", [(1080, 4, True), (1092, 4, True),
-                                            (2160, 2, True), (4320, 1, True),
-                                            (7000, 1, False),
-                                            (14520, 1, False)])
-def test_col_tile_widest_that_fits(n, lanes, shared):
-    """col_tile takes 4 columns a block while two blocks fit an SM, then 2,
-    then 1, and past that moves the twiddle table to device memory."""
+@pytest.mark.parametrize("n,lanes", [(1080, 8), (1092, 8), (1001, 8),
+                                     (2160, 4), (4320, 2), (7000, 2),
+                                     (9680, 1), (14520, 1)])
+def test_col_tile_choice(n, lanes):
+    """col_tile takes the widest tile of at most 8 columns whose two
+    buffers fit a block's shared memory."""
     tile = fft_plan.col_tile(n)
-    assert (tile.lanes, tile.stw_shared) == (lanes, shared)
-    assert tile.bytes <= (fft_plan.COL_SHARED_TARGET if n < 14520
-                          else fft_plan.MAX_SHARED)
+    assert tile.lanes == lanes
+    wider = (n * 2 * lanes + 15) // 16 * 16 * 16
+    assert tile.bytes <= fft_plan.MAX_SHARED and (
+        lanes == 8 or wider > fft_plan.MAX_SHARED)
