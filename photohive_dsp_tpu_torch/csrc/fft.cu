@@ -45,20 +45,21 @@
 //     are never staged as such.  Registers are capped at 80 a thread so
 //     that three blocks fit an SM.
 //   * K6b: one block of 512 threads per tile of `lanes` adjacent columns
-//     of one image (fft_plan.col_tile: 8 at H = 1080, so a row of the tile
-//     is two full 32-byte sectors of the half spectrum and one of |X|^2; 4
-//     at 2160; 1 past ~7300), one block an SM, with K6a's passes run on
-//     each column of the tile: two stages a pass in registers, the
-//     per-stage twiddles read contiguously (from device memory, through
-//     L1), (a, k) counters.  The first pass reads its values straight from
-//     the half spectrum and the last writes |X|^2 straight to mag2
-//     (streaming loads and stores), so a tile goes through shared memory
-//     only between passes: twice at 1080 = (4,2)(3,3)(3,5), where PR 2's
-//     design went through it eight times (a load, six stages, a store).
-//     The two tile buffers interleave the columns, their rows
-//     XOR-swizzled within a 128-byte line (col_at).  What bounds it is the
-//     column access: a copy of the half spectrum to |X|^2 in the same
-//     tile order, with no FFT, took 0.047 of its 0.058 ms (PERF.md).
+//     of one image, one block an SM (fft_plan.col_tile: 8 columns at H =
+//     1080, so a row of the tile is two full 32-byte sectors of the half
+//     spectrum and one of |X|^2; 4 at 2160; 1 past ~5800), with K6a's
+//     passes run on each column of the tile: two stages a pass in
+//     registers, the per-stage twiddle table in shared memory (in device
+//     memory past ~9700), (a, k) counters.  The first pass reads its
+//     values straight from the half spectrum and the last writes |X|^2
+//     straight to mag2 (streaming loads and stores), so a tile goes
+//     through shared memory only between passes: twice at 1080 =
+//     (4,2)(3,3)(3,5), where PR 2's design went through it eight times (a
+//     load, six stages, a store).  The two tile buffers interleave the
+//     columns, their rows XOR-swizzled within a 128-byte line (col_at).
+//     What bounds it is the column access itself: a copy of the half
+//     spectrum to |X|^2 in the same tile order, with no FFT, takes ~80% of
+//     its time (PERF.md, PR 8).
 #include <cuda_runtime.h>
 
 namespace {
@@ -499,30 +500,35 @@ __device__ void col_pass_radices(int r1, int r2, const ColPass& p) {
 // spec: (B, H, half) float2; mag2: (B, H, half) float32.  Block (tile, b)
 // transforms columns [tile * lanes, tile * lanes + lanes) of image b in
 // passes of one or two stages (pass_partner, as K6a): the first reads its
-// values straight from spec, the last writes |X|^2 straight to mag2, and
-// the passes between go through two tile buffers of seq float2 each
-// (fft_plan.col_tile: 8 columns at H = 1080, so a row of the tile is 64
-// bytes of spec and 32 of mag2, two full sectors).  The stage twiddles
-// are read from device memory: the table is 8.6 KB at H = 1080 and stays
-// in L1, where staging it per block cost more than it saved.  Thread t
-// takes column t % lanes and every (blockDim.x / lanes)-th butterfly of a
-// pass from t / lanes; the threads of a column past half sit the passes
-// out.
+// values straight from spec, the last writes |X|^2 straight to mag2 (a
+// row of the tile is 64 bytes of spec at 8 lanes, two sectors), and the
+// passes between go through two tile buffers (col_at).  Shared memory
+// (fft_plan.col_tile): the stage twiddles (tw_len float2, when
+// stw_shared) | two buffers of seq float2.  Thread t takes column t %
+// lanes and every (blockDim.x / lanes)-th butterfly of a pass from t /
+// lanes; the threads of a column past half sit the passes out.
 template <bool kWide>
 __global__ void __launch_bounds__(kColThreads, 1)
     fft_cols_kernel(const float2* __restrict__ spec, int half, FftStages st,
                     const float2* __restrict__ tw,
-                    const float2* __restrict__ stage_tw, int seq,
-                    int lane_bits, float* __restrict__ mag2) {
+                    const float2* __restrict__ stage_tw, int tw_len,
+                    bool stw_shared, int seq, int lane_bits,
+                    float* __restrict__ mag2) {
   extern __shared__ float4 smem4[];
-  float2* x = reinterpret_cast<float2*>(smem4);
-  float2* y = x + seq;
+  float2* smem = reinterpret_cast<float2*>(smem4);
   const int n = st.n;
+  if (stw_shared) {
+    for (int i = threadIdx.x; i < n - 1; i += blockDim.x) smem[i] = stage_tw[i];
+    __syncthreads();
+  }
+  float2* x = smem + (stw_shared ? tw_len : 0);
+  float2* y = x + seq;
   const int l = threadIdx.x & ((1 << lane_bits) - 1);
   const int c = (blockIdx.x << lane_bits) + l;
   const bool live = c < half;
   const size_t at = static_cast<size_t>(blockIdx.y) * n * half + c;
-  ColPass p{spec + at, mag2 + at, x, x, stage_tw, tw, half, l, lane_bits, n, 1,
+  ColPass p{spec + at, mag2 + at, x, x, stw_shared ? smem : stage_tw, tw,
+            half, l, lane_bits, n, 1,
             static_cast<int>(threadIdx.x >> lane_bits),
             static_cast<int>(blockDim.x >> lane_bits)};
   if (st.count == 0) {
@@ -640,6 +646,8 @@ extern "C" int ph_fft_rows(const void* pgm, int rows, const FftStages* st,
 // Mirror of ops/_cuda.ColTile: fft_plan.col_tile of the column length.
 struct ColTile {
   int lane_bits;
+  int stw_shared;
+  int tw_len;
   int seq;
   int bytes;
 };
@@ -663,7 +671,8 @@ extern "C" int ph_fft_cols(const void* spec, int batch, int half,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(spec), half, *st,
       static_cast<const float2*>(twiddles),
-      static_cast<const float2*>(stage_twiddles), tile->seq, tile->lane_bits,
+      static_cast<const float2*>(stage_twiddles), tile->tw_len,
+      tile->stw_shared != 0, tile->seq, tile->lane_bits,
       static_cast<float*>(mag2));
   return cudaGetLastError();
 }

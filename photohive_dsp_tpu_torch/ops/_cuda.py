@@ -112,7 +112,7 @@ class ColTile(ctypes.Structure):
     (``fft_plan.col_tile``)."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
-        "lane_bits", "seq", "bytes")]
+        "lane_bits", "stw_shared", "tw_len", "seq", "bytes")]
 
 
 _P = ctypes.c_void_p

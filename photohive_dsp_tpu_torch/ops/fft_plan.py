@@ -88,11 +88,14 @@ COL_THREADS = 512
 class ColTile(NamedTuple):
     """The column kernel's tile for columns of length n (csrc/fft.cu
     fft_cols_kernel): ``lanes`` adjacent columns a block (a power of 2,
-    ``lane_bits`` its log), two buffers of ``seq`` float2 each (n x lanes
-    rounded up to a 128-byte line, which the swizzle stays within),
-    ``bytes`` of shared memory."""
+    ``lane_bits`` its log), two buffers of ``seq`` float2 (n x lanes
+    rounded up to a 128-byte line, which the swizzle stays within), after
+    the stage twiddle table (``tw_len`` float2, n - 1 rounded up to even)
+    when ``stw_shared``; ``bytes`` of shared memory in all."""
 
     lane_bits: int
+    stw_shared: bool
+    tw_len: int
     seq: int
     bytes: int
 
@@ -102,14 +105,21 @@ class ColTile(NamedTuple):
 
 
 def col_tile(n: int) -> ColTile:
-    """The widest tile of 8, 4, 2 or 1 columns whose two buffers fit
-    MAX_SHARED: 8 at n = 1080, 4 at 2160, 2 at 4320, 1 past 7264 (one
-    column takes 16 n bytes, so n <= MAX_LENGTH fits)."""
-    for lane_bits in (3, 2, 1, 0):
+    """The widest tile of 8, 4, 2 or 1 columns whose buffers and twiddle
+    table fit MAX_SHARED (8 at n = 1080, 4 at 2160); past that, one column
+    with the table in device memory (16 n bytes: n <= MAX_LENGTH fits)."""
+    tw_len = n & ~1
+
+    def tile(lane_bits, shared):
         seq = (n * (1 << lane_bits) + 15) & ~15
-        if 16 * seq <= MAX_SHARED:
-            return ColTile(lane_bits, seq, 16 * seq)
-    raise ValueError(f"no column tile of length {n} fits {MAX_SHARED} B")
+        return ColTile(lane_bits, shared, tw_len, seq,
+                       8 * (tw_len if shared else 0) + 16 * seq)
+
+    for lane_bits in (3, 2, 1, 0):
+        t = tile(lane_bits, True)
+        if t.bytes <= MAX_SHARED:
+            return t
+    return tile(0, False)
 
 
 def fft_kernel_eligible(height: int, width: int) -> bool:

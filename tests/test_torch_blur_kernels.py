@@ -439,11 +439,12 @@ def _admitted_lengths():
 
 
 def test_col_tile_fits_and_lays_out_every_admitted_height():
-    """For every length the gate admits: the column tile's two buffers fit
-    an H100 block's shared memory (csrc/fft.cu kMaxShared), a block's
-    threads (kColThreads) split evenly over its columns, each buffer holds
-    every (row, column) of the tile at a slot of its own (col_at is one
-    to one into seq), and the passes run every stage radix in order."""
+    """For every length the gate admits: the column tile fits an H100
+    block's shared memory (csrc/fft.cu kMaxShared), a block's threads
+    (kColThreads) split evenly over its columns, its buffer holds every
+    (row, column) of the tile at a slot of its own (col_at is one to one
+    into seq), the twiddle table's room holds the n - 1 stage twiddles,
+    and the passes run every stage radix in order."""
     src = (Path(fft_plan.__file__).parent.parent / "csrc" / "fft.cu"
            ).read_text()
     assert f"kMaxShared = {fft_plan.MAX_SHARED};" in src
@@ -452,7 +453,9 @@ def test_col_tile_fits_and_lays_out_every_admitted_height():
     assert len(lengths) == 858 and lengths[-1] == 14520
     for n in lengths:
         tile = fft_plan.col_tile(n)
-        assert tile.bytes == 16 * tile.seq <= fft_plan.MAX_SHARED
+        assert tile.bytes <= fft_plan.MAX_SHARED
+        assert tile.bytes == 8 * tile.tw_len * tile.stw_shared + 16 * tile.seq
+        assert tile.tw_len % 2 == 0 and tile.tw_len >= n - 1
         assert tile.seq % 16 == 0 and fft_plan.COL_THREADS % tile.lanes == 0
         at = _col_at(np.arange(n)[:, None], np.arange(tile.lanes)[None, :],
                      tile.lane_bits)
@@ -463,14 +466,18 @@ def test_col_tile_fits_and_lays_out_every_admitted_height():
             fft_plan.stage_radices(n)
 
 
-@pytest.mark.parametrize("n,lanes", [(1080, 8), (1092, 8), (1001, 8),
-                                     (2160, 4), (4320, 2), (7000, 2),
-                                     (9680, 1), (14520, 1)])
-def test_col_tile_choice(n, lanes):
-    """col_tile takes the widest tile of at most 8 columns whose two
-    buffers fit a block's shared memory."""
+@pytest.mark.parametrize("n,lanes,shared", [(1080, 8, True), (1092, 8, True),
+                                            (1001, 8, True), (2160, 4, True),
+                                            (4320, 2, True), (7000, 1, True),
+                                            (9680, 1, True),
+                                            (14520, 1, False)])
+def test_col_tile_widest_that_fits(n, lanes, shared):
+    """col_tile takes the widest tile of at most 8 columns whose buffers
+    and twiddle table fit a block's shared memory; past one column, it
+    moves the table to device memory."""
     tile = fft_plan.col_tile(n)
-    assert tile.lanes == lanes
-    wider = (n * 2 * lanes + 15) // 16 * 16 * 16
-    assert tile.bytes <= fft_plan.MAX_SHARED and (
-        lanes == 8 or wider > fft_plan.MAX_SHARED)
+    assert (tile.lanes, tile.stw_shared) == (lanes, shared)
+    assert tile.bytes <= fft_plan.MAX_SHARED
+    if lanes < 8:
+        wider = ((2 * lanes * n + 15) & ~15) * 16 + 8 * tile.tw_len
+        assert wider > fft_plan.MAX_SHARED
