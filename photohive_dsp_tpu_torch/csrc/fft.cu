@@ -379,8 +379,8 @@ __device__ __forceinline__ int col_at(int i, int l, int lane_bits) {
           << lane_bits) | l;
 }
 
-// One thread's view of a pass over a column tile: its column l (live: c <
-// half) and its first item g0 and step ng of the pass's butterflies.
+// One thread's view of a pass over a column tile: its column l, and its
+// first butterfly g0 and step ng in the pass.
 struct ColPass {
   const float2* col;   // the half spectrum at (row 0, this column)
   float* out;          // mag2 at (row 0, this column)

@@ -51,7 +51,8 @@ def _cmul(ar, ai, br, bi):
 
 def stockham_plain(re: torch.Tensor, im: torch.Tensor, lp: LengthPlan):
     """DFT along the last dim of (N, n) float32 re/im, natural order in and
-    out, by the kernels' Stockham stages (csrc/fft.cu ``stage``).
+    out, by the kernels' Stockham stages (csrc/fft.cu ``row_pass`` and
+    ``col_pass`` run them one or two a pass, in the same operations).
 
     Stage of radix r after span ns, m = n / r, for j < m and k = j % ns:
     v_q = x[j + q m] W_{ns r}^{q k}; V_t = v_0 + sum_{q>=1} v_q W_r^{qt}

@@ -3,7 +3,8 @@
 ``use_pallas_fft`` and ``FftPlan.for_shape``).
 
 A length-n transform runs as a mixed-radix Stockham FFT (csrc/fft.cu): one
-pass per radix, natural order in and out, so no digit-reversal table
+stage per radix, two adjacent stages fused into one pass where
+``row_passes`` says, natural order in and out, so no digit-reversal table
 exists.  The plan of a length holds its stage radices and one twiddle table
 exp(-2 pi i t / n), t < n, computed in float64 and stored as float32; every
 twiddle a stage needs is an entry of it (stage s of radix r after a span
