@@ -54,12 +54,12 @@
 //     values straight from the half spectrum and the last writes |X|^2
 //     straight to mag2 (streaming loads and stores), so a tile goes
 //     through shared memory only between passes: twice at 1080 =
-//     (4,2)(3,3)(3,5), where PR 2's design went through it eight times (a
-//     load, six stages, a store).  The two tile buffers interleave the
-//     columns, their rows XOR-swizzled within a 128-byte line (col_at).
-//     What bounds it is the column access itself: a copy of the half
-//     spectrum to |X|^2 in the same tile order, with no FFT, takes ~80% of
-//     its time (PERF.md, PR 8).
+//     (4,2)(3,3)(3,5), where the first design went through it eight
+//     times (a load, six stages, a store).  The two tile buffers
+//     interleave the columns, their rows XOR-swizzled within a 128-byte
+//     line (col_at).  What bounds it is the column access itself: a copy
+//     of the half spectrum to |X|^2 in the same tile order, with no FFT,
+//     takes ~80% of its time (PERF.md).
 #include <cuda_runtime.h>
 
 namespace {
