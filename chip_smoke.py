@@ -13,6 +13,8 @@ each of which raises on failure:
   2. build: compiles the kernels from photohive_dsp_tpu_torch/csrc;
   3. kernels against their plain versions on the card: the palette kernels
      at 1080x1920, B=4, uint8 input (K1-K4) and float32 input (K11-K13);
+     the margin sort (K2) on both sides of each of its buckets' edges at
+     B=1, 4 and 16 on seven kinds of data (check_margin_sort);
      the crop-box sharpness kernel (K5) at 1080x1920 B=4 with three boxes,
      one on the image's edge (twice, bit-identical); the flat-HSV palette
      kernels (K9, K10, K14) at 1080x1920 B=4 with a sentinel tail (which
@@ -65,7 +67,9 @@ phase fails or no CUDA device is present.  Imports no JAX.
 
     python3 chip_smoke.py                     # what the checks need
     python3 chip_smoke.py --parent DIR        # also time the palette
-        # kernels, K6a, K6b, K7+K8, the blur tail and a B=8 report of the
+        # kernels, K2 (C=112 and 2164), K5 (and its time in each CUDA
+        # kernel it launches, by torch.profiler), K6a, K6b, K7+K8, the blur
+        # tail and a B=8 report of the
         # checkout at DIR against this one's, on the same inputs, in turns
         # parent, this, this, parent
     python3 chip_smoke.py --kernel-times DIR  # those times alone, for the
@@ -405,15 +409,43 @@ def phase_kernels(images, cfg, tables):
             err[key] = float((got - want).abs().max())
         log(f"  kernels {name}: {', '.join(ids.values())} match their "
             f"plain versions")
-    rng = np.random.default_rng(SEED + 1)
-    big = torch.as_tensor(np.round(rng.random((4, 2164)) * 30)
-                          + rng.random((4, 2164)) * 0.6, dtype=torch.float32,
-                          device=DEVICE)
-    if not torch.equal(margin_sort(big), margin_insertion_argsort(big)):
-        raise AssertionError("K2: order differs at C=2164")
-    log("  K2 exact at C=112 and C=2164")
+    check_margin_sort()
     return err, dict(u8=u8, f32=f32, slot=slot, off=off, sal=sal,
                      assign=assign, counts=counts)
+
+
+# K2 beyond tests/test_torch_margin_sort.SORT_CS: the 16- and 32-warp
+# buckets, at B=1.
+SORT_BIG_CS = [2500, 9000, 17000]
+
+
+def check_margin_sort() -> None:
+    """K2 bit-equal to its plain version at every C of
+    tests/test_torch_margin_sort.SORT_CS (each bucket's edges), B=1, 4 and
+    16, on each of its data kinds (uniform, ties inside the margin, all
+    equal, monotone, exactly 1.0 apart, subtractions that round near 1e7),
+    and at SORT_BIG_CS."""
+    from photohive_dsp_tpu_torch.ops.margin_sort import (
+        margin_insertion_argsort, margin_sort, sort_layout)
+    from tests.test_torch_margin_sort import KINDS, SORT_CS, sort_data
+
+    for c in SORT_CS:
+        for kind in KINDS:
+            sal = torch.as_tensor(sort_data(kind, 16, c), device=DEVICE)
+            want = margin_insertion_argsort(sal)
+            for b in (1, 4, 16):
+                if not torch.equal(margin_sort(sal[:b].contiguous()),
+                                   want[:b]):
+                    raise AssertionError(f"K2 C={c} B={b} {kind}: order "
+                                         f"differs from plain")
+    for c in SORT_BIG_CS:
+        sal = torch.as_tensor(sort_data("rounded+jitter", 1, c),
+                              device=DEVICE)
+        if not torch.equal(margin_sort(sal), margin_insertion_argsort(sal)):
+            raise AssertionError(f"K2 C={c}: order differs from plain")
+    log(f"  K2 bit-equal to plain at C={SORT_CS} (B=1, 4, 16; {len(KINDS)} "
+        f"data kinds) and C={SORT_BIG_CS} (B=1); buckets (warps, "
+        f"registers) {sorted({sort_layout(c) for c in SORT_CS + SORT_BIG_CS})}")
 
 
 def luma(images) -> torch.Tensor:
@@ -1795,6 +1827,7 @@ def flat_frame_times(cfg) -> dict:
 
 def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
     import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.ops import _cuda
     from photohive_dsp_tpu_torch.ops import fft_kernels as fk
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import polar_kernels as pol
@@ -1917,6 +1950,10 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
             f"{times[key][1]:.4f} ms, library "
             f"{'%.4f ms' % times[key][2] if lib else 'none'}")
     k6 = times["K6a"][0] + times["K6b"][0]
+    floor = graph_ms(lambda: _cuda.launch("ph_empty_kernel", x))
+    times["launch floor"] = (floor, None, None)
+    log(f"  launch floor, an empty kernel of one warp: {floor:.4f} ms "
+        f"(K2 {times['K2'][0]:.4f} ms)")
     rfft2 = graph_ms(lambda: torch.fft.rfft2(fx).abs().square())
     times["K6"] = (k6, None, rfft2)
     log(f"  K6a+K6b {k6:.4f} ms vs torch.fft.rfft2 + |.|^2 {rfft2:.4f} ms "
@@ -2003,16 +2040,19 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
 
 
 def kernel_time_inputs(cfg):
-    """The inputs phase 7 times the palette kernels, K6a and K6b on, made
-    from SEED alone with the package on sys.path (this checkout's or
-    another's): B=4 1080x1920 uint8 frames (noise, structured, hue wheel,
-    noise), their float32 planes, flat HSV with a sentinel tail and its
-    cell ids, the palette tables of the batch, the luma without its mean,
-    its half spectrum (K6a's output), its |X|^2 and polar tables, the half
-    spectra of col_fft_inputs, and a batch of 4 one-colour frames with its
-    tables."""
+    """The inputs phase 7 times the kernels on, made from SEED alone with
+    the package on sys.path (this checkout's or another's): B=4 1080x1920
+    uint8 frames (noise, structured, hue wheel, noise), their float32
+    planes, flat HSV with a sentinel tail and its cell ids, the palette
+    tables of the batch and its saliencies (K2 at C=112), saliencies of
+    4 images at C=2164 (ties inside the margin), the luma with
+    main_boxes (K5), the luma without its mean, its half spectrum (K6a's
+    output), its |X|^2 and polar tables, the half spectra of
+    col_fft_inputs, and a batch of 4 one-colour frames with its tables."""
+    import photohive_dsp_tpu_torch as pt
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import quantize as qz
+    from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
     from photohive_dsp_tpu_torch.ops.blur import PolarTables
     from photohive_dsp_tpu_torch.ops.fft_kernels import fft_rows, magnitude2
     from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
@@ -2028,6 +2068,13 @@ def kernel_time_inputs(cfg):
     out["spec"] = fft_rows(out["x_dc"], out["plan"])
     out["mag2"] = magnitude2(out["x_dc"], out["plan"]).reshape(4, -1)
     out["cols"] = col_fft_inputs()
+    boxes, valid = pt.set_bounding_boxes(main_boxes(H, W))
+    out["pgm"] = luma(images)
+    out["bt"] = sk.box_tensor(np.stack([boxes] * 4), np.stack([valid] * 4),
+                              DEVICE)
+    out["sal2164"] = torch.as_tensor(
+        np.round(rng.random((4, 2164)) * 30) + rng.random((4, 2164)) * 0.6,
+        dtype=torch.float32, device=DEVICE)
     for name, frames in (("", np.stack([planar(im) for im in images])),
                          ("flat", one_colour_frames(4, H, W))):
         x = torch.as_tensor(frames, device=DEVICE)
@@ -2036,6 +2083,7 @@ def kernel_time_inputs(cfg):
         hsv = flat_hsv(x, SENTINEL_TAIL)
         out[name] = dict(
             u8=x, f32=(x.float() / 255.0).contiguous(), hsv=hsv,
+            sal=qz.saliency_f32(counts, octree.s_v_f32, cfg),
             ids=cell_ids(hsv, cfg),
             q1=pk.palette_offset_table(assign, octree, c),
             q8=pk.palette_candidate_table(assign, octree, c, 8),
@@ -2054,13 +2102,15 @@ def polar_sums_max(mag2, ids, nb):
 
 
 def kernel_calls(cfg, inp):
-    """{key: call} of the palette kernels, K6a, K6b (also at
-    COL_FFT_HEIGHTS), K7+K8 (sums and maxima) and the blur tail after the
-    FFT (blur.lognorm_bin_means) on kernel_time_inputs; "flat ..." keys run
-    the one-colour batch."""
+    """{key: call} of the palette kernels, K2 (also at C=2164), K5, K6a,
+    K6b (also at COL_FFT_HEIGHTS), K7+K8 (sums and maxima) and the blur
+    tail after the FFT (blur.lognorm_bin_means) on kernel_time_inputs;
+    "flat ..." keys run the one-colour batch."""
     from photohive_dsp_tpu_torch.ops import fft_kernels as fk
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
     from photohive_dsp_tpu_torch.ops.blur import lognorm_bin_means
+    from photohive_dsp_tpu_torch.ops.margin_sort import margin_sort
 
     c = cfg.num_cells
     a, r = cfg.angle_partitions, cfg.radius_partitions
@@ -2068,7 +2118,10 @@ def kernel_calls(cfg, inp):
     calls = {"K6a": lambda: fk.fft_rows(inp["x_dc"], inp["plan"]),
              "K6b": lambda: fk.fft_cols(inp["spec"], inp["plan"]),
              "K7+K8": lambda: polar_sums_max(mag2, polar.bin_ids, a * r),
-             "blur tail": lambda: lognorm_bin_means(mag2, polar, a, r)}
+             "blur tail": lambda: lognorm_bin_means(mag2, polar, a, r),
+             "K2": lambda: margin_sort(inp[""]["sal"]),
+             "K2 C=2164": lambda: margin_sort(inp["sal2164"]),
+             "K5": lambda: sk.sharpness_sums(inp["pgm"], inp["bt"])}
     for key, (spec, plan) in inp["cols"].items():
         calls[key] = lambda s=spec, p=plan: fk.fft_cols(s, p)
     for pre, d in (("", inp[""]), ("flat ", inp["flat"])):
@@ -2100,16 +2153,41 @@ def kernel_calls(cfg, inp):
     return calls
 
 
+def kernel_breakdown(fn, iters: int = 20) -> dict:
+    """{kernel name: device ms a call of fn spends in it}, from
+    torch.profiler's CUDA trace (CUPTI kernel durations) of ``iters`` eager
+    calls; empty where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us and str(ev.device_type).endswith("CUDA"):
+            out[ev.key[:80]] = us / iters / 1e3
+    return out
+
+
 def kernel_times(cfg) -> dict:
     """Mean device ms (graph_ms) of two runs of 20 launches of each of
-    kernel_calls, in the package on sys.path; and "report B=8": the ms of
-    one full_report_batched call on 8 device-resident frames (the four
-    frames twice) with main_boxes, host included (cuda_ms, 10 calls)."""
+    kernel_calls, in the package on sys.path; "K5 kernels": K5's time in
+    each CUDA kernel it launches (kernel_breakdown); and "report B=8": the
+    ms of one full_report_batched call on 8 device-resident frames (the
+    four frames twice) with main_boxes, host included (cuda_ms, 10
+    calls)."""
     import photohive_dsp_tpu_torch as pt
 
     inp = kernel_time_inputs(cfg)
     calls = kernel_calls(cfg, inp)
     out = {k: (graph_ms(f) + graph_ms(f)) / 2 for k, f in calls.items()}
+    out["K5 kernels"] = kernel_breakdown(calls["K5"])
     frames = torch.cat([inp[""]["u8"]] * 2)
     boxes, valid = pt.set_bounding_boxes(main_boxes(H, W))
     bx, vd = np.stack([boxes] * 8), np.stack([valid] * 8)
@@ -2140,6 +2218,12 @@ def compare_parent(parent: str, cfg, smi: str) -> None:
     log(f"  kernel ms, parent {parent} against this checkout, in turns "
         f"parent, this, this, parent ({smi}):")
     for key in runs[1]:
+        if isinstance(runs[1][key], dict):
+            for i, run in enumerate(runs):
+                log(f"    {key} ({'parent' if i in (0, 3) else 'this'}): "
+                    + (", ".join(f"{k} {v:.4f}" for k, v in run[key].items())
+                       or "no device time in the trace"))
+            continue
         p = (runs[0][key] + runs[3][key]) / 2
         t = (runs[1][key] + runs[2][key]) / 2
         log(f"    {key}: parent {p:.4f} ({runs[0][key]:.4f}/"
@@ -2302,6 +2386,8 @@ def main(argv) -> int:
                for key, name, counter, src, rep in KERNELS
                for path in [LAUNCHES_FROM.get(key, "main path")]]
     for entry in kernels:
+        if entry["id"] == "K2":
+            entry["launch_floor_ms"] = times["launch floor"][0]
         if entry["id"] in ("K6a", "K6b"):
             entry.update(k6_ms=times["K6"][0], k6_bound_ms=bounds["K6"][0],
                          k6_bound_by=bounds["K6"][1])

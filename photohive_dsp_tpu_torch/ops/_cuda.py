@@ -124,8 +124,10 @@ _COL_TILE = ctypes.POINTER(ColTile)
 _SIGNATURES = {
     # (rgb, is_u8, batch, pixels, params, counts_out, s_out, acc, stream)
     "ph_cell_counts_s": [_P, _I, _I, _LL, _PARAMS, _P, _P, _P, _P],
-    # (sal, batch, c, order_out, stream)
-    "ph_margin_sort": [_P, _I, _I, _P, _P],
+    # (sal, batch, c, warps, regs, order_out, stream)
+    "ph_margin_sort": [_P, _I, _I, _I, _I, _P, _P],
+    # (stream): an empty kernel, the launch floor
+    "ph_empty_kernel": [_P],
     # (rgb, is_u8, batch, pixels, params, slot_of_cell, offset_of_cell,
     #  sums_out, acc, stream)
     "ph_palette_sums_q1": [_P, _I, _I, _LL, _PARAMS, _P, _P, _P, _P, _P],

@@ -3,7 +3,9 @@
 Counterpart of ``photohive_dsp_tpu/ops/pallas_kernels.py`` ``margin_sort``
 (the kernel) and ``quantize.margin_insertion_argsort`` (its XLA twin).  The
 CUDA kernel is csrc/margin_sort.cu; ``margin_insertion_argsort`` is its
-plain PyTorch version.
+plain PyTorch version.  The kernel tracks each element's position instead
+of shifting the sorted prefix; ``sort_layout`` picks its (warps, registers)
+instantiation for a C.
 """
 
 from __future__ import annotations
@@ -44,16 +46,35 @@ def margin_insertion_argsort(sal: torch.Tensor) -> torch.Tensor:
     return order.to(torch.int32)
 
 
+# csrc/margin_sort.cu's instantiations, (warps, registers a thread),
+# smallest first: element e lives in lane e % 32 of warp (e // 32) % warps,
+# register (e // 32) // warps, so a bucket holds 32 * warps * registers.
+SORT_BUCKETS = ((1, 1), (1, 2), (1, 4), (1, 8), (1, 16), (4, 5), (4, 9),
+                (4, 17), (16, 9), (16, 32), (32, 32))
+MAX_SORT_C = 32 * 32 * 32
+
+
+def sort_layout(c: int):
+    """The (warps, registers) bucket of the kernel for C elements: the
+    first that holds them."""
+    for warps, regs in SORT_BUCKETS:
+        if 32 * warps * regs >= c:
+            return warps, regs
+    raise ValueError(f"margin_sort: C={c} > {MAX_SORT_C}")
+
+
 def margin_sort(sal: torch.Tensor) -> torch.Tensor:
     """(B, C) float32 saliencies -> (B, C) int32 margin argsort.
 
-    CUDA tensors launch the kernel (any C); CPU tensors take the plain
-    version."""
+    CUDA tensors launch the kernel (C up to MAX_SORT_C); CPU tensors take
+    the plain version."""
     _cuda.require(sal, "margin_sort sal", (torch.float32,), 2)
     if sal.device.type == "cpu":
         return margin_insertion_argsort(sal)
     b, c = sal.shape
+    warps, regs = sort_layout(c)
     out = torch.empty((b, c), dtype=torch.int32, device=sal.device)
-    _cuda.launch("ph_margin_sort", sal, _cuda.ptr(sal), b, c, _cuda.ptr(out))
+    _cuda.launch("ph_margin_sort", sal, _cuda.ptr(sal), b, c, warps, regs,
+                 _cuda.ptr(out))
     _cuda.LAUNCHES["margin_sort"] += 1
     return out

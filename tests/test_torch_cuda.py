@@ -25,6 +25,8 @@ from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
 from photohive_dsp_tpu_torch.ops.margin_sort import (
     margin_insertion_argsort, margin_sort)
 
+from tests.test_torch_margin_sort import KINDS, SORT_CS, sort_data
+
 TCFG = ReportConfig()
 C = TCFG.num_cells
 
@@ -105,13 +107,14 @@ def test_cuda_kernels_match_plain(name, dtype, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [C, 2164])
+@pytest.mark.parametrize("c", SORT_CS + [2500, 9000])
 def test_cuda_margin_sort_any_c(c, cuda_device):
-    rng = np.random.default_rng(5)
-    sal = torch.tensor(np.round(rng.random((3, c)) * 30)
-                       + rng.random((3, c)) * 0.6, dtype=torch.float32,
-                       device=cuda_device)
-    assert torch.equal(margin_sort(sal), margin_insertion_argsort(sal))
+    """K2 bit-equal to its plain version on each side of every bucket's
+    edge (tests/test_torch_margin_sort.py), on each data kind."""
+    for kind in KINDS:
+        sal = torch.from_numpy(sort_data(kind, 3, c)).to(cuda_device)
+        assert torch.equal(margin_sort(sal), margin_insertion_argsort(sal)), \
+            kind
 
 
 def _snr_db(want: torch.Tensor, got: torch.Tensor) -> float:
