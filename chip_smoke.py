@@ -16,7 +16,10 @@ each of which raises on failure:
      the margin sort (K2) on both sides of each of its buckets' edges at
      B=1, 4 and 16 on seven kinds of data (check_margin_sort);
      the crop-box sharpness kernel (K5) at 1080x1920 B=4 with three boxes,
-     one on the image's edge (twice, bit-identical); the flat-HSV palette
+     one on the image's edge, and on its edge cases (sharpness_edge_cases:
+     the whole frame, boxes across its item seams and over the halo row,
+     row offsets, width 1001, B=16), each twice (bit-identical), within
+     SHARP_RTOL of plain and zero where plain is; the flat-HSV palette
      kernels (K9, K10, K14) at 1080x1920 B=4 with a sentinel tail (which
      must change nothing), K14 also against K10 on a noise batch (q=8) and
      a hue-wheel batch (q_full), and the cell-id histogram (K15) against
@@ -26,7 +29,8 @@ each of which raises on failure:
      (bit-identical), a zero frame, and a 360x100-bin table (the polar
      kernel's global-atomics branch);
   4. main path against the CPU path, with the kernel launch counts of that
-     run (each of its kernels at least once, K5 included);
+     run (each of its kernels at least once, K5 included), and K5 against
+     its plain version on the path's B=8 batch;
   5. corpus path: run_corpus over 256 uint8 frames of 720x1280, 1080x1920
      and 480x640 (bench.py's config #3), batch 16 with padded tails, under
      bf16, candidate and cwide: every report equal across the variants,
@@ -72,8 +76,9 @@ phase fails or no CUDA device is present.  Imports no JAX.
         # tail and a B=8 report of the
         # checkout at DIR against this one's, on the same inputs, in turns
         # parent, this, this, parent
-    python3 chip_smoke.py --kernel-times DIR  # those times alone, for the
-        # checkout at DIR (one JSON line)
+    python3 chip_smoke.py --kernel-times DIR [KEY ...]  # those times
+        # alone, for the checkout at DIR (one JSON line); with keys of
+        # kernel_calls (e.g. K5), those kernels alone
 """
 
 from __future__ import annotations
@@ -458,10 +463,69 @@ def luma(images) -> torch.Tensor:
     return rgb_to_pgm(rgb[:, 0], rgb[:, 1], rgb[:, 2]).contiguous()
 
 
+def check_sharpness(pgm, bt, label: str, halo=None, row_offset: int = 0):
+    """K5 against its plain version: bit-identical over two launches,
+    within SHARP_RTOL of plain, zero exactly where plain is zero.  Returns
+    (max abs error, max rel error)."""
+    from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
+
+    got = sk.sharpness_sums(pgm, bt, halo, row_offset)
+    again = sk.sharpness_sums(pgm, bt, halo, row_offset)
+    want = sk.sharpness_sums_plain(pgm, bt, halo, row_offset)
+    sync()
+    err = rel = 0.0
+    for name, g, a, w in zip(("s1", "s2"), got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"K5 {label} {name}: two launches differ")
+        on = w != 0
+        r = rel_err(g[on], w[on]) if bool(on.any()) else 0.0
+        if not r <= SHARP_RTOL:
+            raise AssertionError(f"K5 {label} {name}: rel err {r}")
+        if not torch.equal(g == 0, w == 0):
+            raise AssertionError(f"K5 {label} {name}: zero where plain is "
+                                 f"not, or not where it is")
+        err, rel = max(err, float((g - w).abs().max())), max(rel, r)
+    return err, rel
+
+
+def sharpness_edge_cases():
+    """{label: (pgm, boxes, halo, row_offset)}: the cases of
+    tests/test_torch_cuda.py::test_cuda_sharpness_kernel_matches_plain
+    (1080x1000 B=2: the whole frame, a box across the 32-row and 128-column
+    seams, a corner box, a box over the halo row; without and with a halo,
+    row offsets 0 and 3), and 1092x1001 B=2 (rows not 16-byte aligned) and
+    1080x1920 B=16 with main_boxes."""
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
+
+    rng = np.random.default_rng(9)
+    b, h, w = 2, 1080, 1000
+    pgm = torch.as_tensor(rng.random((b, h, w), dtype=np.float32),
+                          device=DEVICE)
+    halo = torch.as_tensor(rng.random((b, 2, w), dtype=np.float32),
+                           device=DEVICE)
+    boxes = torch.zeros((b, 10, 4), dtype=torch.int32)
+    boxes[:, 0] = torch.tensor([0, 1080, 0, 1000])
+    boxes[:, 1] = torch.tensor([31, 65, 127, 129 + 4])
+    boxes[:, 4] = torch.tensor([1040, 1080, 900, 1000])
+    boxes[1, 9] = torch.tensor([-3, 20, 5, 400])
+    boxes = boxes.to(DEVICE)
+    cases = {f"1080x1000 B=2 halo {hl is not None} row_offset {off}":
+             (pgm, boxes, hl, off)
+             for hl in (None, halo) for off in (0, 3)}
+    for b, h, w in ((2, 1092, 1001), (16, H, W)):
+        bx, vd = pt.set_bounding_boxes(main_boxes(h, w))
+        bt = sk.box_tensor(np.stack([bx] * b), np.stack([vd] * b), DEVICE)
+        cases[f"{h}x{w} B={b} main_boxes"] = (
+            luma([noise_image(rng, h, w) for _ in range(b)]), bt, None, 0)
+    return cases
+
+
 def phase_sharpness_kernel(images):
-    """K5 against its plain version at 1080x1920 B=4 with main_boxes (one
-    touching the top and right edges), twice (bit-identical); returns its
-    max abs error and the inputs the timing phase reuses."""
+    """K5 against its plain version (check_sharpness) at 1080x1920 B=4
+    with main_boxes (one touching the top and right edges) and on
+    sharpness_edge_cases; returns its max abs error and the inputs the
+    timing phase reuses."""
     import photohive_dsp_tpu_torch as pt
     from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
 
@@ -469,22 +533,12 @@ def phase_sharpness_kernel(images):
     boxes, valid = pt.set_bounding_boxes(main_boxes(H, W))
     bt = sk.box_tensor(np.stack([boxes] * len(images)),
                        np.stack([valid] * len(images)), DEVICE)
-    got = sk.sharpness_sums(pgm, bt)
-    again = sk.sharpness_sums(pgm, bt)
-    want = sk.sharpness_sums_plain(pgm, bt)
-    sync()
-    err = 0.0
-    for name, g, a, w in zip(("s1", "s2"), got, again, want):
-        if not torch.equal(g, a):
-            raise AssertionError(f"K5 {name}: two launches differ")
-        if not rel_err(g[:, :3], w[:, :3]) <= SHARP_RTOL:
-            raise AssertionError(f"K5 {name}: rel err "
-                                 f"{rel_err(g[:, :3], w[:, :3])}")
-        if bool(g[:, 3:].any()):
-            raise AssertionError(f"K5 {name}: empty slots not zero")
-        err = max(err, float((g - w).abs().max()))
-    log(f"  K5 B={len(images)} 3 boxes: bit-identical twice, rel err "
-        f"{max(rel_err(g[:, :3], w[:, :3]) for g, w in zip(got, want)):.2e}")
+    err, rel = check_sharpness(pgm, bt, f"B={len(images)} 3 boxes")
+    for label, (x, bx, halo, off) in sharpness_edge_cases().items():
+        e, r = check_sharpness(x, bx, label, halo, off)
+        err, rel = max(err, e), max(rel, r)
+    log(f"  K5 B={len(images)} 3 boxes and the edge cases: bit-identical "
+        f"twice, zero where plain is, rel err {rel:.2e}")
     return err, dict(pgm=pgm, bt=bt, boxes=boxes, valid=valid)
 
 
@@ -1080,6 +1134,12 @@ def phase_main_path(images, cfg):
         compare_reports(data_fields(gpu_batch, i), data_fields(cpu_batch, i),
                         f"full_report_batched B=8 3 boxes, image {i}")
     check_launches(launches, MAIN_COUNTERS, "main path")
+    from photohive_dsp_tpu_torch.ops.sharpness_kernels import box_tensor
+    _, rel = check_sharpness(luma([images[i % len(images)] for i in range(8)]),
+                             box_tensor(bboxes, bvalid, DEVICE),
+                             "main path B=8")
+    log(f"  K5 on the main path's B=8 batch: bit-identical twice, rel err "
+        f"{rel:.2e}")
     return launches, tables_gpu, batch_gpu, bboxes, bvalid
 
 
@@ -1438,7 +1498,8 @@ def spatial_kernels(group, frames, box_sets, cfg) -> dict:
     inputs its one rank hands them, built by parallel/spatial's own steps
     at 4320x7680: K9, K10 (q=8 and q_full) and K14 on the frame's flat HSV
     (33 MP, accumulators bit-equal), K5 on its luma with the zero halo and
-    each box set (within SHARP_RTOL), K7+K8 on the rank's |X|^2 and bin ids
+    each box set at row offsets 0 and 3 (check_sharpness), K7+K8 on the
+    rank's |X|^2 and bin ids
     (bit for bit, with the rank's maximum).  Returns max abs errors."""
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import polar_kernels as pol
@@ -1468,18 +1529,12 @@ def spatial_kernels(group, frames, box_sets, cfg) -> dict:
         halo = spatial.halo_rows(pgm, group)[None].contiguous()
         rel5 = 0.0
         for label, (bx, vd) in box_sets.items():
-            bt = sk.box_tensor(bx[None], vd[None], dev)
-            got = sk.sharpness_sums(pgm[None].contiguous(), bt, halo, 0)
-            want = sk.sharpness_sums_plain(pgm[None], bt, halo, 0)
-            sync()
-            on = torch.as_tensor(vd[None], device=dev)
-            for g, w in zip(got, want):
-                rel = rel_err(g[on], w[on])
-                if not rel <= SHARP_RTOL or bool(g[~on].any()):
-                    raise AssertionError(f"K5 spatial {name} {label}: rel "
-                                         f"err {rel}, or an empty slot not 0")
-                rel5 = max(rel5, rel)
-                err["K5"] = max(err["K5"], float((g - w).abs().max()))
+            for off in (0, 3):
+                e, r = check_sharpness(
+                    pgm[None].contiguous(), sk.box_tensor(bx[None], vd[None],
+                                                          dev),
+                    f"spatial {name} {label} row_offset {off}", halo, off)
+                err["K5"], rel5 = max(err["K5"], e), max(rel5, r)
 
         stats = spatial.rgb_stats(rgb, 0, SH, SW, group)
         dc = (stats[0] + stats[1] + stats[2]) / 3.0
@@ -1494,8 +1549,9 @@ def spatial_kernels(group, frames, box_sets, cfg) -> dict:
                                  f"{rel_err(got, want)}, max {mx} vs {mx0}")
         err["K7+K8"] = max(err["K7+K8"], float((got - want).abs().max()))
         log(f"  spatial {name} {SH}x{SW}, the rank's inputs: K9, K10 (q=8, "
-            f"q_full), K14 accumulators equal plain; K5 ({', '.join(box_sets)}) "
-            f"rel err {rel5:.2e}; K7+K8 on {tuple(mag2.shape)} |X|^2 rel err "
+            f"q_full), K14 accumulators equal plain; K5 ({', '.join(box_sets)}"
+            f"; halo, row offsets 0 and 3) bit-identical twice, rel err "
+            f"{rel5:.2e}; K7+K8 on {tuple(mag2.shape)} |X|^2 rel err "
             f"{rel_err(got, want):.2e}")
     return err
 
@@ -2175,17 +2231,20 @@ def kernel_breakdown(fn, iters: int = 20) -> dict:
     return out
 
 
-def kernel_times(cfg) -> dict:
+def kernel_times(cfg, keys=None) -> dict:
     """Mean device ms (graph_ms) of two runs of 20 launches of each of
     kernel_calls, in the package on sys.path; "K5 kernels": K5's time in
     each CUDA kernel it launches (kernel_breakdown); and "report B=8": the
     ms of one full_report_batched call on 8 device-resident frames (the
     four frames twice) with main_boxes, host included (cuda_ms, 10
-    calls)."""
+    calls).  With ``keys``, the kernel_calls of those keys alone."""
     import photohive_dsp_tpu_torch as pt
 
     inp = kernel_time_inputs(cfg)
     calls = kernel_calls(cfg, inp)
+    if keys:
+        return {k: (graph_ms(calls[k]) + graph_ms(calls[k])) / 2
+                for k in keys}
     out = {k: (graph_ms(f) + graph_ms(f)) / 2 for k, f in calls.items()}
     out["K5 kernels"] = kernel_breakdown(calls["K5"])
     frames = torch.cat([inp[""]["u8"]] * 2)
@@ -2330,7 +2389,8 @@ def main(argv) -> int:
             raise SystemExit("chip_smoke: no CUDA device")
         sys.path.insert(0, argv[1])
         from photohive_dsp_tpu_torch.config import ReportConfig
-        print("KERNEL_TIMES " + json.dumps(kernel_times(ReportConfig())),
+        print("KERNEL_TIMES " + json.dumps(kernel_times(ReportConfig(),
+                                                        argv[2:])),
               flush=True)
         return 0
     parent = argv[1] if argv[:1] == ["--parent"] else None

@@ -67,6 +67,9 @@ margin_sort_kernel(const float* __restrict__ sal, int c,
     for (int w = 0; w < kWarps; ++w) {
       const int base = (r * kWarps + w) * kWarp;
       if (base >= c) break;
+      // Unrolled by 8, so a step's blocker mask (sal alone) is computed
+      // ahead, off the chain of the steps before it.
+#pragma unroll 8
       for (int l = 0; l < kWarp; ++l) {
         const int i = base + l;
         if (i >= c) break;

@@ -145,9 +145,10 @@ _SIGNATURES = {
                               _P],
     # (cells, batch, pixels, num_cells, counts_out, acc, stream)
     "ph_cell_counts_ids": [_P, _I, _LL, _I, _P, _P, _P],
-    # (pgm, halo, batch, height, width, row_offset, boxes, partial,
-    #  sums_out, stream)
-    "ph_sharpness_sums": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # (pgm, halo, batch, height, width, row_offset, boxes, vec, items,
+    #  partial, tickets, sums_out, stream)
+    "ph_sharpness_sums": [_P, _P, _I, _I, _I, _I, _P, _I, _LL, _P, _P, _P,
+                          _P],
     # (pgm, rows, stages, twiddles, stage_twiddles, spec_out, stream)
     "ph_fft_rows": [_P, _I, _STAGES, _P, _P, _P, _P],
     # (spec, batch, half, stages, twiddles, stage_twiddles, tile, mag2_out,

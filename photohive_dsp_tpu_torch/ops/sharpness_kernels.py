@@ -17,10 +17,13 @@ add up to the whole image's.  Empty slots are all zero.
 
 Both versions evaluate every pixel's stencil in the JAX kernel's float32
 operation order and return float64 sums: the kernel (csrc/sharpness.cu)
-adds pixels in float32 per thread and combines in float64 in a fixed order,
-the plain version adds the same float32 values in float64, so the two
-differ only by the kernel's float32 partial sums.  The wrapper launches the
-kernel for CUDA tensors and takes the plain version for CPU tensors.
+adds at most MAX_SEG_ROWS pixels of a column in float32 per thread and
+combines in float64 in a fixed order, the plain version adds the same
+float32 values in float64, so the two differ only by the kernel's float32
+partial sums.
+The kernel splits each box into items of STRIP_COLS columns by ``seg_rows``
+rows (``box_spans``).  The wrapper launches the kernel for CUDA tensors
+and takes the plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -32,9 +35,19 @@ import torch.nn.functional as F
 from ..config import MAX_CROP_BOXES
 from . import _cuda
 
-# csrc/sharpness.cu's tile (kTileRows x kTileCols).
-TILE_ROWS = 32
-TILE_COLS = 128
+# csrc/sharpness.cu's items: STRIP_COLS columns, one warp of 32 lanes with
+# LANE_COLS columns each, by seg_rows rows, within [MIN_SEG_ROWS,
+# MAX_SEG_ROWS] (kStripCols, kVec, kMinSegRows, kMaxSegRows).
+LANE_COLS = 4
+STRIP_COLS = 32 * LANE_COLS
+MIN_SEG_ROWS = 8
+MAX_SEG_ROWS = 64
+
+# The kernel's tickets, one per (image, box slot), by device: zeroed once
+# here and zero again after every launch (the kernel's last warp of a box
+# wraps its ticket), so no launch needs a memset.  Calls on one device run
+# in stream order, as every caller in the package makes them.
+_TICKETS = {}
 
 
 def _check(pgm, boxes, halo) -> None:
@@ -98,6 +111,52 @@ def sharpness_sums_plain(pgm, boxes, halo=None, row_offset: int = 0):
     return out[..., 0], out[..., 1]
 
 
+def box_spans(boxes, h: int, w: int, row_offset: int, vec: bool):
+    """csrc/sharpness.cu's split of each (image, slot) box: an int64 array
+    (B, 10, 6) of (y0, y1, x0, x1, xs, strips), the box's local rows
+    [y0, y1) and columns [x0, x1) on the rows handed in and its strips of
+    STRIP_COLS columns from xs (x0 rounded down to a multiple of LANE_COLS
+    where ``vec``); all zero for a box that misses these rows."""
+    bx = np.asarray(boxes, np.int64)
+    y0 = np.maximum(bx[..., 0] - row_offset, 0)
+    y1 = np.minimum(bx[..., 1] - row_offset, h)
+    x0 = np.maximum(bx[..., 2], 0)
+    x1 = np.minimum(bx[..., 3], w)
+    hit = (y0 < y1) & (x0 < x1)
+    xs = x0 // LANE_COLS * LANE_COLS if vec else x0
+    strips = np.where(hit, -(-(x1 - xs) // STRIP_COLS), 0)
+    return np.stack([y0, y1, x0, x1, xs, strips], axis=-1) * hit[..., None]
+
+
+def seg_rows(spans, warps: int) -> int:
+    """The rows of the kernel's items for these spans on a grid of
+    ``warps`` warps: the boxes' strip-rows over the warps, so that the
+    items about match the warps, within [MIN_SEG_ROWS, MAX_SEG_ROWS]."""
+    strip_rows = int((spans[..., 5] * (spans[..., 1] - spans[..., 0])).sum())
+    return min(max(-(-strip_rows // warps), MIN_SEG_ROWS), MAX_SEG_ROWS)
+
+
+def max_items(b: int, h: int, w: int) -> int:
+    """The most items B images' boxes can split into (the kernel's partial
+    scratch): every slot a whole-frame box, items of MIN_SEG_ROWS rows."""
+    return b * MAX_CROP_BOXES * -(-w // STRIP_COLS) * -(-h // MIN_SEG_ROWS)
+
+
+def vector_rows(pgm, halo=None) -> bool:
+    """Whether the kernel reads rows 16 bytes at a time: the width a
+    multiple of LANE_COLS and the luma (and halo) 16-byte aligned."""
+    return pgm.shape[-1] % LANE_COLS == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (pgm, halo) if t is not None)
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
 def sharpness_sums(pgm, boxes, halo=None, row_offset: int = 0):
     """K5: (B, H, W) float32 luma and (B, 10, 4) int32 boxes (empty slots
     zero) -> (s1, s2), each (B, 10) float64."""
@@ -105,15 +164,15 @@ def sharpness_sums(pgm, boxes, halo=None, row_offset: int = 0):
     if pgm.device.type == "cpu":
         return sharpness_sums_plain(pgm, boxes, halo, row_offset)
     b, h, w = pgm.shape
-    tiles = ((h + TILE_ROWS - 1) // TILE_ROWS) * ((w + TILE_COLS - 1)
-                                                  // TILE_COLS)
-    partial = torch.empty((b, tiles, MAX_CROP_BOXES, 2), dtype=torch.float64,
-                          device=pgm.device)
+    items = max_items(b, h, w)
+    partial = torch.empty((items, 2), dtype=torch.float64, device=pgm.device)
     sums = torch.empty((b, MAX_CROP_BOXES, 2), dtype=torch.float64,
                        device=pgm.device)
+    tickets = _tickets(pgm.device, b * MAX_CROP_BOXES)
     _cuda.launch("ph_sharpness_sums", pgm, _cuda.ptr(pgm), _cuda.ptr(halo), b,
-                 h, w, row_offset, _cuda.ptr(boxes), _cuda.ptr(partial),
-                 _cuda.ptr(sums))
+                 h, w, row_offset, _cuda.ptr(boxes),
+                 int(vector_rows(pgm, halo)), items, _cuda.ptr(partial),
+                 _cuda.ptr(tickets), _cuda.ptr(sums))
     _cuda.LAUNCHES["sharpness_sums"] += 1
     return sums[..., 0], sums[..., 1]
 

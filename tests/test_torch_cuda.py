@@ -211,7 +211,7 @@ def test_cuda_blur_route_matches_cpu(cuda_device):
 def test_cuda_sharpness_kernel_matches_plain(cuda_device):
     """K5 against its plain version within 1e-5 relative (the kernel's
     float32 per-thread sums), bit-identical over two launches, with and
-    without a halo, at 1080 rows (not a multiple of the 32-row tile)."""
+    without a halo, at row offsets 0 and 3, on 1080x1000 frames."""
     rng = np.random.default_rng(9)
     b, h, w = 2, 1080, 1000
     pgm = torch.from_numpy(rng.random((b, h, w), dtype=np.float32))
@@ -230,6 +230,34 @@ def test_cuda_sharpness_kernel_matches_plain(cuda_device):
             want = tsk.sharpness_sums_plain(pgm, boxes, hl, row_offset)
             for g, a, wt in zip(got, again, want):
                 assert torch.equal(g, a)
+                g = g.cpu()
+                assert bool(((g - wt).abs() <= 1e-5 * wt.abs()).all())
+                assert torch.equal(g == 0, wt == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_sharpness_kernel_box_sets(cuda_device):
+    """K5, one launch a call, on rows that are 16-byte aligned and rows that
+    are not (width 1001), with box sets that change from call to call (its
+    tickets are zero again after every launch): within 1e-5 relative of
+    plain, zero where plain is zero."""
+    rng = np.random.default_rng(21)
+    for b, h, w in ((3, 1092, 1001), (2, 300, 512)):
+        pgm = torch.from_numpy(rng.random((b, h, w), dtype=np.float32))
+        for n in (10, 1, 4):
+            boxes = torch.zeros((b, 10, 4), dtype=torch.int32)
+            for i in range(b):
+                for k in range(n):
+                    y0, x0 = rng.integers(-5, h - 4), rng.integers(-5, w - 4)
+                    boxes[i, k] = torch.tensor([
+                        y0, y0 + rng.integers(4, h), x0,
+                        x0 + rng.integers(4, w)])
+            _cuda.reset_launch_counts()
+            got = tsk.sharpness_sums(pgm.to(cuda_device),
+                                     boxes.to(cuda_device))
+            assert _cuda.LAUNCHES["sharpness_sums"] == 1
+            want = tsk.sharpness_sums_plain(pgm, boxes)
+            for g, wt in zip(got, want):
                 g = g.cpu()
                 assert bool(((g - wt).abs() <= 1e-5 * wt.abs()).all())
                 assert torch.equal(g == 0, wt == 0)
