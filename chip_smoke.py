@@ -491,7 +491,7 @@ def check_sharpness(pgm, bt, label: str, halo=None, row_offset: int = 0):
 def sharpness_edge_cases():
     """{label: (pgm, boxes, halo, row_offset)}: the cases of
     tests/test_torch_cuda.py::test_cuda_sharpness_kernel_matches_plain
-    (1080x1000 B=2: the whole frame, a box across the 32-row and 128-column
+    (1080x1000 B=2: the whole frame, a box across 32-row and 128-column
     seams, a corner box, a box over the halo row; without and with a halo,
     row offsets 0 and 3), and 1092x1001 B=2 (rows not 16-byte aligned) and
     1080x1920 B=16 with main_boxes."""
@@ -1094,6 +1094,7 @@ def check_launches(launches: dict, counters, path: str) -> None:
 def phase_main_path(images, cfg):
     import photohive_dsp_tpu_torch as pt
     from photohive_dsp_tpu_torch.ops import _cuda
+    from photohive_dsp_tpu_torch.ops.sharpness_kernels import box_tensor
 
     noise, structured, wheel = images[:3]
     boxes = pt.set_bounding_boxes(main_boxes(H, W))
@@ -1134,7 +1135,6 @@ def phase_main_path(images, cfg):
         compare_reports(data_fields(gpu_batch, i), data_fields(cpu_batch, i),
                         f"full_report_batched B=8 3 boxes, image {i}")
     check_launches(launches, MAIN_COUNTERS, "main path")
-    from photohive_dsp_tpu_torch.ops.sharpness_kernels import box_tensor
     _, rel = check_sharpness(luma([images[i % len(images)] for i in range(8)]),
                              box_tensor(bboxes, bvalid, DEVICE),
                              "main path B=8")

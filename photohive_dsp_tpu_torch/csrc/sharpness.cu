@@ -22,10 +22,10 @@
 // Design: one launch, work only under the boxes.  A box's pixels on the
 // rows handed in split into items of 128 columns (strips start at the box's
 // first column, rounded down to a multiple of 4 where rows are 16-byte
-// aligned) by `seg` rows; ops/sharpness_kernels.box_spans mirrors the split.
-// A persistent grid of warps walks the items of all boxes of all images:
-// each block first copies the boxes to shared memory, picks seg so that the
-// items about match the grid's warps (seg_rows: the boxes' strip-rows over
+// aligned) by `seg` rows; tests/test_torch_sharpness_schedule.py mirrors
+// the split.  A persistent grid of warps walks the items of all boxes of all
+// images: each block first copies the boxes to shared memory, picks seg so
+// that the items about match the grid's warps (the boxes' strip-rows over
 // the warps, within [kMinSegRows, kMaxSegRows]) and lays the boxes' item
 // counts out as a prefix (block 0 also writes the zero sums of boxes with
 // no item); then each warp takes items in grid stride and finds an item's

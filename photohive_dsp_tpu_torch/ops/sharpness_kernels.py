@@ -21,8 +21,9 @@ adds at most MAX_SEG_ROWS pixels of a column in float32 per thread and
 combines in float64 in a fixed order, the plain version adds the same
 float32 values in float64, so the two differ only by the kernel's float32
 partial sums.
-The kernel splits each box into items of STRIP_COLS columns by ``seg_rows``
-rows (``box_spans``).  The wrapper launches the kernel for CUDA tensors
+The kernel splits each box into items of STRIP_COLS columns by a number of
+rows it picks per launch (tests/test_torch_sharpness_schedule.py mirrors
+the split).  The wrapper launches the kernel for CUDA tensors
 and takes the plain version for CPU tensors.
 """
 
@@ -36,7 +37,7 @@ from ..config import MAX_CROP_BOXES
 from . import _cuda
 
 # csrc/sharpness.cu's items: STRIP_COLS columns, one warp of 32 lanes with
-# LANE_COLS columns each, by seg_rows rows, within [MIN_SEG_ROWS,
+# LANE_COLS columns each, by a number of rows within [MIN_SEG_ROWS,
 # MAX_SEG_ROWS] (kStripCols, kVec, kMinSegRows, kMaxSegRows).
 LANE_COLS = 4
 STRIP_COLS = 32 * LANE_COLS
@@ -109,31 +110,6 @@ def sharpness_sums_plain(pgm, boxes, halo=None, row_offset: int = 0):
         out[i, k, 0] = (xc * wgt).double().sum()
         out[i, k, 1] = (resp * resp).double().sum()
     return out[..., 0], out[..., 1]
-
-
-def box_spans(boxes, h: int, w: int, row_offset: int, vec: bool):
-    """csrc/sharpness.cu's split of each (image, slot) box: an int64 array
-    (B, 10, 6) of (y0, y1, x0, x1, xs, strips), the box's local rows
-    [y0, y1) and columns [x0, x1) on the rows handed in and its strips of
-    STRIP_COLS columns from xs (x0 rounded down to a multiple of LANE_COLS
-    where ``vec``); all zero for a box that misses these rows."""
-    bx = np.asarray(boxes, np.int64)
-    y0 = np.maximum(bx[..., 0] - row_offset, 0)
-    y1 = np.minimum(bx[..., 1] - row_offset, h)
-    x0 = np.maximum(bx[..., 2], 0)
-    x1 = np.minimum(bx[..., 3], w)
-    hit = (y0 < y1) & (x0 < x1)
-    xs = x0 // LANE_COLS * LANE_COLS if vec else x0
-    strips = np.where(hit, -(-(x1 - xs) // STRIP_COLS), 0)
-    return np.stack([y0, y1, x0, x1, xs, strips], axis=-1) * hit[..., None]
-
-
-def seg_rows(spans, warps: int) -> int:
-    """The rows of the kernel's items for these spans on a grid of
-    ``warps`` warps: the boxes' strip-rows over the warps, so that the
-    items about match the warps, within [MIN_SEG_ROWS, MAX_SEG_ROWS]."""
-    strip_rows = int((spans[..., 5] * (spans[..., 1] - spans[..., 0])).sum())
-    return min(max(-(-strip_rows // warps), MIN_SEG_ROWS), MAX_SEG_ROWS)
 
 
 def max_items(b: int, h: int, w: int) -> int:

@@ -21,6 +21,31 @@ from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
 F32 = torch.float32
 
 
+def box_spans(boxes, h: int, w: int, row_offset: int, vec: bool):
+    """csrc/sharpness.cu's split of each (image, slot) box: an int64 array
+    (B, 10, 6) of (y0, y1, x0, x1, xs, strips), the box's local rows
+    [y0, y1) and columns [x0, x1) on the rows handed in and its strips of
+    STRIP_COLS columns from xs (x0 rounded down to a multiple of LANE_COLS
+    where ``vec``); all zero for a box that misses these rows."""
+    bx = np.asarray(boxes, np.int64)
+    y0 = np.maximum(bx[..., 0] - row_offset, 0)
+    y1 = np.minimum(bx[..., 1] - row_offset, h)
+    x0 = np.maximum(bx[..., 2], 0)
+    x1 = np.minimum(bx[..., 3], w)
+    hit = (y0 < y1) & (x0 < x1)
+    xs = x0 // sk.LANE_COLS * sk.LANE_COLS if vec else x0
+    strips = np.where(hit, -(-(x1 - xs) // sk.STRIP_COLS), 0)
+    return np.stack([y0, y1, x0, x1, xs, strips], axis=-1) * hit[..., None]
+
+
+def seg_rows(spans, warps: int) -> int:
+    """The rows of the kernel's items for these spans on a grid of
+    ``warps`` warps: the boxes' strip-rows over the warps, so that the
+    items about match the warps, within [MIN_SEG_ROWS, MAX_SEG_ROWS]."""
+    strip_rows = int((spans[..., 5] * (spans[..., 1] - spans[..., 0])).sum())
+    return min(max(-(-strip_rows // warps), sk.MIN_SEG_ROWS), sk.MAX_SEG_ROWS)
+
+
 def _warp_tree(x: torch.Tensor) -> torch.Tensor:
     """The shuffle-down sum of a warp over the last dim (32 lanes): lane l
     adds lane l + o for o = 16, 8, 4, 2, 1; lane 0's value."""
@@ -36,8 +61,8 @@ def emulate_sharpness_sums(pgm, boxes, halo=None, row_offset=0, vec=True,
     and the visit count of every (image, slot, local row, column)."""
     b, h, w = pgm.shape
     bx = boxes.numpy()
-    spans = sk.box_spans(bx, h, w, row_offset, vec)
-    seg_rows = sk.seg_rows(spans, warps)
+    spans = box_spans(bx, h, w, row_offset, vec)
+    item_rows = seg_rows(spans, warps)
     zero = torch.zeros(w, dtype=F32)
     sums = torch.zeros((b, 10, 2), dtype=torch.float64)
     visits = torch.zeros((b, 10, h, w), dtype=torch.int64)
@@ -51,7 +76,7 @@ def emulate_sharpness_sums(pgm, boxes, halo=None, row_offset=0, vec=True,
             return zero
         for k in range(10):
             y0, y1, x0, x1, xs, strips = (int(v) for v in spans[i, k])
-            segs = -(-(y1 - y0) // seg_rows)
+            segs = -(-(y1 - y0) // item_rows)
             if not strips:
                 continue
             top, bottom, left, right = (int(v) for v in bx[i, k])
@@ -74,8 +99,8 @@ def emulate_sharpness_sums(pgm, boxes, halo=None, row_offset=0, vec=True,
                 assert bool(lf[st].all() & rt[st].all() & inside[st].all())
             part = torch.zeros((segs, strips, 2), dtype=torch.float64)
             for seg in range(segs):
-                r0 = y0 + seg * seg_rows
-                r1 = min(r0 + seg_rows, y1)
+                r0 = y0 + seg * item_rows
+                r1 = min(r0 + item_rows, y1)
                 above = row_offset + r0 - 1 >= top
                 last = r1 if row_offset + r1 < bottom else r1 - 1
 
@@ -199,15 +224,15 @@ def test_box_spans_seg_rows_and_max_items():
     boxes[0, 0] = (-3, 40, 5, 200)
     boxes[0, 1] = (50, 60, 0, 10)       # below these rows
     boxes[0, 2] = (0, 45, 0, 1001)
-    spans = sk.box_spans(boxes, 45, 1001, 3, True)
+    spans = box_spans(boxes, 45, 1001, 3, True)
     assert spans[0, 0].tolist() == [0, 37, 5, 200, 4, 2]
     assert not spans[0, 1].any()
     assert spans[0, 2].tolist() == [0, 42, 0, 1001, 0, 8]
-    assert sk.box_spans(boxes, 45, 1001, 3, False)[0, 0, 4] == 5
+    assert box_spans(boxes, 45, 1001, 3, False)[0, 0, 4] == 5
     strip_rows = 2 * 37 + 8 * 42
-    assert sk.seg_rows(spans, 1) == sk.MAX_SEG_ROWS
-    assert sk.seg_rows(spans, 10) == -(-strip_rows // 10)
-    assert sk.seg_rows(spans, 10 ** 6) == sk.MIN_SEG_ROWS
+    assert seg_rows(spans, 1) == sk.MAX_SEG_ROWS
+    assert seg_rows(spans, 10) == -(-strip_rows // 10)
+    assert seg_rows(spans, 10 ** 6) == sk.MIN_SEG_ROWS
     items = spans[..., 5] * -(-(spans[..., 1] - spans[..., 0])
                               // sk.MIN_SEG_ROWS)
     assert items.max() <= sk.max_items(1, 45, 1001) // 10
