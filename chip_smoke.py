@@ -6,8 +6,9 @@ batch of 8, with and without crop boxes), the corpus path (run_corpus over
 config #3's 256 frames under each PHOTOHIVE_PALETTE_KERNEL variant, the
 streaming runner, process_corpus with a crash and a resume) and the
 row-sharded report (parallel/spatial.build_spatial_report, one NCCL rank, a
-4320x7680 frame) — and checks every result against a reference.  Phases,
-each of which raises on failure:
+4320x7680 frame) and the serving path (serving.export_report, the artifact
+loaded in a fresh process) — and checks every result against a reference.
+Phases, each of which raises on failure:
 
   1. device: a CUDA device must be present; prints its name and power limit;
   2. build: compiles the kernels from photohive_dsp_tpu_torch/csrc;
@@ -52,7 +53,18 @@ each of which raises on failure:
      against torch.fft.rfft at ROW_FFT_WIDTHS, K6b against torch.fft.fft
      of the columns at COL_FFT_HEIGHTS, and each kernel's device
      time (graph_ms) beside its plain version's, its bound and a library
-     call's.
+     call's;
+  8. serving path: export_report at 1080x1920 with B=8 pinned and with a
+     dynamic batch (their seconds); the pinned artifact saved, loaded in a
+     fresh process that imports the port alone and run on each frame kind
+     (structured: q=1, noise: q=8, hue wheel: q_full) under each box set
+     (none, main_boxes, main_boxes with thin_box) and one mixed batch,
+     with the launch counts of that run (K1-K8 each at least once); each
+     report bit-equal to the live full_report_batched and through
+     utils.debug.verify_report; the dynamic artifact at B=1, 3 and 8, the
+     same; the artifact call against the live call in turns (CUDA events,
+     median of 20); the host time of an operator call (dispatch_times);
+     utils.profiling.stage_timings at B=8.
 
 Phase 3 also holds K6a to its plain version on its edge cases (odd row
 counts, widths 1001, 3840 and 14520, and short widths that reach each of
@@ -73,7 +85,7 @@ phase fails or no CUDA device is present.  Imports no JAX.
     python3 chip_smoke.py --parent DIR        # also time the palette
         # kernels, K2 (C=112 and 2164), K5 (and its time in each CUDA
         # kernel it launches, by torch.profiler), K6a, K6b, K7+K8, the blur
-        # tail and a B=8 report of the
+        # tail, a B=8 report and warm get_report of the
         # checkout at DIR against this one's, on the same inputs, in turns
         # parent, this, this, parent
     python3 chip_smoke.py --kernel-times DIR [KEY ...]  # those times
@@ -618,7 +630,7 @@ def check_cwide(hsv, assign, octree, cfg, label: str, real=None) -> None:
     got = pk.palette_sums_by_k_cwide(*hsv, *tabs, cfg)
     want = pk.palette_sums_by_k_cwide_plain(*hsv, *tabs, cfg)
     counts, _ = pk.counts_s_from_fixed(pk.cell_counts_from_hsv(*hsv, cfg))
-    q = max(qz.palette_tier(counts, assign, cfg), 8)
+    q = max(int(qz.palette_tier(counts, assign, cfg)), 8)
     k10 = pk.palette_sums_by_k(*hsv, *pk.palette_candidate_table(
         assign, octree, cfg.num_cells, q), cfg)
     sync()
@@ -670,7 +682,7 @@ def check_route_kernels(variant: str, x, octree, cfg, label: str) -> str:
     if not (torch.equal(counts, want[0]) and torch.equal(s_sum, want[1])):
         raise AssertionError(f"{k1} {label}: differs from plain")
     assign = assignment(counts, hh * ww, cfg, octree)
-    q = qz.palette_tier(counts, assign, cfg)
+    q = int(qz.palette_tier(counts, assign, cfg))
     if q == 1:
         key, kern, plain = k3, pk.palette_sums_by_k_rgb_q1, \
             pk.palette_sums_by_k_rgb_q1_plain
@@ -2234,10 +2246,12 @@ def kernel_breakdown(fn, iters: int = 20) -> dict:
 def kernel_times(cfg, keys=None) -> dict:
     """Mean device ms (graph_ms) of two runs of 20 launches of each of
     kernel_calls, in the package on sys.path; "K5 kernels": K5's time in
-    each CUDA kernel it launches (kernel_breakdown); and "report B=8": the
+    each CUDA kernel it launches (kernel_breakdown); "report B=8": the
     ms of one full_report_batched call on 8 device-resident frames (the
     four frames twice) with main_boxes, host included (cuda_ms, 10
-    calls).  With ``keys``, the kernel_calls of those keys alone."""
+    calls); "get_report": the median ms of 20 warm get_report calls on
+    the first (noise) frame from the host.  With ``keys``, the
+    kernel_calls of those keys alone."""
     import photohive_dsp_tpu_torch as pt
 
     inp = kernel_time_inputs(cfg)
@@ -2253,6 +2267,15 @@ def kernel_times(cfg, keys=None) -> dict:
     tables = pt.ReportTables.build(H, W, cfg, DEVICE)
     out["report B=8"] = cuda_ms(
         lambda: pt.full_report_batched(frames, bx, vd, tables, cfg), 10)
+    img = np.ascontiguousarray(np.moveaxis(
+        inp[""]["u8"][0].cpu().numpy(), 0, -1))
+    pt.get_report(img, device=DEVICE)
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        pt.get_report(img, device=DEVICE)
+        lat.append(1e3 * (time.perf_counter() - t0))
+    out["get_report"] = float(np.median(lat))
     return out
 
 
@@ -2288,6 +2311,266 @@ def compare_parent(parent: str, cfg, smi: str) -> None:
         log(f"    {key}: parent {p:.4f} ({runs[0][key]:.4f}/"
             f"{runs[3][key]:.4f}), this {t:.4f} ({runs[1][key]:.4f}/"
             f"{runs[2][key]:.4f}), {p / t:.2f}x")
+
+
+# ---------------------------------------------------------- serving ---
+
+SERVE_B = 8
+SERVE_DYNAMIC_BS = (1, 3, 8)
+SERVE_TIMING_BATCH = "noise, 3 boxes"
+
+
+def serving_batches():
+    """The serving phase's B=8 uint8 batches, made from SEED: each frame
+    kind (structured: the q=1 tier; noise: q=8; hue wheel: q_full) under
+    each box set (none; main_boxes: K5; main_boxes with thin_box: the
+    masked route), and one mixed batch, kinds and box sets by image.
+    [(label, (8, H, W, 3) uint8, (8, 10, 4) int32 boxes, (8, 10) valid)],
+    the same in the child process that runs the artifact."""
+    import photohive_dsp_tpu_torch as pt
+
+    rng = np.random.default_rng(SEED + 7)
+    kinds = {"structured": structured_image(rng), "noise": noise_image(rng),
+             "hue wheel": hue_wheel_image(rng)}
+    sets = {"no boxes": pt.set_bounding_boxes([]),
+            "3 boxes": pt.set_bounding_boxes(main_boxes(H, W)),
+            "thin box": pt.set_bounding_boxes(main_boxes(H, W)[:2]
+                                              + [thin_box(H, W)])}
+    out = [(f"{kind}, {name}", np.stack([img] * SERVE_B),
+            np.stack([bx] * SERVE_B), np.stack([vd] * SERVE_B))
+           for kind, img in kinds.items()
+           for name, (bx, vd) in sets.items()]
+    imgs, bsets = list(kinds.values()), list(sets.values())
+    order = [(i % 3, (i // 3) % 3) for i in range(SERVE_B)]
+    out.append(("mixed", np.stack([imgs[k] for k, _ in order]),
+                np.stack([bsets[s][0] for _, s in order]),
+                np.stack([bsets[s][1] for _, s in order])))
+    return out
+
+
+def serve_args(u8, bx, vd):
+    """An artifact's arguments: the frames on the card, the boxes and
+    their validity as CPU tensors (serving.py's calling convention)."""
+    return (torch.as_tensor(u8, device=DEVICE), torch.from_numpy(bx),
+            torch.from_numpy(vd))
+
+
+def serve_child(blob_path: str, out_path: str) -> int:
+    """Child of phase_serving, a fresh process that imports the port
+    alone: loads the artifact, runs it on serving_batches with the launch
+    counts zeroed just before and read just after, saves the reports and
+    the counts."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from photohive_dsp_tpu_torch.ops import _cuda
+    from photohive_dsp_tpu_torch.serving import load_report
+
+    with open(blob_path, "rb") as f:
+        fn = load_report(f.read())
+    batches = [(label, serve_args(u8, bx, vd))
+               for label, u8, bx, vd in serving_batches()]
+    _cuda.reset_launch_counts()
+    outs = [[t.cpu() for t in fn(*args)] for _, args in batches]
+    sync()
+    launches = dict(_cuda.LAUNCHES)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "photohive_dsp_tpu"))
+    if bad:
+        raise AssertionError(f"the serving child imported {bad}")
+    torch.save({"outs": outs, "launches": launches}, out_path)
+    return 0
+
+
+def same_data(got, want, label: str) -> None:
+    """Two ReportData, field by field, bit for bit."""
+    for name, a, b in zip(want._fields, got, want):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"{label}: {name} differs from the live "
+                                 f"full_report_batched")
+
+
+def verify_rows(data, vd, cfg, label: str) -> None:
+    """debug.verify_report on every image of a batched ReportData."""
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.utils import debug
+
+    for i in range(len(vd)):
+        row = pt.ReportData(*(t[i] for t in data))
+        try:
+            debug.verify_report(pt.Report(row, H, W, int(vd[i].sum()), cfg))
+        except AssertionError as e:
+            raise AssertionError(f"{label}, image {i}: {e}") from e
+
+
+def median_event_ms(fn, n: int = 20) -> float:
+    """Median of ``n`` calls of fn, each between CUDA events (host
+    included: the call's one device read ends with the stream idle)."""
+    fn()
+    sync()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def dispatch_times() -> dict:
+    """Host us a call of K2 (B=4, C=112) and K6a (B=4 1080x1920): through
+    the registered operator (torch.library.custom_op, ops/library.py);
+    through a twin registered with the low-level torch.library.Library API
+    on the same launch; and that launch called directly.  Min over 5 runs
+    of 400 calls each, the three in turns; the launches are not counted.
+    The yardstick for what the operators cost the live path."""
+    import ctypes
+
+    from photohive_dsp_tpu_torch.ops import _cuda
+    from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
+    from photohive_dsp_tpu_torch.ops.margin_sort import sort_layout
+
+    def sort_launch(sal):
+        b, c = sal.shape
+        out = torch.empty((b, c), dtype=torch.int32, device=sal.device)
+        _cuda.launch("ph_margin_sort", sal, _cuda.ptr(sal), b, c,
+                     *sort_layout(c), _cuda.ptr(out))
+        return out
+
+    def rows_launch(pgm, radices, tw, stw):
+        b, h, w = pgm.shape
+        spec = torch.empty((b, h, w // 2 + 1, 2), dtype=torch.float32,
+                           device=pgm.device)
+        _cuda.launch("ph_fft_rows", pgm, _cuda.ptr(pgm), b * h,
+                     ctypes.byref(_cuda.FftStages.for_plan(w, radices)),
+                     _cuda.ptr(tw), _cuda.ptr(stw), _cuda.ptr(spec))
+        return spec
+
+    lib = torch.library.Library("photohive_twin", "DEF")
+    lib.define("margin_sort(Tensor sal) -> Tensor")
+    lib.impl("margin_sort", sort_launch, "CUDA")
+    lib.define("fft_rows(Tensor pgm, int[] radices, Tensor tw, Tensor stw) "
+               "-> Tensor")
+    lib.impl("fft_rows", rows_launch, "CUDA")
+    sal = torch.rand((4, 112), device=DEVICE) * 1000
+    pgm = torch.rand((4, H, W), device=DEVICE)
+    lp = FftPlan.for_shape(H, W, DEVICE).rows
+    rows = (pgm, list(lp.radices), lp.twiddles, lp.stage_twiddles)
+    calls = {"K2 operator": lambda: torch.ops.photohive.margin_sort(sal),
+             "K2 Library twin": lambda: torch.ops.photohive_twin.margin_sort(
+                 sal),
+             "K2 launch": lambda: sort_launch(sal),
+             "K6a operator": lambda: torch.ops.photohive.fft_rows(*rows),
+             "K6a Library twin": lambda: torch.ops.photohive_twin.fft_rows(
+                 *rows),
+             "K6a launch": lambda: rows_launch(*rows)}
+    best = {k: float("inf") for k in calls}
+    for f in calls.values():
+        f()
+    for _ in range(5):
+        for k, f in calls.items():
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(400):
+                f()
+            best[k] = min(best[k], (time.perf_counter() - t0) / 400 * 1e6)
+    sync()
+    return best
+
+
+def phase_serving(cfg, smi: str) -> dict:
+    """serving.export_report at 1080x1920, B=8 pinned and a dynamic batch;
+    the pinned artifact saved, loaded in a fresh process and run on
+    serving_batches, each report bit-equal to the live full_report_batched
+    and through debug.verify_report, with K1-K8 counted inside the
+    artifact; the dynamic artifact at B=1, 3 and 8, the same; then the
+    artifact's and the live call's time in turns, and stage_timings at
+    B=8.  Returns the launch counts and the times."""
+    import tempfile
+
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.serving import export_report, load_report
+    from photohive_dsp_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    blob = export_report(H, W, cfg, batch_size=SERVE_B, device=DEVICE)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dyn_blob = export_report(H, W, cfg, batch_size="dynamic", device=DEVICE)
+    dyn_export_s = time.perf_counter() - t0
+    log(f"  export_report {H}x{W}: B={SERVE_B} {export_s:.1f} s "
+        f"({len(blob) / 1e6:.1f} MB), dynamic batch {dyn_export_s:.1f} s "
+        f"({len(dyn_blob) / 1e6:.1f} MB)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        blob_path = os.path.join(tmp, "report.pt2")
+        out_path = os.path.join(tmp, "reports.pt")
+        with open(blob_path, "wb") as f:
+            f.write(blob)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--serve-child", blob_path, out_path], check=True,
+                       timeout=900)
+        child_s = time.perf_counter() - t0
+        child = torch.load(out_path)
+    launches = child["launches"]
+    log(f"  launch counts in the artifact's run (fresh process, "
+        f"{child_s:.1f} s with its start): {launches}")
+    check_launches(launches, MAIN_COUNTERS, "serving path")
+
+    tables = pt.ReportTables.build(H, W, cfg, DEVICE)
+    batches = serving_batches()
+
+    def live(args):
+        """The live path on the artifact's arguments, the frames made
+        planar as BatchRunner.run_u8 (and the artifact) makes them."""
+        u8, bx, vd = args
+        return pt.full_report_batched(u8.permute(0, 3, 1, 2).contiguous(),
+                                      bx, vd, tables, cfg)
+
+    for (label, u8, bx, vd), got in zip(batches, child["outs"]):
+        args = serve_args(u8, bx, vd)
+        same_data(pt.ReportData(*got), live(args), f"artifact, {label}")
+        verify_rows(got, vd, cfg, f"artifact, {label}")
+    log(f"  the loaded B={SERVE_B} artifact equals the live path bit for bit "
+        f"on {len(batches)} batches (" + "; ".join(b[0] for b in batches)
+        + "), every report through debug.verify_report")
+    dyn = load_report(dyn_blob)
+    _, u8, bx, vd = batches[-1]
+    for b in SERVE_DYNAMIC_BS:
+        args = serve_args(u8[:b], bx[:b], vd[:b])
+        got = dyn(*args)
+        same_data(got, live(args), f"dynamic artifact B={b}")
+        verify_rows(got, vd[:b], cfg, f"dynamic artifact B={b}")
+    log(f"  the dynamic artifact equals the live path bit for bit at B="
+        + ", ".join(map(str, SERVE_DYNAMIC_BS)) + " (the mixed batch)")
+
+    fn = load_report(blob)
+    _, u8, bx, vd = next(b for b in batches if b[0] == SERVE_TIMING_BATCH)
+    args = serve_args(u8, bx, vd)
+    runs = [median_event_ms(lambda: fn(*args)),
+            median_event_ms(lambda: live(args)),
+            median_event_ms(lambda: live(args)),
+            median_event_ms(lambda: fn(*args))]
+    art_ms, live_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+    log(f"  B={SERVE_B} {H}x{W} u8 ({SERVE_TIMING_BATCH}), median of 20 "
+        f"calls between CUDA events, in turns artifact, live, live, "
+        f"artifact: " + " / ".join(f"{t:.4f}" for t in runs)
+        + f" ms; artifact {art_ms:.4f} ms, live {live_ms:.4f} ms ({smi})")
+    disp = dispatch_times()
+    log("  host us a call (min of 5 runs of 400): " + "; ".join(
+        f"{k} {v:.2f}" for k, v in disp.items()) + f" ({smi})")
+    stages = profiling.stage_timings(H, W, SERVE_B, cfg, device=DEVICE)
+    log(f"  stage_timings B={SERVE_B} {H}x{W} (ms a call, CUDA events, "
+        f"5 warm calls): " + "; ".join(f"{k} {1e3 * v:.4f}"
+                                       for k, v in stages.items()))
+    return dict(launches=launches, export_s=export_s,
+                dynamic_export_s=dyn_export_s, artifact_ms=art_ms,
+                live_ms=live_ms, stages_ms={k: 1e3 * v
+                                            for k, v in stages.items()})
 
 
 KERNELS = [
@@ -2383,6 +2666,8 @@ LIBRARY = {
 
 
 def main(argv) -> int:
+    if argv[:1] == ["--serve-child"]:
+        return serve_child(argv[1], argv[2])
     if argv[:1] == ["--kernel-times"]:
         # A child of compare_parent: the checkout at argv[1]'s package.
         if not torch.cuda.is_available():
@@ -2433,12 +2718,17 @@ def main(argv) -> int:
         "K15)")
     times, bounds, lat_ms, mps = phase_timing(images, cfg, kin, bkin, skin,
                                               fkin, main_out, smi)
+    log("phase 8: serving path (export_report, load_report in a fresh "
+        "process)")
+    serving = phase_serving(cfg, smi)
+    launches["serving path"] = serving["launches"]
     if parent:
         compare_parent(parent, cfg, smi)
 
     kernels = [dict(id=key, name=name, route="cuda", source=src, replaces=rep,
                     launches=launches.get(path, {}).get(counter, 0),
                     launches_from=path,
+                    serving_launches=launches["serving path"][counter],
                     max_abs_err=err[key], ms=times[key][0],
                     plain_ms=times[key][1], bound_ms=bounds[key][0],
                     bound_by=bounds[key][1], library_ms=times[key][2],
@@ -2454,6 +2744,10 @@ def main(argv) -> int:
     log(f"  K6 (K6a+K6b) {times['K6'][0]:.4f} ms against the bound of "
         f"|rfft2|^2 itself, {bounds['K6'][0]:.5f} ms "
         f"({times['K6'][0] / bounds['K6'][0]:.1f}x)")
+    log(f"serving {H}x{W} B={SERVE_B}: export {serving['export_s']:.1f} s "
+        f"(dynamic {serving['dynamic_export_s']:.1f} s), artifact call "
+        f"{serving['artifact_ms']:.4f} ms, live call "
+        f"{serving['live_ms']:.4f} ms")
     log(f"get_report warm median {lat_ms:.3f} ms; full_report_batched B=8 "
         f"{mps:.1f} MP/s; build_spatial_report {SH}x{SW} {spatial_ms:.1f} ms")
     log(f"corpus path (config #3, {CORPUS_IMAGES} u8 frames, batch "

@@ -111,13 +111,16 @@ def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
     rgb:         (B, 3, H, W) float32 in [0, 1], or uint8, on the device
                  the tables live on.
     boxes:       (B, MAX_CROP_BOXES, 4) int [top, bottom, left, right),
-                 a host array.
-    boxes_valid: (B, MAX_CROP_BOXES) bool, a host array.
+                 a host array or a CPU tensor.
+    boxes_valid: (B, MAX_CROP_BOXES) bool, a host array or a CPU tensor.
 
-    The routes are picked on the host from the shape, the boxes, the
-    palette variant (``quantize.palette_kernel_variant``, read once here)
-    and, once per batch on the RGB palette routes, from one scalar of the
-    palette's tie structure read from the device."""
+    The shape and the palette variant (``quantize.palette_kernel_variant``,
+    read once here) pick routes in Python; the palette tier and the
+    sharpness route are graph conditionals (``ops.library.branch``), whose
+    predicates come from the boxes on the host and, once per batch on the
+    RGB palette routes, from one scalar of the palette's tie structure
+    copied from the device.  So ``torch.export`` traces the whole function
+    (``serving.export_report``)."""
     variant = palette_kernel_variant()
     # On the bf16 route uint8 frames feed the palette kernels directly when
     # no decimation is configured (in-kernel x/255, bit-identical to the

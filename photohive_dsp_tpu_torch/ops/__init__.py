@@ -1,0 +1,1 @@
+from . import library  # noqa: F401  (registers torch.ops.photohive.*)

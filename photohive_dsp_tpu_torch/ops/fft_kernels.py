@@ -19,28 +19,23 @@ pair alike, since they are independent.
 The plain versions run the kernels' Stockham stages (fft_plan.py) step by
 step in torch ops on the same twiddle tables, in the same float32
 operations and order, so on the CPU they check the plan and on the card
-they hold the kernels.  Each wrapper launches its kernel for CUDA tensors
-and takes the plain version for CPU tensors.
+they hold the kernels.  Each wrapper calls its kernel's registered
+operator (ops/library.py), which launches the kernel for CUDA tensors and
+runs the plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _cuda
-from .fft_plan import FftPlan, LengthPlan, col_tile
+from .fft_plan import FftPlan, LengthPlan
 
 
 def _check_plan(t: torch.Tensor, plan: FftPlan) -> None:
     if plan.rows.twiddles.device != t.device:
         raise ValueError(f"plan on {plan.rows.twiddles.device}, input on "
                          f"{t.device}")
-
-
-def _stages(lp: LengthPlan) -> ctypes.c_void_p:
-    return ctypes.byref(_cuda.FftStages.for_plan(lp.n, lp.radices))
 
 
 def _cmul(ar, ai, br, bi):
@@ -95,18 +90,24 @@ def stockham_plain(re: torch.Tensor, im: torch.Tensor, lp: LengthPlan):
 
 def fft_rows_plain(pgm: torch.Tensor, plan: FftPlan) -> torch.Tensor:
     """Plain version of K6a: (B, H, W) -> (B, H, W//2+1, 2)."""
+    return rows_plain(pgm, plan.rows)
+
+
+def rows_plain(pgm: torch.Tensor, lp: LengthPlan) -> torch.Tensor:
+    """``fft_rows_plain`` by the rows' length plan alone."""
     b, h, w = pgm.shape
+    half = w // 2 + 1
     rows = pgm.reshape(b * h, w)
     if rows.shape[0] % 2:
         rows = torch.cat([rows, rows.new_zeros((1, w))])
-    zr, zi = stockham_plain(rows[0::2], rows[1::2], plan.rows)
-    k = torch.arange(plan.half, device=pgm.device)
+    zr, zi = stockham_plain(rows[0::2], rows[1::2], lp)
+    k = torch.arange(half, device=pgm.device)
     ar, ai = zr[:, k], zi[:, k]
     br, bi = zr[:, (w - k) % w], zi[:, (w - k) % w]
     x0 = torch.stack([(ar + br) * 0.5, (ai - bi) * 0.5], dim=-1)
     x1 = torch.stack([(ai + bi) * 0.5, (br - ar) * 0.5], dim=-1)
-    spec = torch.stack([x0, x1], dim=1).reshape(-1, plan.half, 2)
-    return spec[:b * h].reshape(b, h, plan.half, 2)
+    spec = torch.stack([x0, x1], dim=1).reshape(-1, half, 2)
+    return spec[:b * h].reshape(b, h, half, 2)
 
 
 def fft_rows(pgm: torch.Tensor, plan: FftPlan) -> torch.Tensor:
@@ -117,25 +118,23 @@ def fft_rows(pgm: torch.Tensor, plan: FftPlan) -> torch.Tensor:
         raise ValueError(f"pgm: expected (B, {plan.height}, {plan.width}), "
                          f"got {tuple(pgm.shape)}")
     _check_plan(pgm, plan)
-    if pgm.device.type == "cpu":
-        return fft_rows_plain(pgm, plan)
-    b, h, _ = pgm.shape
-    spec = torch.empty((b, h, plan.half, 2), dtype=torch.float32,
-                       device=pgm.device)
-    _cuda.launch("ph_fft_rows", pgm, _cuda.ptr(pgm), b * h,
-                 _stages(plan.rows), _cuda.ptr(plan.rows.twiddles),
-                 _cuda.ptr(plan.rows.stage_twiddles), _cuda.ptr(spec))
-    _cuda.LAUNCHES["fft_rows"] += 1
-    return spec
+    lp = plan.rows
+    return torch.ops.photohive.fft_rows(pgm, list(lp.radices), lp.twiddles,
+                                        lp.stage_twiddles)
 
 
 # ---------------------------------------------------------------- K6b ---
 
 def fft_cols_plain(spec: torch.Tensor, plan: FftPlan) -> torch.Tensor:
     """Plain version of K6b: (B, H, W//2+1, 2) -> (B, H, W//2+1)."""
+    return cols_plain(spec, plan.cols)
+
+
+def cols_plain(spec: torch.Tensor, lp: LengthPlan) -> torch.Tensor:
+    """``fft_cols_plain`` by the columns' length plan alone."""
     b, h, half, _ = spec.shape
     cols = spec.permute(0, 2, 3, 1).reshape(b * half, 2, h)
-    yr, yi = stockham_plain(cols[:, 0], cols[:, 1], plan.cols)
+    yr, yi = stockham_plain(cols[:, 0], cols[:, 1], lp)
     mag2 = yr * yr + yi * yi
     return mag2.reshape(b, half, h).permute(0, 2, 1).contiguous()
 
@@ -148,18 +147,9 @@ def fft_cols(spec: torch.Tensor, plan: FftPlan) -> torch.Tensor:
         raise ValueError(f"spec: expected (B, {plan.height}, {plan.half}, "
                          f"2), got {tuple(spec.shape)}")
     _check_plan(spec, plan)
-    if spec.device.type == "cpu":
-        return fft_cols_plain(spec, plan)
-    b = spec.shape[0]
-    mag2 = torch.empty((b, plan.height, plan.half), dtype=torch.float32,
-                       device=spec.device)
-    tile = _cuda.ColTile(*col_tile(plan.height))
-    _cuda.launch("ph_fft_cols", spec, _cuda.ptr(spec), b, plan.half,
-                 _stages(plan.cols), _cuda.ptr(plan.cols.twiddles),
-                 _cuda.ptr(plan.cols.stage_twiddles), ctypes.byref(tile),
-                 _cuda.ptr(mag2))
-    _cuda.LAUNCHES["fft_cols"] += 1
-    return mag2
+    lp = plan.cols
+    return torch.ops.photohive.fft_cols(spec, list(lp.radices), lp.twiddles,
+                                        lp.stage_twiddles)
 
 
 # ----------------------------------------------------------------- K6 ---

@@ -66,15 +66,7 @@ def sort_layout(c: int):
 def margin_sort(sal: torch.Tensor) -> torch.Tensor:
     """(B, C) float32 saliencies -> (B, C) int32 margin argsort.
 
-    CUDA tensors launch the kernel (C up to MAX_SORT_C); CPU tensors take
-    the plain version."""
+    By its registered operator (ops/library.py): CUDA tensors launch the
+    kernel (C up to MAX_SORT_C), CPU tensors take the plain version."""
     _cuda.require(sal, "margin_sort sal", (torch.float32,), 2)
-    if sal.device.type == "cpu":
-        return margin_insertion_argsort(sal)
-    b, c = sal.shape
-    warps, regs = sort_layout(c)
-    out = torch.empty((b, c), dtype=torch.int32, device=sal.device)
-    _cuda.launch("ph_margin_sort", sal, _cuda.ptr(sal), b, c, warps, regs,
-                 _cuda.ptr(out))
-    _cuda.LAUNCHES["margin_sort"] += 1
-    return out
+    return torch.ops.photohive.margin_sort(sal)

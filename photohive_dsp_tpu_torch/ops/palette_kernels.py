@@ -10,8 +10,9 @@ RGB kernels of the same names as the bf16 ones, ``cell_counts_batched``)
 and of its LUT builders (``palette_offset_lut``, ``palette_candidate_lut``),
 and of ``photohive_dsp_tpu/ops/pallas_kernels_cwide.py``
 (``palette_sums_by_k_cwide``, ``cwide_tables``).  The CUDA kernels are
-csrc/palette.cu; each wrapper launches its kernel for CUDA tensors and
-takes the plain PyTorch version for CPU tensors.
+csrc/palette.cu; each wrapper checks its inputs and calls its kernel's
+registered operator (ops/library.py), which launches the kernel for CUDA
+tensors and runs the plain PyTorch version for CPU tensors.
 
 The RGB input is (B, 3, H, W), float32 in [0, 1] or uint8, any H and W.
 Both forms give the same results: uint8 decodes to the correctly rounded
@@ -31,13 +32,13 @@ row-sharded report adds across ranks before ``counts_s_from_fixed`` /
 
 from __future__ import annotations
 
-import ctypes
 import functools
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..config import MAX_NUM_PIXELS
+from ..config import MAX_NUM_PIXELS, ReportConfig
 from . import _cuda
 from .colorspace import rgb_to_hsv, u8_to_unit_f32
 from .fixed_point import from_fixed, to_fixed
@@ -158,36 +159,26 @@ def index_bounds(cfg):
     return tuple(out)
 
 
+def cell_grid(cfg: ReportConfig) -> List[float]:
+    """The fields of ``cfg`` the cell id depends on (the h, s and v
+    partitions, the black and gray thresholds): the palette operators'
+    scalars."""
+    return [float(cfg.h_partitions), float(cfg.s_partitions),
+            float(cfg.v_partitions), cfg.black_thresh, cfg.gray_thresh]
+
+
 @functools.lru_cache(maxsize=None)
-def _device_bounds(cfg, device: torch.device):
-    """(tops, [v | s | h] thresholds as one tensor on ``device``)."""
-    bounds = index_bounds(cfg)
-    return (tuple(top for top, _ in bounds),
-            torch.as_tensor(np.concatenate([t for _, t in bounds]),
-                            device=device))
+def _grid_config(grid: Tuple[float, ...]) -> ReportConfig:
+    h, s, v, black, gray = grid
+    return ReportConfig(h_partitions=int(h), s_partitions=int(s),
+                        v_partitions=int(v), black_thresh=black,
+                        gray_thresh=gray)
 
 
-def _cell_params(cfg, device: torch.device):
-    tops, bounds = _device_bounds(cfg, device)
-    return ctypes.byref(_cuda.CellParams.for_config(cfg, tops, bounds))
-
-
-def _launch_args(rgb: torch.Tensor, cfg):
-    b, _, hh, ww = rgb.shape
-    return (_cuda.ptr(rgb), int(rgb.dtype == torch.uint8), b, hh * ww,
-            _cell_params(cfg, rgb.device))
-
-
-def _count(name: str, rgb: torch.Tensor) -> None:
-    """Count a launch of an RGB palette kernel: K1/K3/K4 for uint8 input,
-    K11/K12/K13 (``*_f32``) for float32, whatever the route (see
-    ``_cuda``)."""
-    _cuda.LAUNCHES[name if rgb.dtype == torch.uint8 else name + "_f32"] += 1
-
-
-def _hsv_launch_args(h, s, v, cfg):
-    return (_cuda.ptr(h), _cuda.ptr(s), _cuda.ptr(v), h.shape[0], h.shape[1],
-            _cell_params(cfg, h.device))
+def grid_config(grid: Sequence[float]) -> ReportConfig:
+    """A config with ``cell_grid``'s fields, the others at their defaults:
+    the same cells, thresholds and tables."""
+    return _grid_config(tuple(grid))
 
 
 # ----------------------------------------------------- K1 / K9 / K15 ---
@@ -220,16 +211,7 @@ def cell_counts_s_from_rgb(rgb: torch.Tensor, cfg):
     """K1: exact per-image cell histogram and saturation sum from planar
     RGB, HSV computed in-kernel."""
     _check_rgb(rgb)
-    if rgb.device.type == "cpu":
-        return cell_counts_s_from_rgb_plain(rgb, cfg)
-    b, c = rgb.shape[0], cfg.num_cells
-    counts = torch.empty((b, c), dtype=torch.int32, device=rgb.device)
-    s_sum = torch.empty((b,), dtype=torch.float32, device=rgb.device)
-    acc = torch.empty((b, c + 1), dtype=torch.int64, device=rgb.device)
-    _cuda.launch("ph_cell_counts_s", rgb, *_launch_args(rgb, cfg),
-                 _cuda.ptr(counts), _cuda.ptr(s_sum), _cuda.ptr(acc))
-    _count("cell_counts_s", rgb)
-    return counts, s_sum
+    return torch.ops.photohive.cell_counts_s(rgb, cell_grid(cfg))
 
 
 def cell_counts_from_hsv_plain(h, s, v, cfg):
@@ -244,14 +226,7 @@ def cell_counts_from_hsv(h, s, v, cfg):
     then the fixed-point saturation sum of the real pixels
     (``counts_s_from_fixed`` converts it)."""
     _check_hsv(h, s, v)
-    if h.device.type == "cpu":
-        return cell_counts_from_hsv_plain(h, s, v, cfg)
-    acc = torch.empty((h.shape[0], cfg.num_cells + 1), dtype=torch.int64,
-                      device=h.device)
-    _cuda.launch("ph_cell_counts_hsv", h, *_hsv_launch_args(h, s, v, cfg),
-                 _cuda.ptr(acc))
-    _cuda.LAUNCHES["cell_counts_hsv"] += 1
-    return acc
+    return torch.ops.photohive.cell_counts_hsv(h, s, v, cell_grid(cfg))
 
 
 def cell_counts_batched_plain(cells: torch.Tensor, num_cells: int):
@@ -272,17 +247,7 @@ def cell_counts_batched(cells: torch.Tensor, num_cells: int):
     _cuda.require(cells, "cells", (torch.int32,), 2)
     if cells.shape[1] >= 1 << 31:
         raise ValueError("cells: 2^31 or more ids per image")
-    if cells.device.type == "cpu":
-        return cell_counts_batched_plain(cells, num_cells)
-    b, p = cells.shape
-    counts = torch.empty((b, num_cells), dtype=torch.int32,
-                         device=cells.device)
-    acc = torch.empty((b, num_cells + 1), dtype=torch.int64,
-                      device=cells.device)
-    _cuda.launch("ph_cell_counts_ids", cells, _cuda.ptr(cells), b, p,
-                 num_cells, _cuda.ptr(counts), _cuda.ptr(acc))
-    _cuda.LAUNCHES["cell_counts_ids"] += 1
-    return counts
+    return torch.ops.photohive.cell_counts_ids(cells, num_cells)
 
 
 # ------------------------------------------------------------ tables ----
@@ -356,7 +321,7 @@ def _slot_sums_fixed(h, s, v, slot, offset, c: int) -> torch.Tensor:
                         torch.ones_like(slot, dtype=torch.int64)], dim=-1)
     acc = torch.zeros((b * (c + 1), 4), dtype=torch.int64, device=h.device)
     acc.index_add_(0, idx, vals.reshape(-1, 4))
-    return acc.reshape(b, c + 1, 4)[:, :c]
+    return acc.reshape(b, c + 1, 4)[:, :c].contiguous()
 
 
 def palette_sums_from_fixed(acc: torch.Tensor) -> torch.Tensor:
@@ -385,16 +350,8 @@ def palette_sums_by_k_rgb_q1(rgb, slot_of_cell, offset_of_cell, cfg):
     b, c = rgb.shape[0], cfg.num_cells
     _check_table(slot_of_cell, "slot_of_cell", torch.int32, (b, c), rgb)
     _check_table(offset_of_cell, "offset_of_cell", torch.float32, (b, c), rgb)
-    if rgb.device.type == "cpu":
-        return palette_sums_by_k_rgb_q1_plain(rgb, slot_of_cell,
-                                              offset_of_cell, cfg)
-    sums = torch.empty((b, c, 4), dtype=torch.float32, device=rgb.device)
-    acc = torch.empty((b, c, 4), dtype=torch.int64, device=rgb.device)
-    _cuda.launch("ph_palette_sums_q1", rgb, *_launch_args(rgb, cfg),
-                 _cuda.ptr(slot_of_cell), _cuda.ptr(offset_of_cell),
-                 _cuda.ptr(sums), _cuda.ptr(acc))
-    _count("palette_sums_q1", rgb)
-    return sums
+    return torch.ops.photohive.palette_sums_q1(rgb, slot_of_cell,
+                                               offset_of_cell, cell_grid(cfg))
 
 
 def _nearest_candidates(h, s, v, cells, cand, centers_by_k, c: int):
@@ -437,23 +394,15 @@ def palette_sums_by_k_rgb(rgb, cand, centers_by_k, cfg):
     valid-order slot, (B, C, 4) float32."""
     _check_rgb(rgb)
     b, c = rgb.shape[0], cfg.num_cells
-    q = _check_candidates(cand, centers_by_k, b, c, rgb)
-    if rgb.device.type == "cpu":
-        return palette_sums_by_k_rgb_plain(rgb, cand, centers_by_k, cfg)
-    sums = torch.empty((b, c, 4), dtype=torch.float32, device=rgb.device)
-    acc = torch.empty((b, c, 4), dtype=torch.int64, device=rgb.device)
-    _cuda.launch("ph_palette_sums", rgb, *_launch_args(rgb, cfg),
-                 _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), _cuda.ptr(sums),
-                 _cuda.ptr(acc))
-    _count("palette_sums_q8" if q <= 8 else "palette_sums_qfull", rgb)
-    return sums
+    _check_candidates(cand, centers_by_k, b, c, rgb)
+    return torch.ops.photohive.palette_sums(rgb, cand, centers_by_k,
+                                            cell_grid(cfg))
 
 
-def _check_candidates(cand, centers_by_k, b: int, c: int, like) -> int:
+def _check_candidates(cand, centers_by_k, b: int, c: int, like) -> None:
     q = cand.shape[-1] if cand.dim() == 3 else 0
     _check_table(cand, "cand", torch.int32, (b, c, q), like)
     _check_table(centers_by_k, "centers_by_k", torch.float32, (b, c, 3), like)
-    return q
 
 
 def palette_sums_by_k_plain(h, s, v, cand, centers_by_k, cfg):
@@ -473,15 +422,9 @@ def palette_sums_by_k(h, s, v, cand, centers_by_k, cfg):
     count] (``palette_sums_from_fixed`` converts it)."""
     _check_hsv(h, s, v)
     b, c = h.shape[0], cfg.num_cells
-    q = _check_candidates(cand, centers_by_k, b, c, h)
-    if h.device.type == "cpu":
-        return palette_sums_by_k_plain(h, s, v, cand, centers_by_k, cfg)
-    acc = torch.empty((b, c, 4), dtype=torch.int64, device=h.device)
-    _cuda.launch("ph_palette_sums_hsv", h, *_hsv_launch_args(h, s, v, cfg),
-                 _cuda.ptr(cand), q, _cuda.ptr(centers_by_k), _cuda.ptr(acc))
-    _cuda.LAUNCHES["palette_sums_flat_q8" if q <= 8
-                   else "palette_sums_flat_qfull"] += 1
-    return acc
+    _check_candidates(cand, centers_by_k, b, c, h)
+    return torch.ops.photohive.palette_sums_hsv(h, s, v, cand, centers_by_k,
+                                                cell_grid(cfg))
 
 
 def palette_sums_by_k_cwide_plain(h, s, v, allowed, centers_by_k, cfg):
@@ -529,12 +472,5 @@ def palette_sums_by_k_cwide(h, s, v, allowed, centers_by_k, cfg):
     words = -(-c // 32)
     _check_table(allowed, "allowed", torch.int32, (b, c, words), h)
     _check_table(centers_by_k, "centers_by_k", torch.float32, (b, c, 3), h)
-    if h.device.type == "cpu":
-        return palette_sums_by_k_cwide_plain(h, s, v, allowed, centers_by_k,
-                                             cfg)
-    acc = torch.empty((b, c, 4), dtype=torch.int64, device=h.device)
-    _cuda.launch("ph_palette_sums_cwide", h, *_hsv_launch_args(h, s, v, cfg),
-                 _cuda.ptr(allowed), words, _cuda.ptr(centers_by_k),
-                 _cuda.ptr(acc))
-    _cuda.LAUNCHES["palette_sums_cwide"] += 1
-    return acc
+    return torch.ops.photohive.palette_sums_cwide(h, s, v, allowed,
+                                                  centers_by_k, cell_grid(cfg))

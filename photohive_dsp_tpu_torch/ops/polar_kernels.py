@@ -18,7 +18,8 @@ finite float32 x, so 2^28 * 89 * 1.2e8 pixels (config.MAX_NUM_PIXELS) stays
 below 2^64.  With ``fixed=True`` the sums wrapper returns the (B, num_bins)
 int64 accumulator instead, for a caller that adds it across ranks before
 ``fixed_point.from_fixed``.  The kernel is csrc/polar.cu; each wrapper
-launches it for CUDA tensors and takes the plain version for CPU tensors.
+calls its registered operator (ops/library.py ``polar_lognorm``), which
+launches it for CUDA tensors and runs the plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -75,22 +76,9 @@ def polar_bin_sums_lognorm_plain(mag2: torch.Tensor, bin_ids: torch.Tensor,
     acc = torch.zeros((b, num_bins + 1), dtype=torch.int64,
                       device=mag2.device)
     acc.scatter_add_(1, ids.expand(b, -1), to_fixed(log_gate(mag2)))
-    acc = acc[:, :num_bins]
+    acc = acc[:, :num_bins].contiguous()
     mx = mag2.amax(dim=1).clamp(min=0.0)
     return (acc if fixed else from_fixed(acc)), mx
-
-
-def _launch(mag2, bin_ids, num_bins, bin_counts, out):
-    """One launch of csrc/polar.cu; returns (the int64 accumulator, the
-    float32 maxima)."""
-    b, p = mag2.shape
-    acc = torch.empty((b, num_bins), dtype=torch.int64, device=mag2.device)
-    mx = torch.empty((b,), dtype=torch.int32, device=mag2.device)
-    _cuda.launch("ph_polar_lognorm", mag2, _cuda.ptr(mag2),
-                 _cuda.ptr(bin_ids), b, p, num_bins, _cuda.ptr(bin_counts),
-                 _cuda.ptr(acc), _cuda.ptr(mx), _cuda.ptr(out))
-    _cuda.LAUNCHES["polar_bins"] += 1
-    return acc, mx.view(torch.float32)
 
 
 def polar_bin_sums_lognorm(mag2: torch.Tensor, bin_ids: torch.Tensor,
@@ -100,12 +88,8 @@ def polar_bin_sums_lognorm(mag2: torch.Tensor, bin_ids: torch.Tensor,
     float32, or with ``fixed`` the int64 fixed-point accumulator; (B,)
     float32)."""
     _check(mag2, bin_ids)
-    if mag2.device.type == "cpu":
-        return polar_bin_sums_lognorm_plain(mag2, bin_ids, num_bins,
-                                            fixed=fixed)
-    sums = None if fixed else torch.empty(
-        (mag2.shape[0], num_bins), dtype=torch.float32, device=mag2.device)
-    acc, mx = _launch(mag2, bin_ids, num_bins, None, sums)
+    acc, mx, sums = torch.ops.photohive.polar_lognorm(mag2, bin_ids, None,
+                                                      num_bins)
     return (acc if fixed else sums), mx
 
 
@@ -130,9 +114,5 @@ def polar_bin_means_lognorm(mag2: torch.Tensor, bin_ids: torch.Tensor,
     if bin_counts.device != mag2.device:
         raise ValueError(f"bin_counts on {bin_counts.device}, mag2 on "
                          f"{mag2.device}")
-    if mag2.device.type == "cpu":
-        return polar_bin_means_lognorm_plain(mag2, bin_ids, bin_counts)
-    out = torch.empty((mag2.shape[0], bin_counts.shape[0]),
-                      dtype=torch.float32, device=mag2.device)
-    _launch(mag2, bin_ids, bin_counts.shape[0], bin_counts, out)
-    return out
+    return torch.ops.photohive.polar_lognorm(mag2, bin_ids, bin_counts,
+                                             bin_counts.shape[0])[2]

@@ -14,7 +14,9 @@ tensors with the batch dimension written out:
   4. Per-pixel parent resolution and palette sums in one pass over the
      pixels: K3 (q=1, no populated cell tied) or K4 (first minimum distance
      over at most q candidates, q = 8 or the config's q_full), picked per
-     batch from the tie structure as the JAX package's switch does; on
+     batch from the tie structure by nested graph conditionals
+     (``library.branch``, ``torch.cond``), as the JAX package's
+     ``lax.switch`` does; on
      flat HSV pixels (the row-sharded report, the ``cwide`` route) K10 at
      q = 8 or q_full, or K14 over each cell's allowed parents,
      ``palette_sums_by_k_auto``.
@@ -209,15 +211,18 @@ def palette_finalize_by_k(per_slot: torch.Tensor, assign: ParentAssignment,
 
 
 def palette_tier(counts: torch.Tensor, assign: ParentAssignment,
-                 cfg: ReportConfig) -> int:
-    """Candidate width the batch needs: 1, q_small or q_full.  Only cells
-    that hold pixels matter.  Reads one scalar from the device."""
+                 cfg: ReportConfig) -> torch.Tensor:
+    """Candidate width the batch needs, 1, q_small or q_full, as a 0-dim
+    int64 tensor on the host.  Only cells that hold pixels matter.  The
+    width is computed on the device and copied to the host once: the
+    batch's one device read, from which the palette's route conditionals
+    read their predicates without another."""
     q_small, q_full = palette_widths(cfg)
     ncand = assign.allowed.sum(dim=-1)
-    q_needed = int(torch.where(counts > 0, ncand, 0).max())
-    if q_needed <= 1:
-        return 1
-    return q_small if q_needed <= q_small else q_full
+    q_needed = torch.where(counts > 0, ncand, 0).amax()
+    width = torch.where(q_needed <= 1, 1,
+                        torch.where(q_needed <= q_small, q_small, q_full))
+    return width.cpu()
 
 
 PALETTE_KERNEL_VARIANTS = ("bf16", "candidate", "cwide")
@@ -253,16 +258,23 @@ def palette_sums_by_k_auto(h: torch.Tensor, s: torch.Tensor,
     no width and so no tier read from the device.  Hue < 0 marks pixels
     that add nothing."""
     from . import palette_kernels as pk
+    from .library import branch
 
     if variant == "cwide":
         return pk.palette_sums_by_k_cwide(h, s, v,
                                           *pk.cwide_tables(assign, tables),
                                           cfg)
     q_small, q_full = palette_widths(cfg)
-    q = q_small if palette_tier(counts, assign, cfg) <= q_small else q_full
-    cand, centers_by_k = pk.palette_candidate_table(assign, tables,
-                                                    cfg.num_cells, q)
-    return pk.palette_sums_by_k(h, s, v, cand, centers_by_k, cfg)
+
+    def sums(q):
+        def run(h, s, v, *assign):
+            cand, centers_by_k = pk.palette_candidate_table(
+                ParentAssignment(*assign), tables, cfg.num_cells, q)
+            return pk.palette_sums_by_k(h, s, v, cand, centers_by_k, cfg)
+        return run
+
+    return branch(palette_tier(counts, assign, cfg) <= q_small,
+                  sums(q_small), sums(q_full), (h, s, v, *assign))
 
 
 def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,
@@ -273,6 +285,7 @@ def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,
     it uint8 frames (K1, K3, K4), the ``candidate`` route the decoded
     float32 planes (K11, K12, K13)."""
     from . import palette_kernels as pk
+    from .library import branch
     from .margin_sort import margin_sort
 
     _, _, hh, ww = down.shape
@@ -283,13 +296,26 @@ def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,
     order = margin_sort(sal)
     assign = parent_assignment_from_order(counts, order, total_pixels, cfg,
                                           tables)
-    q = palette_tier(counts, assign, cfg)
-    if q == 1:
-        slot, offset = pk.palette_offset_table(assign, tables, c)
-        sums = pk.palette_sums_by_k_rgb_q1(down, slot, offset, cfg)
-    else:
-        cand, centers_by_k = pk.palette_candidate_table(assign, tables, c, q)
-        sums = pk.palette_sums_by_k_rgb(down, cand, centers_by_k, cfg)
+    q_small, q_full = palette_widths(cfg)
+
+    def q1(down, *assign):
+        slot, offset = pk.palette_offset_table(ParentAssignment(*assign),
+                                               tables, c)
+        return pk.palette_sums_by_k_rgb_q1(down, slot, offset, cfg)
+
+    def tie_broken(q):
+        def run(down, *assign):
+            cand, centers_by_k = pk.palette_candidate_table(
+                ParentAssignment(*assign), tables, c, q)
+            return pk.palette_sums_by_k_rgb(down, cand, centers_by_k, cfg)
+        return run
+
+    # The JAX package's lax.switch over the tiers, as two nested
+    # conditionals on the one width read from the device.
+    width = palette_tier(counts, assign, cfg)
+    sums = branch(width == 1, q1, lambda *ops: branch(
+        width <= q_small, tie_broken(q_small), tie_broken(q_full), ops),
+        (down, *assign))
     return palette_finalize_by_k(sums, assign, total_pixels, tables), s_sum
 
 

@@ -5,20 +5,21 @@ reference: src/filtering.c:151-183 — for each crop box, crop the grayscale
 image, run the zero-padded 3x3 Laplacian over the *crop*, and report
 variance(response)/mean(response).
 
-The routes of the JAX package's ``variance_sharpness_batched``, picked on
-the host from the boxes alone: no work at all when no box is valid; the
-masked crop-then-filter form, plain PyTorch, when any valid box is thinner
-than TINY_BOX_PX (the masked route); otherwise the crop-box sums of K5
+The routes of the JAX package's ``variance_sharpness_batched``, picked by
+graph conditionals (``library.branch``, ``torch.cond``) on the boxes alone,
+as its ``lax.cond``s do: no work at all when no box is valid; the masked
+crop-then-filter form, plain PyTorch, when any valid box is thinner than
+TINY_BOX_PX (the masked route); otherwise the crop-box sums of K5
 (ops/sharpness_kernels.py, the JAX package's Pallas route) and
 ``finish_sharpness``.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .filtering import laplacian_3x3
+from .library import branch
 from .sharpness_kernels import box_tensor, sharpness_sums
 
 # Boxes under this many px in either dimension take the masked route: the
@@ -62,11 +63,11 @@ def _masked_sharpness(pgm, boxes, boxes_valid):
     return torch.stack(out, dim=1)
 
 
-def finish_sharpness(s1, s2, boxes: np.ndarray,
-                     boxes_valid: np.ndarray) -> torch.Tensor:
+def finish_sharpness(s1, s2, boxes, boxes_valid) -> torch.Tensor:
     """K5's sums -> (B, K) float32 variance / mean, zero in invalid slots:
     mean = s1/n and var = s2/n - mean^2 in float32, as the JAX package
-    finishes its kernel's sums."""
+    finishes its kernel's sums.  ``boxes`` and ``boxes_valid``: host arrays
+    or tensors."""
     dev = s1.device
     boxes = torch.as_tensor(boxes, device=dev)
     n = torch.clamp((boxes[..., 1] - boxes[..., 0])
@@ -86,23 +87,36 @@ def variance_sharpness_batched(pgm: torch.Tensor, boxes,
     pgm is the full-resolution luma before DC removal (the reference
     computes sharpness before remove_dc_bias, src/interface.c:73 vs :79).
     ``boxes`` ([top, bottom, left, right), int) and ``boxes_valid`` (bool)
-    are host arrays (numpy, or CPU tensors): the route is picked from them
-    without reading the device."""
-    boxes = np.asarray(boxes, np.int64)
-    boxes_valid = np.asarray(boxes_valid, bool)
-    if not boxes_valid.any():
-        return torch.zeros(boxes_valid.shape, dtype=pgm.dtype,
-                           device=pgm.device)
-    if thin_boxes(boxes, boxes_valid).any():
-        return _masked_sharpness(pgm, torch.as_tensor(boxes, device=pgm.device),
-                                 torch.as_tensor(boxes_valid,
-                                                 device=pgm.device))
-    s1, s2 = sharpness_sums(pgm.contiguous(),
-                            box_tensor(boxes, boxes_valid, pgm.device))
-    return finish_sharpness(s1, s2, boxes, boxes_valid)
+    are host arrays or CPU tensors: the route's predicates are computed
+    from them without reading the device (device tensors work too, at the
+    cost of a read each)."""
+    boxes = torch.as_tensor(boxes)
+    boxes_valid = torch.as_tensor(boxes_valid).bool()
+    dev = pgm.device
+
+    def nothing(pgm, boxes, boxes_valid):
+        return pgm.new_zeros(boxes_valid.shape)
+
+    def masked(pgm, boxes, boxes_valid):
+        return _masked_sharpness(pgm, box_tensor(boxes, boxes_valid, dev),
+                                 boxes_valid.to(dev))
+
+    def kernel(pgm, boxes, boxes_valid):
+        bt = box_tensor(boxes, boxes_valid, dev)
+        s1, s2 = sharpness_sums(pgm.contiguous(), bt)
+        return finish_sharpness(s1, s2, bt, boxes_valid)
+
+    def some_valid(pgm, boxes, boxes_valid):
+        return branch(thin_boxes(boxes, boxes_valid).any(), masked, kernel,
+                      (pgm, boxes, boxes_valid))
+
+    return branch(boxes_valid.any(), some_valid, nothing,
+                  (pgm, boxes, boxes_valid))
 
 
-def thin_boxes(boxes: np.ndarray, boxes_valid: np.ndarray) -> np.ndarray:
-    """Valid boxes under TINY_BOX_PX in either dimension."""
+def thin_boxes(boxes, boxes_valid) -> torch.Tensor:
+    """Valid boxes under TINY_BOX_PX in either dimension (host arrays or
+    tensors; a tensor on the boxes' device)."""
+    boxes, boxes_valid = torch.as_tensor(boxes), torch.as_tensor(boxes_valid)
     return boxes_valid & ((boxes[..., 1] - boxes[..., 0] < TINY_BOX_PX)
                           | (boxes[..., 3] - boxes[..., 2] < TINY_BOX_PX))

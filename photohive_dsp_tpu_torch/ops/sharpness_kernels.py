@@ -23,13 +23,13 @@ float32 values in float64, so the two differ only by the kernel's float32
 partial sums.
 The kernel splits each box into items of STRIP_COLS columns by a number of
 rows it picks per launch (tests/test_torch_sharpness_schedule.py mirrors
-the split).  The wrapper launches the kernel for CUDA tensors
-and takes the plain version for CPU tensors.
+the split).  The wrapper calls the kernel's registered operator
+(ops/library.py), which launches the kernel for CUDA tensors and runs the
+plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -102,13 +102,20 @@ def box_crops(pgm, boxes, halo=None, row_offset: int = 0):
             yield i, k, xc, resp, wgt
 
 
-def sharpness_sums_plain(pgm, boxes, halo=None, row_offset: int = 0):
-    """Plain version of K5: (s1, s2), each (B, MAX_CROP_BOXES) float64."""
+def sums_plain(pgm, boxes, halo=None, row_offset: int = 0):
+    """Plain version of K5 as its operator returns it: (B, MAX_CROP_BOXES,
+    2) float64, [s1, s2] per slot."""
     out = torch.zeros((pgm.shape[0], MAX_CROP_BOXES, 2), dtype=torch.float64,
                       device=pgm.device)
     for i, k, xc, resp, wgt in box_crops(pgm, boxes, halo, row_offset):
         out[i, k, 0] = (xc * wgt).double().sum()
         out[i, k, 1] = (resp * resp).double().sum()
+    return out
+
+
+def sharpness_sums_plain(pgm, boxes, halo=None, row_offset: int = 0):
+    """Plain version of K5: (s1, s2), each (B, MAX_CROP_BOXES) float64."""
+    out = sums_plain(pgm, boxes, halo, row_offset)
     return out[..., 0], out[..., 1]
 
 
@@ -125,7 +132,8 @@ def vector_rows(pgm, halo=None) -> bool:
         t.data_ptr() % 16 == 0 for t in (pgm, halo) if t is not None)
 
 
-def _tickets(device, n: int) -> torch.Tensor:
+def tickets(device, n: int) -> torch.Tensor:
+    """The kernel's ``n`` tickets on ``device`` (``_TICKETS``)."""
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
@@ -137,25 +145,13 @@ def sharpness_sums(pgm, boxes, halo=None, row_offset: int = 0):
     """K5: (B, H, W) float32 luma and (B, 10, 4) int32 boxes (empty slots
     zero) -> (s1, s2), each (B, 10) float64."""
     _check(pgm, boxes, halo)
-    if pgm.device.type == "cpu":
-        return sharpness_sums_plain(pgm, boxes, halo, row_offset)
-    b, h, w = pgm.shape
-    items = max_items(b, h, w)
-    partial = torch.empty((items, 2), dtype=torch.float64, device=pgm.device)
-    sums = torch.empty((b, MAX_CROP_BOXES, 2), dtype=torch.float64,
-                       device=pgm.device)
-    tickets = _tickets(pgm.device, b * MAX_CROP_BOXES)
-    _cuda.launch("ph_sharpness_sums", pgm, _cuda.ptr(pgm), _cuda.ptr(halo), b,
-                 h, w, row_offset, _cuda.ptr(boxes),
-                 int(vector_rows(pgm, halo)), items, _cuda.ptr(partial),
-                 _cuda.ptr(tickets), _cuda.ptr(sums))
-    _cuda.LAUNCHES["sharpness_sums"] += 1
+    sums = torch.ops.photohive.sharpness_sums(pgm, halo, boxes, row_offset)
     return sums[..., 0], sums[..., 1]
 
 
 def box_tensor(boxes, boxes_valid, device) -> torch.Tensor:
-    """Host (B, K, 4) boxes and (B, K) validity -> K5's (B, K, 4) int32
-    boxes on ``device``, invalid slots zeroed."""
-    boxes = np.where(np.asarray(boxes_valid, bool)[..., None],
-                     np.asarray(boxes), 0).astype(np.int32)
-    return torch.as_tensor(boxes, device=device)
+    """(B, K, 4) boxes and (B, K) validity, host arrays or tensors -> K5's
+    (B, K, 4) int32 boxes on ``device``, invalid slots zeroed."""
+    boxes, boxes_valid = torch.as_tensor(boxes), torch.as_tensor(boxes_valid)
+    boxes = torch.where(boxes_valid.bool()[..., None], boxes, 0)
+    return boxes.to(device=device, dtype=torch.int32).contiguous()

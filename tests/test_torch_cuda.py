@@ -1,8 +1,10 @@
 """The CUDA kernels (K1-K15) against their plain PyTorch versions on an
 NVIDIA GPU, the row-sharded report at world size 1 (NCCL) against the
-single-device path, and BatchRunner on the card against the CPU path.  Every test here needs the card and nvcc and
-skips without them; this file imports no JAX, so the machine with the card
-runs it with
+single-device path, BatchRunner on the card against the CPU path, each
+kernel's registered operator under torch.library.opcheck, and a serving
+artifact exported for the card against the live path.  Every test here
+needs the card and nvcc and skips without them; this file imports no JAX,
+so the machine with the card runs it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -26,6 +28,7 @@ from photohive_dsp_tpu_torch.ops.margin_sort import (
     margin_insertion_argsort, margin_sort)
 
 from tests.test_torch_margin_sort import KINDS, SORT_CS, sort_data
+from tests.test_torch_library import CASES as LIBRARY_CASES, op_cases
 
 TCFG = ReportConfig()
 C = TCFG.num_cells
@@ -610,3 +613,72 @@ def test_cuda_polar_edges_bit_equal(case, cuda_device):
     assert torch.equal(tpolar.polar_bin_means_lognorm(mag2, ids, counts),
                        tpolar.polar_bin_means_lognorm_plain(mag2, ids,
                                                             counts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LIBRARY_CASES)
+def test_cuda_opcheck_and_plain(name, cuda_device):
+    """Each kernel's registered operator on the card under
+    torch.library.opcheck (the fake implementation against the launch, a
+    symbolic batch through AOT dispatch), and its CUDA implementation
+    against its CPU one (the plain version) on the same inputs: K5 within
+    1e-5 relative, the rest bit for bit (K7+K8 against its plain version
+    on the card's tensors)."""
+    op, args = op_cases(cuda_device)[name]
+    torch.library.opcheck(op, args)
+    got = op(*args)
+    if name.startswith("polar"):
+        # log differs by an ulp between the CPU and the card: the plain
+        # version on the card's tensors.
+        mag2, ids, counts, nb = args
+        acc, mx = tpolar.polar_bin_sums_lognorm_plain(mag2, ids, nb,
+                                                      fixed=True)
+        want = (acc, mx, tpolar.polar_bin_sums_lognorm_plain(mag2, ids, nb)[0]
+                if counts is None else
+                tpolar.polar_bin_means_lognorm_plain(mag2, ids, counts))
+    else:
+        want = op(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args))
+    for g, w in zip(*(o if isinstance(o, tuple) else (o,)
+                      for o in (got, want))):
+        g, w = g.cpu(), w.cpu()
+        if name.startswith("sharpness"):
+            assert bool(((g - w).abs() <= 1e-5 * w.abs()).all()), name
+        else:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_cuda_serving_artifact_equals_live(cuda_device):
+    """A dynamic-batch artifact exported for the card runs the kernels
+    (each of the main path's counted) and equals the live path bit for
+    bit at B=1 and 3, with boxes, a thin box and none."""
+    from photohive_dsp_tpu_torch.serving import export_report, load_report
+
+    h, w = 360, 480
+    cfg = ReportConfig()
+    fn = load_report(export_report(h, w, cfg, batch_size="dynamic",
+                                   device=cuda_device))
+    tables = pt.ReportTables.build(h, w, cfg, cuda_device)
+    u8 = np.round(np.concatenate([smooth_rgb(1, h, w), wheel_rgb(1, h, w),
+                                  noise_rgb(1, h, w)]) * 255).astype(np.uint8)
+    boxes = np.zeros((3, 10, 4), np.int32)
+    valid = np.zeros((3, 10), bool)
+    boxes[1:, 0] = (20, 200, 30, 300)
+    boxes[2, 1] = (100, 102, 0, 480)
+    valid[1:, 0] = valid[2, 1] = True
+    _cuda.reset_launch_counts()
+    for b, rows in ((1, slice(0, 1)), (3, slice(0, 3)), (2, slice(1, 2))):
+        x = torch.from_numpy(u8[rows]).to(cuda_device).permute(
+            0, 2, 3, 1).contiguous()
+        bx = torch.from_numpy(boxes[rows])
+        vd = torch.from_numpy(valid[rows])
+        got = fn(x, bx, vd)
+        want = pt.full_report_batched(x.permute(0, 3, 1, 2).contiguous(), bx,
+                                      vd, tables, cfg)
+        for k, g, wnt in zip(want._fields, got, want):
+            assert torch.equal(g, wnt), (b, k)
+    for counter in ("cell_counts_s", "margin_sort", "palette_sums_q1",
+                    "palette_sums_qfull", "sharpness_sums", "fft_rows",
+                    "fft_cols", "polar_bins"):
+        assert _cuda.LAUNCHES[counter] > 0, counter

@@ -173,7 +173,8 @@ def test_port_never_imports_jax():
             "need = {'ops.sharpness_kernels', 'ops.palette_kernels', "
             "'ops.polar_kernels', 'ops.fft_kernels', 'ops.margin_sort', "
             "'parallel.mesh', 'parallel.spatial', 'models.pipeline', "
-            "'models.batch', 'utils.io', 'runtime'}; "
+            "'models.batch', 'utils.io', 'runtime', 'serving', "
+            "'ops.library', 'utils.profiling', 'utils.debug'}; "
             "missing = need - {n.split('.', 1)[1] for n in names}; "
             "assert not missing, missing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
