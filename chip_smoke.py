@@ -6,8 +6,11 @@ batch of 8, with and without crop boxes), the corpus path (run_corpus over
 config #3's 256 frames under each PHOTOHIVE_PALETTE_KERNEL variant, the
 streaming runner, process_corpus with a crash and a resume) and the
 row-sharded report (parallel/spatial.build_spatial_report, one NCCL rank, a
-4320x7680 frame) and the serving path (serving.export_report, the artifact
-loaded in a fresh process) — and checks every result against a reference.
+4320x7680 frame), the serving path (serving.export_report, the artifact
+loaded in a fresh process) and the data-parallel and dp x spatial layer
+(parallel/sharding, build_dp_spatial_report and the mesh parameters of the
+batch layer and serving, one NCCL rank) — and checks every result against
+a reference.
 Phases, each of which raises on failure:
 
   1. device: a CUDA device must be present; prints its name and power limit;
@@ -64,7 +67,19 @@ Phases, each of which raises on failure:
      utils.debug.verify_report; the dynamic artifact at B=1, 3 and 8, the
      same; the artifact call against the live call in turns (CUDA events,
      median of 20); the host time of an operator call (dispatch_times);
-     utils.profiling.stage_timings at B=8.
+     utils.profiling.stage_timings at B=8;
+  9. dp and dp x spatial on one NCCL rank (parallel.mesh's
+     initialize_distributed with one process, make_mesh(1, 1)): the
+     data-parallel report (parallel/sharding) on phase 4's 8 frames, bit
+     for bit against full_report_batched; build_dp_spatial_report at B=2
+     on phase 6's frames, each image bit-equal to build_spatial_report of
+     it (3 boxes; a thin box in image 0 alone: image 1 on the masked route
+     within 1e-4; under cwide: K14, no K10); run_corpus(mesh=...) on two
+     2160x3840 frames and 16 of config #3's, equal to the mesh-less run;
+     phase 8's artifact through load_report(mesh=...), bit for bit; the
+     launch counts of that run; K9, K10 and K14 on the deferred palette
+     pass's batched (2, P) flat HSV against their plain versions; the warm
+     dp x spatial call and the dp call in turns with full_report_batched.
 
 Phase 3 also holds K6a to its plain version on its edge cases (odd row
 counts, widths 1001, 3840 and 14520, and short widths that reach each of
@@ -1252,7 +1267,7 @@ def phase_corpus(cfg, smi: str):
     items = corpus_images()
     images = dict(items)
     mp = sum(im.shape[0] * im.shape[1] for _, im in items) / 1e6
-    batch.warmup(CORPUS_SHAPES, cfg, CORPUS_BATCH, DEVICE)
+    batch.warmup(CORPUS_SHAPES, cfg, batch_size=CORPUS_BATCH, device=DEVICE)
     log(f"  {len(items)} frames, {mp:.1f} MP, made in "
         f"{time.perf_counter() - t0:.1f} s")
     reports, launches, mps = {}, {}, {}
@@ -1262,7 +1277,7 @@ def phase_corpus(cfg, smi: str):
             _cuda.reset_launch_counts()
             t0 = time.perf_counter()
             reports[variant] = dict(batch.run_corpus(
-                iter(items), cfg, CORPUS_BATCH, DEVICE))
+                iter(items), cfg, batch_size=CORPUS_BATCH, device=DEVICE))
             sync()
             dt = time.perf_counter() - t0
             launches[variant] = dict(_cuda.LAUNCHES)
@@ -1322,7 +1337,7 @@ def corpus_breakdown(cfg, items, smi: str) -> None:
     from photohive_dsp_tpu_torch.models import batch
     from photohive_dsp_tpu_torch.models.pipeline import ReportData
 
-    runner = batch.BatchRunner(cfg, DEVICE)
+    runner = batch.BatchRunner(cfg, device=DEVICE)
     hw = CORPUS_SHAPES[1]
     frames = [img for _, img in items if img.shape[:2] == hw][:CORPUS_BATCH]
     steps = {"stack": [], "copy in": [], "report": [], "copy out": []}
@@ -1360,7 +1375,7 @@ def stream_times(cfg, items, smi: str) -> dict:
     from photohive_dsp_tpu_torch.models import batch
     from photohive_dsp_tpu_torch.models.pipeline import ReportData
 
-    runner = batch.BatchRunner(cfg, DEVICE)
+    runner = batch.BatchRunner(cfg, device=DEVICE)
     hh, ww = CORPUS_SHAPES[1]
     frames = [(k, img) for k, img in items if img.shape[:2] == (hh, ww)]
     n = len(frames) // CORPUS_BATCH
@@ -1384,7 +1399,7 @@ def stream_times(cfg, items, smi: str) -> dict:
 
     runs = {"prefetch 0": lambda: stream(0), "prefetch 2": lambda: stream(2),
             "run_corpus": lambda: dict(batch.run_corpus(
-                iter(frames), cfg, CORPUS_BATCH, DEVICE))}
+                iter(frames), cfg, batch_size=CORPUS_BATCH, device=DEVICE))}
     out, first, rates = {}, {}, {k: [] for k in runs}
     for i, mode in enumerate(list(runs) + list(STREAM_TURNS)):
         t0 = time.perf_counter()
@@ -1483,7 +1498,8 @@ def corpus_txt_resume(cfg, images) -> float:
         raise AssertionError(f"process_corpus resume: {n} processed, keys "
                              f"{len(keys)} ({len(set(keys))} distinct), "
                              f"watermark {len(marked)}")
-    want = dict(batch.run_corpus(zip(paths, frames), cfg, 4, DEVICE))
+    want = dict(batch.run_corpus(zip(paths, frames), cfg, batch_size=4,
+                                 device=DEVICE))
     for ln in lines:
         img = frames[paths.index(ln["key"])]
         same_report_dict(ln["report"], row_report(want[ln["key"]],
@@ -2567,10 +2583,218 @@ def phase_serving(cfg, smi: str) -> dict:
     log(f"  stage_timings B={SERVE_B} {H}x{W} (ms a call, CUDA events, "
         f"5 warm calls): " + "; ".join(f"{k} {1e3 * v:.4f}"
                                        for k, v in stages.items()))
-    return dict(launches=launches, export_s=export_s,
+    return dict(launches=launches, blob=blob, export_s=export_s,
                 dynamic_export_s=dyn_export_s, artifact_ms=art_ms,
                 live_ms=live_ms, stages_ms={k: 1e3 * v
                                             for k, v in stages.items()})
+
+
+# ------------------------------------------------------------- mesh ---
+
+MESH_DP_B = 8             # the dp route's batch of phase 4's frames
+MESH_DPS_B = 2            # the dp x spatial batch of phase 6's frames
+MESH_CORPUS_BATCH = 8
+# run_corpus(mesh=...)'s frames: two 2160x3840 frames (8.3 MP, at the
+# row-sharded threshold: they shard when the mesh has a spatial axis, and
+# take the dp route at spatial=1) and 16 of config #3's shapes.
+MESH_CORPUS_SHAPES = [(2160, 3840)] * 2 + [
+    CORPUS_SHAPES[i % len(CORPUS_SHAPES)] for i in range(16)]
+# The kernels the mesh path must launch: the dp route's on its 8 frames
+# (whose tie structure needs the q_full tier) and the dp x spatial route's
+# on its noise and hue-wheel frames (K10 at the q_full tier).
+MESH_COUNTERS = ("cell_counts_s", "margin_sort", "palette_sums_qfull",
+                 "sharpness_sums", "fft_rows", "fft_cols", "polar_bins",
+                 "cell_counts_hsv", "palette_sums_flat_qfull")
+
+
+def mesh_flat_kernels(frames, cfg) -> None:
+    """The deferred palette pass's kernels against their plain versions
+    on the batched (2, P) flat HSV it hands them: each frame's rows made
+    flat HSV by parallel/spatial's own steps, with a SENTINEL_TAIL of
+    hue-sentinel pixels after each row (the padded rows' marker: one rank
+    pads none), K9, K10 (q=8 and q_full) and K14 bit-equal, the tail
+    changing nothing."""
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops import quantize as qz
+    from photohive_dsp_tpu_torch.parallel import spatial
+
+    dev = torch.device(DEVICE)
+    octree = qz.OctreeTables.for_config(cfg, dev)
+    rows = [spatial.masked_hsv(spatial.own_rows(torch.as_tensor(f), 0, SH,
+                                                dev), 0, SH)
+            for f in frames]
+    real = [torch.cat(c).contiguous() for c in zip(*rows)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tail = torch.rand((3, len(frames), SENTINEL_TAIL), generator=gen,
+                      device=dev)
+    tail[0] = -1.0
+    hsv = [torch.cat([c, t], dim=1).contiguous() for c, t in zip(real, tail)]
+    counts, _ = pk.counts_s_from_fixed(pk.cell_counts_from_hsv(*real, cfg))
+    assign = assignment(counts, SH * SW, cfg, octree)
+    label = f"mesh {len(frames)}x{SH}x{SW} flat HSV"
+    check_flat_kernels(hsv, assign, octree, cfg, label, real)
+    check_cwide(hsv, assign, octree, cfg, label, real)
+
+
+def phase_mesh(cfg, images, blob: bytes, smi: str) -> dict:
+    """The data-parallel and dp x spatial layer on one NCCL rank
+    (initialize_distributed with one process, make_mesh(1, 1)): the dp
+    route (data_parallel_report_u8 on phase 4's 8 device-resident frames
+    with main_boxes) bit-equal to full_report_batched; build_dp_spatial_report
+    at B=2 on phase 6's frames with (a) main_boxes, each image bit-equal to
+    build_spatial_report of it, (b) a thin box in image 0 alone, image 0
+    bit-equal to build_spatial_report of it and image 1 to (a) but its
+    sharpness (the masked route, within 1e-4), (c) under cwide, K14 and no
+    K10, equal to (a) as the variants are; run_corpus(mesh=...) over
+    MESH_CORPUS_SHAPES equal to the mesh-less run; phase 8's artifact
+    through load_report(mesh=...) bit-equal to full_report_batched; the
+    launch counts of (dp, a, b, the corpus, the artifact); K9, K10 and K14
+    on the deferred pass's batched flat HSV (mesh_flat_kernels); the warm
+    dp x spatial call (median of 3) and the dp call in turns with
+    full_report_batched.  Returns the launch counts and the times."""
+    import torch.distributed as dist
+
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.models import batch
+    from photohive_dsp_tpu_torch.ops import _cuda
+    from photohive_dsp_tpu_torch.parallel import mesh, sharding, spatial
+    from photohive_dsp_tpu_torch.serving import load_report
+
+    t0 = time.perf_counter()
+    u8 = torch.as_tensor(np.stack([images[i % len(images)]
+                                   for i in range(MESH_DP_B)]), device=DEVICE)
+    bx, vd = pt.set_bounding_boxes(main_boxes(H, W))
+    bx, vd = np.stack([bx] * MESH_DP_B), np.stack([vd] * MESH_DP_B)
+    frames = list(spatial_frames().values())
+    rgb2 = np.stack(frames)
+    three = pt.set_bounding_boxes(main_boxes(SH, SW))
+    thin = pt.set_bounding_boxes(main_boxes(SH, SW) + [thin_box(SH, SW)])
+    box_sets = {"a": (np.stack([three[0]] * 2), np.stack([three[1]] * 2)),
+                "b": (np.stack([thin[0], three[0]]),
+                      np.stack([thin[1], three[1]]))}
+    rng = np.random.default_rng(SEED + 9)
+    corpus = [(i, noise_image(rng, *hw))
+              for i, hw in enumerate(MESH_CORPUS_SHAPES)]
+    tables = pt.ReportTables.build(H, W, cfg, DEVICE)
+
+    def live():
+        return pt.full_report_batched(u8.permute(0, 3, 1, 2).contiguous(),
+                                      bx, vd, tables, cfg)
+
+    mesh.initialize_distributed(num_processes=1, device=DEVICE)
+    try:
+        m = mesh.make_mesh(data=1, spatial=1)
+        # A one-rank NCCL group makes its communicator at its first
+        # collective: warm each group before anything is timed.
+        for g in (m.spatial_group, m.data_group):
+            dist.all_reduce(torch.zeros(1, device=DEVICE), group=g)
+        dp_fn, dp_tables = sharding.data_parallel_report_u8(
+            H, W, cfg, sharding.flat_data_mesh(m), DEVICE)
+        dps_fn = spatial.build_dp_spatial_report(m, MESH_DPS_B, SH, SW, cfg,
+                                                 DEVICE)
+        single = spatial.build_spatial_report(m.spatial_group, SH, SW, cfg,
+                                              DEVICE)
+        art_fn = load_report(blob, mesh=m)
+        log(f"  inputs, groups and artifact: "
+            f"{time.perf_counter() - t0:.1f} s")
+        _cuda.reset_launch_counts()
+        dp = dp_fn(u8, bx, vd, dp_tables)
+        dps = {k: dps_fn(rgb2, *b) for k, b in box_sets.items()}
+        mesh_corpus = dict(batch.run_corpus(
+            iter(corpus), cfg, mesh=m, batch_size=MESH_CORPUS_BATCH,
+            device=DEVICE))
+        art = art_fn(u8, torch.from_numpy(bx), torch.from_numpy(vd))
+        sync()
+        launches = dict(_cuda.LAUNCHES)
+        log(f"  launch counts in the mesh-path run: {launches}")
+        os.environ["PHOTOHIVE_PALETTE_KERNEL"] = "cwide"
+        try:
+            _cuda.reset_launch_counts()
+            cwide = dps_fn(rgb2, *box_sets["a"])
+            sync()
+            cw_launches = dict(_cuda.LAUNCHES)
+        finally:
+            os.environ.pop("PHOTOHIVE_PALETTE_KERNEL", None)
+        alone = {(i, k): single(frames[i], *(b[i] for b in box_sets[k]))
+                 for i, k in ((0, "a"), (1, "a"), (0, "b"))}
+        wall = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            dps_fn(rgb2, *box_sets["a"])
+            sync()
+            wall.append(time.perf_counter() - t1)
+        runs = [median_event_ms(lambda: dp_fn(u8, bx, vd, dp_tables)),
+                median_event_ms(live), median_event_ms(live),
+                median_event_ms(lambda: dp_fn(u8, bx, vd, dp_tables))]
+        # The dp route's own cost over the live call: its one gather
+        # (packing, the all_gather, unpacking) and the all_gather alone.
+        words = torch.cat([t.view(torch.int32).reshape(MESH_DP_B, -1)
+                           for t in dp], dim=1)
+        parts = [torch.empty_like(words)]
+        gather_ms = median_event_ms(
+            lambda: sharding.gather_reports(dp, m.data_group))
+        all_gather_ms = median_event_ms(
+            lambda: dist.all_gather(parts, words, group=m.data_group))
+    finally:
+        dist.destroy_process_group()
+
+    same_data(dp, live(), f"dp route B={MESH_DP_B} {H}x{W}")
+    same_data(art, live(), f"mesh artifact B={MESH_DP_B} {H}x{W}")
+    log(f"  dp route and the mesh artifact, B={MESH_DP_B} {H}x{W} 3 boxes: "
+        f"bit-equal to full_report_batched")
+    for i in range(MESH_DPS_B):
+        for k in ("a", "b") if i == 0 else ("a",):
+            same_data(pt.ReportData(*(t[i:i + 1] for t in dps[k])),
+                      pt.ReportData(*(t[None] for t in alone[(i, k)])),
+                      f"dp x spatial ({k}) image {i} against "
+                      f"build_spatial_report")
+        compare_variants(data_fields(cwide, i), data_fields(dps["a"], i),
+                         f"dp x spatial image {i}, cwide vs bf16")
+    b1, a1 = (pt.ReportData(*(t[1] for t in dps[k])) for k in ("b", "a"))
+    for name, x, y in zip(a1._fields, b1, a1):
+        if name != "sharpness" and not torch.equal(x, y):
+            raise AssertionError(f"dp x spatial (b) image 1: {name} differs "
+                                 f"from (a)")
+    sharp_rel = float(((b1.sharpness - a1.sharpness).abs()
+                       / a1.sharpness.abs().clamp(min=1e-30)).max())
+    if not sharp_rel <= 1e-4:
+        raise AssertionError(f"dp x spatial (b) image 1: sharpness rel err "
+                             f"{sharp_rel} against (a)")
+    log(f"  dp x spatial B={MESH_DPS_B} {SH}x{SW}: (a) each image bit-equal "
+        f"to build_spatial_report; (b) image 0 bit-equal, image 1 equal to "
+        f"(a) but its sharpness (masked route, rel err {sharp_rel:.2e}); "
+        f"(c) cwide equals bf16 (K14 launched "
+        f"{cw_launches['palette_sums_cwide']}x, K10 0x)")
+    want = dict(batch.run_corpus(iter(corpus), cfg,
+                                 batch_size=MESH_CORPUS_BATCH, device=DEVICE))
+    if sorted(mesh_corpus) != sorted(want):
+        raise AssertionError("run_corpus(mesh=...): keys differ")
+    for key, got in mesh_corpus.items():
+        same_data(got, want[key], f"run_corpus(mesh=...) image {key}")
+    log(f"  run_corpus(mesh=...) over {len(corpus)} frames (two 2160x3840, "
+        f"16 of config #3's shapes), batch {MESH_CORPUS_BATCH}: every report "
+        f"bit-equal to the mesh-less run")
+    check_launches(launches, MESH_COUNTERS, "mesh path")
+    check_launches(cw_launches, ("cell_counts_hsv", "palette_sums_cwide"),
+                   "mesh path under cwide")
+    if cw_launches["palette_sums_flat_q8"] or \
+            cw_launches["palette_sums_flat_qfull"]:
+        raise AssertionError("dp x spatial under cwide launched K10")
+    mesh_flat_kernels(frames, cfg)
+    dps_ms = 1e3 * float(np.median(wall))
+    dp_ms, live_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+    log(f"  build_dp_spatial_report B={MESH_DPS_B} {SH}x{SW} u8, 1 rank, 3 "
+        f"boxes, warm: median {dps_ms:.1f} ms (min {1e3 * min(wall):.1f}, "
+        f"n=3) ({smi})")
+    log(f"  dp route B={MESH_DP_B} {H}x{W} u8, median of 20 calls between "
+        f"CUDA events, in turns dp, live, live, dp: "
+        + " / ".join(f"{t:.4f}" for t in runs)
+        + f" ms; dp {dp_ms:.4f} ms, full_report_batched {live_ms:.4f} ms; "
+        f"of the dp call, gather_reports {gather_ms:.4f} ms, its all_gather "
+        f"of {words.numel() * 4 / 1e3:.1f} KB {all_gather_ms:.4f} ms ({smi})")
+    return dict(launches=launches, cwide_launches=cw_launches,
+                dp_spatial_ms=dps_ms, dp_ms=dp_ms, live_ms=live_ms,
+                gather_ms=gather_ms)
 
 
 KERNELS = [
@@ -2722,6 +2946,10 @@ def main(argv) -> int:
         "process)")
     serving = phase_serving(cfg, smi)
     launches["serving path"] = serving["launches"]
+    log("phase 9: dp and dp x spatial on one NCCL rank (parallel/sharding, "
+        "build_dp_spatial_report, run_corpus and load_report with a mesh)")
+    meshed = phase_mesh(cfg, images, serving["blob"], smi)
+    launches["mesh path"] = meshed["launches"]
     if parent:
         compare_parent(parent, cfg, smi)
 
@@ -2729,6 +2957,7 @@ def main(argv) -> int:
                     launches=launches.get(path, {}).get(counter, 0),
                     launches_from=path,
                     serving_launches=launches["serving path"][counter],
+                    mesh_launches=launches["mesh path"][counter],
                     max_abs_err=err[key], ms=times[key][0],
                     plain_ms=times[key][1], bound_ms=bounds[key][0],
                     bound_by=bounds[key][1], library_ms=times[key][2],
@@ -2748,6 +2977,10 @@ def main(argv) -> int:
         f"(dynamic {serving['dynamic_export_s']:.1f} s), artifact call "
         f"{serving['artifact_ms']:.4f} ms, live call "
         f"{serving['live_ms']:.4f} ms")
+    log(f"mesh (1 NCCL rank): dp B={MESH_DP_B} {H}x{W} {meshed['dp_ms']:.4f}"
+        f" ms against full_report_batched {meshed['live_ms']:.4f} ms; "
+        f"build_dp_spatial_report B={MESH_DPS_B} {SH}x{SW} "
+        f"{meshed['dp_spatial_ms']:.1f} ms")
     log(f"get_report warm median {lat_ms:.3f} ms; full_report_batched B=8 "
         f"{mps:.1f} MP/s; build_spatial_report {SH}x{SW} {spatial_ms:.1f} ms")
     log(f"corpus path (config #3, {CORPUS_IMAGES} u8 frames, batch "

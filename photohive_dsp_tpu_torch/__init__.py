@@ -6,12 +6,17 @@ public API, module names and results.  This package imports torch and
 numpy and never jax.
 
 Public API:
-    get_report(image, boxes=None, *, config=None, device="cuda", **knobs)
+    get_report(image, salient_characters=None, *, config=None,
+               device="cuda", **knobs)
     set_bounding_boxes(list_of_dicts) -> crop-box arrays
     ReportConfig, Report, ReportData, ReportTables, full_report_batched
 
 The batch and corpus layer: ``models.batch`` (BatchRunner, warmup,
-run_corpus) and ``utils.io`` (process_corpus, image IO).
+run_corpus) and ``utils.io`` (process_corpus, image IO).  Across process
+groups: ``parallel.mesh`` (initialize_distributed, make_mesh),
+``parallel.sharding`` (data-parallel) and ``parallel.spatial`` (row-
+sharded, and dp x spatial), which the batch layer and ``serving`` take as
+their ``mesh``.
 """
 
 from __future__ import annotations
@@ -65,12 +70,14 @@ def _image_to_planar(image) -> np.ndarray:
     return np.ascontiguousarray(np.moveaxis(arr, -1, 0))
 
 
-def get_report(image, boxes=None, *, config: Optional[ReportConfig] = None,
-               device="cuda", **knobs) -> Optional[Report]:
+def get_report(image, salient_characters=None, *,
+               config: Optional[ReportConfig] = None, device="cuda",
+               **knobs) -> Optional[Report]:
     """Compute the full photo report for one image.
 
     ``image`` is a PIL image or an (H, W, 3) array, uint8 or float in
-    [0, 1].  ``boxes`` is the output of set_bounding_boxes (or None).
+    [0, 1].  ``salient_characters`` is the output of set_bounding_boxes (or
+    None), the reference's name for the crop boxes.
     Extra keyword arguments are ReportConfig fields (h_partitions=18, ...),
     mirroring the reference get_report signature (core.py:442-448).
 
@@ -86,11 +93,11 @@ def get_report(image, boxes=None, *, config: Optional[ReportConfig] = None,
         print(f"Failed to get report data: {msg}")
         return None
 
-    if boxes is None:
+    if salient_characters is None:
         box_arr = np.zeros((MAX_CROP_BOXES, 4), np.int32)
         valid = np.zeros((MAX_CROP_BOXES,), bool)
     else:
-        box_arr, valid = boxes
+        box_arr, valid = salient_characters
     tables = cached_tables(height, width, cfg, dev)
     # uint8 frames travel to the device as uint8 (4x fewer bytes); the
     # pipeline decodes them exactly.

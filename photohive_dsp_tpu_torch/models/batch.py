@@ -1,5 +1,5 @@
 """Batched, bucketed report execution (counterpart of
-``photohive_dsp_tpu/models/batch.py``, without its device mesh).
+``photohive_dsp_tpu/models/batch.py``).
 
 The reference processes one image per call (src/interface.c:20); the
 throughput comes from running same-shape images as one batch through
@@ -10,11 +10,21 @@ so there is no compiled program to cache: what is built once per
 (H, W, config, device) is the tables (``pipeline.cached_tables``) and the
 FFT plan (``FftPlan.for_shape``).  The palette route follows
 ``PHOTOHIVE_PALETTE_KERNEL``, read at each batch.
+
+With a mesh (``parallel.mesh.make_mesh``: process groups, one process per
+rank, every rank running the same calls on the same inputs) a batch is
+split over all ranks as one data axis (``parallel.sharding``), and images
+of ``spatial_route_mp`` megapixels or more, when the mesh has a spatial
+axis, run row-sharded over it with the batch over its data axis
+(``parallel.spatial.build_dp_spatial_report``).  Every rank gets every
+report.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
+import os
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,19 +36,75 @@ from .pipeline import (ReportData, cached_tables, full_report_batched,
                        resolve_device)
 
 
-def _pad_tail(x: np.ndarray, pad: int) -> np.ndarray:
-    """Append ``pad`` copies of the last batch row."""
+def _pad_tail(x, pad: int):
+    """Append ``pad`` copies of the last batch row (numpy or a tensor)."""
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
     return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+
+
+# Images at or above this many megapixels route to the row-sharded path
+# when the mesh has a spatial axis: small images replicate over ``data``,
+# 4K-class and larger ones shard over ``spatial``, so each rank holds 1/n
+# of their rows.
+SPATIAL_ROUTE_MP = float(os.environ.get("PHOTOHIVE_SPATIAL_MP", "8.0"))
+
+
+@functools.lru_cache(maxsize=4)
+def _dp_spatial_u8_fn(mesh, batch: int, height: int, width: int,
+                      cfg: ReportConfig, device: torch.device):
+    """fn(u8 (B, H, W, 3), boxes, valid) -> ReportData on the dp x
+    spatial body (float32 frames in [0, 1] too); each rank moves only its
+    own rows to ``device``, and the tables are built once per mesh and
+    shape."""
+    from ..parallel.spatial import build_dp_spatial_report
+
+    run = build_dp_spatial_report(mesh, batch, height, width, cfg, device)
+
+    def fn(u8, boxes, valid):
+        return run(torch.as_tensor(u8).permute(0, 3, 1, 2), boxes, valid)
+
+    return fn
 
 
 class BatchRunner:
     """Runs same-shape image batches through ``full_report_batched`` on
-    ``device`` ("cuda" by default; raises when CUDA is missing)."""
+    ``device`` ("cuda" by default; raises when CUDA is missing).
 
-    def __init__(self, cfg: ReportConfig, device="cuda"):
+    With a ``mesh`` each rank runs its share of every batch and returns the
+    whole batch's reports: batches are padded to a multiple of all the
+    mesh's ranks (one data axis, ``sharding.flat_data_mesh``), and, on
+    meshes with a spatial axis, images of at least ``spatial_route_mp``
+    megapixels run row-sharded (rows over ``spatial`` x batch over
+    ``data``), padded to a multiple of the data axis instead."""
+
+    def __init__(self, cfg: ReportConfig, mesh=None,
+                 spatial_route_mp: float = SPATIAL_ROUTE_MP, device="cuda"):
         cfg.validate()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.spatial_route_mp = spatial_route_mp
+        if mesh is not None:
+            from ..parallel.sharding import flat_data_mesh
+            # Small images fold the spatial axis into data (all ranks
+            # data-parallel); only the spatial route uses the 2-D mesh.
+            self._flat_mesh = flat_data_mesh(mesh)
+
+    def routes_spatially(self, height: int, width: int) -> bool:
+        """True when (height, width) images run on the row-sharded path."""
+        return bool(self.mesh is not None and self.mesh.spatial > 1
+                    and height * width >= self.spatial_route_mp * 1e6)
+
+    def quantum(self, height: int, width: int) -> int:
+        """The batch multiple (height, width) images run at: the mesh's
+        data axis on the row-sharded path, all its ranks on the
+        data-parallel one, 1 without a mesh."""
+        if self.mesh is None:
+            return 1
+        if self.routes_spatially(height, width):
+            return self.mesh.data
+        return self._flat_mesh.data
 
     def _norm_boxes(self, b, boxes, boxes_valid):
         if boxes is None:
@@ -49,11 +115,34 @@ class BatchRunner:
                              "(use set_bounding_boxes to build both)")
         return np.asarray(boxes), np.asarray(boxes_valid)
 
-    def _run(self, rgb: torch.Tensor, boxes, boxes_valid) -> ReportData:
-        b, _, h, w = rgb.shape
+    def _run(self, x: torch.Tensor, boxes, boxes_valid, u8: bool)\
+            -> ReportData:
+        """x: the whole batch, (B, H, W, 3) uint8 or (B, 3, H, W) float32,
+        on the host or the device."""
+        b = x.shape[0]
+        h, w = x.shape[1:3] if u8 else x.shape[2:]
         boxes, boxes_valid = self._norm_boxes(b, boxes, boxes_valid)
-        tables = cached_tables(h, w, self.cfg, self.device)
-        return full_report_batched(rgb, boxes, boxes_valid, tables, self.cfg)
+        if self.mesh is None:
+            x = x.to(self.device, non_blocking=True)
+            x = x.permute(0, 3, 1, 2) if u8 else x
+            tables = cached_tables(h, w, self.cfg, self.device)
+            return full_report_batched(x.contiguous(), boxes, boxes_valid,
+                                       tables, self.cfg)
+        pad = (-b) % self.quantum(h, w)
+        if pad:
+            x, boxes, boxes_valid = (_pad_tail(t, pad)
+                                     for t in (x, boxes, boxes_valid))
+        if self.routes_spatially(h, w):
+            out = _dp_spatial_u8_fn(self.mesh, b + pad, h, w, self.cfg,
+                                    self.device)(
+                x if u8 else x.permute(0, 2, 3, 1), boxes, boxes_valid)
+        else:
+            from ..parallel.sharding import (data_parallel_report,
+                                             data_parallel_report_u8)
+            make = data_parallel_report_u8 if u8 else data_parallel_report
+            fn, tables = make(h, w, self.cfg, self._flat_mesh, self.device)
+            out = fn(x, boxes, boxes_valid, tables)
+        return ReportData(*(t[:b] for t in out)) if pad else out
 
     def run_u8(self, images_u8, boxes=None, boxes_valid=None) -> ReportData:
         """images_u8: (B, H, W, 3) uint8, numpy or a tensor; it travels to
@@ -62,16 +151,14 @@ class BatchRunner:
         if x.dtype != torch.uint8 or x.dim() != 4 or x.shape[-1] != 3:
             raise ValueError(f"expected (B, H, W, 3) uint8, got "
                              f"{tuple(x.shape)} {x.dtype}")
-        x = x.to(self.device, non_blocking=True)
-        return self._run(x.permute(0, 3, 1, 2).contiguous(), boxes,
-                         boxes_valid)
+        return self._run(x, boxes, boxes_valid, u8=True)
 
     def run(self, images, boxes: Optional[np.ndarray] = None,
             boxes_valid: Optional[np.ndarray] = None) -> ReportData:
         """images: (B, 3, H, W) float32 in [0, 1]; returns batched
         ReportData (B, ...) on the device."""
-        x = torch.as_tensor(images, dtype=torch.float32).to(self.device)
-        return self._run(x.contiguous(), boxes, boxes_valid)
+        return self._run(torch.as_tensor(images, dtype=torch.float32),
+                         boxes, boxes_valid, u8=False)
 
     def _staged(self, batches):
         """(images_u8, boxes, valid) batches with the images copied to the
@@ -117,22 +204,28 @@ class BatchRunner:
 
 
 def warmup(shapes: Sequence[Tuple[int, int]], cfg: ReportConfig,
-           batch_size: int = 32, device="cuda") -> int:
+           mesh=None, batch_size: int = 32, device="cuda") -> int:
     """Prepare each (H, W) shape before the first batch: build and cache
     its tables and FFT plan on the device, and on CUDA load (building if
     needed) the kernel library.  Runs no batch; nothing here depends on
-    ``batch_size``, kept for the JAX package's signature.  Returns the
-    number of shapes prepared."""
+    ``batch_size``, kept for the JAX package's signature.  Shapes that
+    ``mesh`` routes row-sharded are skipped, as the JAX package skips them
+    (their tables depend on the batch and the mesh; they are built at
+    first use).  Returns the number of shapes prepared."""
     del batch_size
-    dev = resolve_device(device)
-    if dev.type == "cuda":
+    runner = BatchRunner(cfg, mesh=mesh, device=device)
+    if runner.device.type == "cuda":
         from ..ops import _cuda
         _cuda.lib()
+    n = 0
     for h, w in shapes:
-        cached_tables(h, w, cfg, dev)
+        if runner.routes_spatially(h, w):
+            continue
+        cached_tables(h, w, cfg, runner.device)
         if fft_kernel_eligible(h, w):
-            FftPlan.for_shape(h, w, dev)
-    return len(shapes)
+            FftPlan.for_shape(h, w, runner.device)
+        n += 1
+    return n
 
 
 def image_hw(img: np.ndarray) -> Tuple[int, int]:
@@ -171,7 +264,8 @@ def bucket_by_shape(items: Iterable[Tuple[object, np.ndarray]])\
 
 
 def run_corpus(images: Iterable[Tuple[object, np.ndarray]],
-               cfg: ReportConfig, batch_size: int = 32, device="cuda")\
+               cfg: ReportConfig, mesh=None, batch_size: int = 32,
+               spatial_route_mp: float = SPATIAL_ROUTE_MP, device="cuda")\
         -> Iterator[Tuple[object, ReportData]]:
     """Stream reports for a mixed-resolution corpus.
 
@@ -180,14 +274,27 @@ def run_corpus(images: Iterable[Tuple[object, np.ndarray]],
     the remainders at the end of the stream, padded with copies of their
     last image.  Memory stays O(number of shapes x batch_size).  Yields
     (key, per-image ReportData) for the real images only, as CPU tensors:
-    each batch's reports are copied to the host once."""
-    runner = BatchRunner(cfg, device)
+    each batch's reports are copied to the host once.  With a ``mesh``
+    every rank streams the same images and gets every report; images of
+    ``spatial_route_mp`` MP or more run row-sharded on meshes with a
+    spatial axis (see BatchRunner), in batches of the mesh's data axis."""
+    runner = BatchRunner(cfg, mesh=mesh, spatial_route_mp=spatial_route_mp,
+                         device=device)
     buckets: Dict[Tuple[int, int, bool], list] = collections.defaultdict(list)
 
-    def flush(group):
+    def quantum(bkey) -> int:
+        # Row-sharded shapes run in batches of the data axis, not
+        # batch_size: a batch_size-wide batch of 8+ MP images would hold
+        # gigabytes of host frames and of per-image intermediates at once,
+        # and the rows already supply the parallelism.
+        h, w = bkey[:2]
+        return runner.quantum(h, w) if runner.routes_spatially(h, w) \
+            else batch_size
+
+    def flush(group, size):
         arr = np.stack([img for _, img in group])
-        if len(group) < batch_size:
-            arr = _pad_tail(arr, batch_size - len(group))
+        if len(group) < size:
+            arr = _pad_tail(arr, size - len(group))
         if arr.dtype == np.uint8:
             out = runner.run_u8(arr)
         else:
@@ -199,7 +306,7 @@ def run_corpus(images: Iterable[Tuple[object, np.ndarray]],
     for key, img in images:
         bkey = _bucket_key(img)
         buckets[bkey].append((key, img))
-        if len(buckets[bkey]) >= batch_size:
-            yield from flush(buckets.pop(bkey))
-    for group in buckets.values():
-        yield from flush(group)
+        if len(buckets[bkey]) >= quantum(bkey):
+            yield from flush(buckets.pop(bkey), quantum(bkey))
+    for bkey, group in buckets.items():
+        yield from flush(group, quantum(bkey))

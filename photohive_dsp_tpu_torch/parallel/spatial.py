@@ -1,6 +1,6 @@
-"""Row-sharded single-image report: the rows of one image over the ranks of
-the spatial process group (counterpart of
-``photohive_dsp_tpu/parallel/spatial.py``).
+"""Row-sharded report: the rows of one image over the ranks of the spatial
+process group, and, in ``build_dp_spatial_report``, a batch over the data
+axis besides (counterpart of ``photohive_dsp_tpu/parallel/spatial.py``).
 
 Every stage runs on the rank's own rows, with the JAX package's
 communication pattern on ``torch.distributed`` collectives:
@@ -23,7 +23,9 @@ communication pattern on ``torch.distributed`` collectives:
 The histogram, palette and polar sums are reduced as the kernels' int64
 fixed-point accumulators and converted once after the all_reduce, so they
 equal the single-device sums bit for bit at any number of ranks; mean
-saturation comes from K9's accumulator the same way.
+saturation comes from K9's accumulator the same way.  The batched step
+runs the palette of its whole local batch in one deferred pass
+(``DeferredPalette``, ``sharded_palette``): two all_reduces a batch.
 """
 
 from __future__ import annotations
@@ -45,12 +47,14 @@ from ..ops.fixed_point import from_fixed
 from ..ops.geometry import polar_geometry
 from ..ops.margin_sort import margin_sort
 from ..ops.polar_kernels import lognorm_gain, polar_bin_sums_lognorm
-from ..ops.quantize import (OctreeTables, palette_finalize_by_k,
-                            palette_kernel_variant, palette_sums_by_k_auto,
+from ..ops.quantize import (OctreeTables, PaletteResult,
+                            palette_finalize_by_k, palette_kernel_variant,
+                            palette_sums_by_k_auto,
                             parent_assignment_from_order, saliency_f32)
 from ..ops.sharpness import finish_sharpness, thin_boxes
 from ..ops.sharpness_kernels import box_crops, box_tensor, sharpness_sums
 from ..ops.stats import div_const
+from .sharding import gather_reports
 
 SUM = dist.ReduceOp.SUM
 
@@ -149,14 +153,22 @@ def halo_rows(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def _sharded_sharpness(pgm_local: torch.Tensor, boxes: np.ndarray,
-                       boxes_valid: np.ndarray, row_offset: int,
-                       group) -> torch.Tensor:
+                       boxes_valid: np.ndarray, row_offset: int, group,
+                       any_tiny=None, any_valid=None) -> torch.Tensor:
     """(lh, W) rows at ``row_offset`` -> (10,) sharpness of the whole
     image's boxes, the same on every rank.  The route is picked from the
     boxes, which every rank holds, so all ranks take the same
-    collectives."""
+    collectives: nothing when no box is valid, the masked two-pass route
+    when one is thinner than TINY_BOX_PX, else K5's.  ``any_tiny`` and
+    ``any_valid`` let a batched caller pick the route for its whole local
+    batch, as ``ops/sharpness.variance_sharpness_batched`` does (every
+    rank of the group holds the same batch, so the same predicates)."""
     dev = pgm_local.device
-    if not boxes_valid.any():
+    if any_valid is None:
+        any_valid = bool(boxes_valid.any())
+    if any_tiny is None:
+        any_tiny = bool(thin_boxes(boxes, boxes_valid).any())
+    if not any_valid:
         return torch.zeros(boxes_valid.shape, dtype=torch.float32, device=dev)
     halo = halo_rows(pgm_local, group)[None].contiguous()
     pgm = pgm_local[None].contiguous()
@@ -165,7 +177,7 @@ def _sharded_sharpness(pgm_local: torch.Tensor, boxes: np.ndarray,
     sums = torch.stack([s1, s2], dim=-1)
     dist.all_reduce(sums, SUM, group=group)
     s1, s2 = sums[..., 0], sums[..., 1]
-    if not thin_boxes(boxes, boxes_valid).any():
+    if not any_tiny:
         return finish_sharpness(s1, s2, boxes[None], boxes_valid[None])[0]
     # Masked two-pass: sum((resp - mean)^2) over each masked crop.
     area = torch.as_tensor((boxes[:, 1] - boxes[:, 0])
@@ -219,11 +231,52 @@ def _sharded_blur_bins(pgm_local: torch.Tensor, dc: torch.Tensor,
                      bin_counts, a, r)[0]
 
 
+
+
+class DeferredPalette(NamedTuple):
+    """The palette inputs of one rank's rows of one image, which a batched
+    caller stacks and runs through ``sharded_palette`` in one pass for its
+    whole local batch (``build_dp_spatial_report``): one tier read from
+    the device and two all_reduces a batch, not two an image, as the JAX
+    package defers its pixel pass out of the per-image vmap."""
+
+    h: torch.Tensor   # (1, d_lh * W') hue, -1 on padded rows
+    s: torch.Tensor   # (1, d_lh * W')
+    v: torch.Tensor   # (1, d_lh * W')
+
+
+def sharded_palette(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor,
+                    d_total: int, cfg: ReportConfig, octree: OctreeTables,
+                    group, variant: str):
+    """The palette of B row-sharded images from each rank's (B, P_l) flat
+    HSV: K9 -> all_reduce of its int64 accumulators -> replicated
+    saliencies, K2 and parent selection -> the pixel pass
+    (``palette_sums_by_k_auto``: K10 at the tier the batch needs, one
+    device read, or K14 under ``cwide``) -> all_reduce ->
+    ``palette_finalize_by_k``.  Returns (PaletteResult, (B,) mean
+    saturation), the same on every rank; image i's equals its palette
+    alone bit for bit (the sums are exact, and a wider tier finds the same
+    first-minimum parent)."""
+    acc = pk.cell_counts_from_hsv(h, s, v, cfg)
+    dist.all_reduce(acc, SUM, group=group)
+    counts, s_sum = pk.counts_s_from_fixed(acc)
+    s_bar = div_const(s_sum, d_total)
+    order = margin_sort(saliency_f32(counts, octree.s_v_f32, cfg))
+    assign = parent_assignment_from_order(counts, order, d_total, cfg,
+                                          octree)
+    acc = palette_sums_by_k_auto(h, s, v, assign, counts, cfg, octree,
+                                 variant)
+    dist.all_reduce(acc, SUM, group=group)
+    return palette_finalize_by_k(pk.palette_sums_from_fixed(acc), assign,
+                                 d_total, octree), s_bar
+
+
 def spatial_report_body(rgb_local: torch.Tensor, down_local: torch.Tensor,
                         boxes, boxes_valid, flat_ids: torch.Tensor,
                         bin_counts: torch.Tensor, octree: OctreeTables,
                         wc: int, height: int, width: int, cfg: ReportConfig,
-                        group, variant: str) -> ReportData:
+                        group, variant: str, any_tiny=None, any_valid=None,
+                        defer_palette: bool = False):
     """One rank's part of the report of one row-sharded image.
 
     rgb_local:  (3, lh, W) float32 full-resolution rows (statistics,
@@ -236,8 +289,13 @@ def spatial_report_body(rgb_local: torch.Tensor, down_local: torch.Tensor,
     flat_ids:   (H * wc,) int32 this rank's bin ids (sharded_polar_tables).
     variant:    the palette variant (quantize.palette_kernel_variant):
                 K14 for the pixel pass under ``cwide``, else K10.
+    any_tiny, any_valid: the sharpness route's predicates for a batched
+                caller's whole local batch (``_sharded_sharpness``).
 
-    Returns the whole image's report, unbatched, the same on every rank."""
+    Returns the whole image's report, unbatched, the same on every rank.
+    With ``defer_palette`` the palette is not computed: returns (the
+    report with zeros for the palette and mean saturation,
+    DeferredPalette), and the caller runs ``sharded_palette``."""
     rank = dist.get_rank(group)
     boxes = np.asarray(boxes, np.int64)
     boxes_valid = np.asarray(boxes_valid, bool)
@@ -247,34 +305,82 @@ def spatial_report_body(rgb_local: torch.Tensor, down_local: torch.Tensor,
     row_offset = rank * rgb_local.shape[1]
     stats = rgb_stats(rgb_local, row_offset, height, width, group)
 
-    # Palette: K9 -> replicated selection -> K10 (K14 under cwide), on the
-    # fixed point.
-    hsv = masked_hsv(down_local, rank, d_h)
-    acc = pk.cell_counts_from_hsv(*hsv, cfg)
-    dist.all_reduce(acc, SUM, group=group)
-    counts, s_sum = pk.counts_s_from_fixed(acc)
-    s_bar = div_const(s_sum, d_total)[0]
-    order = margin_sort(saliency_f32(counts, octree.s_v_f32, cfg))
-    assign = parent_assignment_from_order(counts, order, d_total, cfg,
-                                          octree)
-    acc = palette_sums_by_k_auto(*hsv, assign, counts, cfg, octree, variant)
-    dist.all_reduce(acc, SUM, group=group)
-    palette = palette_finalize_by_k(pk.palette_sums_from_fixed(acc), assign,
-                                    d_total, octree)
+    deferred = DeferredPalette(*masked_hsv(down_local, rank, d_h))
+    if defer_palette:
+        c = cfg.num_cells
+        dev = rgb_local.device
+        s_bar = torch.zeros((1,), dtype=torch.float32, device=dev)
+        palette = PaletteResult(
+            hsv=torch.zeros((1, c, 3), device=dev),
+            percentages=torch.zeros((1, c), device=dev),
+            n_valid=torch.zeros((1,), dtype=torch.int32, device=dev),
+            parent_ids=torch.zeros((1, c), dtype=torch.int32, device=dev))
+    else:
+        palette, s_bar = sharded_palette(*deferred, d_total, cfg, octree,
+                                         group, variant)
 
     pgm = rgb_to_pgm(rgb_local[0], rgb_local[1], rgb_local[2])
-    sharp = _sharded_sharpness(pgm, boxes, boxes_valid, row_offset, group)
+    sharp = _sharded_sharpness(pgm, boxes, boxes_valid, row_offset, group,
+                               any_tiny, any_valid)
 
     dc = (stats[0] + stats[1] + stats[2]) / 3.0
     bins = _sharded_blur_bins(pgm, dc, flat_ids, bin_counts, wc, height,
                               width, cfg, group)
     angles, mags = vectorize_blur_profile(bins[None], cfg)
-    return ReportData(
-        rgb_stats=stats, average_saturation=s_bar,
+    data = ReportData(
+        rgb_stats=stats, average_saturation=s_bar[0],
         palette_hsv=palette.hsv[0], palette_pct=palette.percentages[0],
         palette_n=palette.n_valid[0], palette_ids=palette.parent_ids[0],
         sharpness=sharp, blur_bins=bins,
         blur_vector_angles=angles[0], blur_vector_mags=mags[0])
+    return (data, deferred) if defer_palette else data
+
+
+class _RowShard:
+    """What one rank of a spatial group holds for (H, W, config): its row
+    counts, its bin ids and the tables, on its device."""
+
+    def __init__(self, group, height: int, width: int, cfg: ReportConfig,
+                 device):
+        self.group = group
+        self.n, self.rank = dist.get_world_size(group), dist.get_rank(group)
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.dev = dev
+        self.height, self.width, self.cfg = height, width, cfg
+        rate = cfg.downsample_rate
+        self.d_h = height // rate if rate > 1 else height
+        self.d_total = self.d_h * (width // rate if rate > 1 else width)
+        self.local_h = -(-height // self.n)
+        self.d_local_h = -(-self.d_h // self.n)
+        self.tabs = sharded_polar_tables(height, width, cfg.angle_partitions,
+                                         cfg.radius_partitions, self.n)
+        self.flat_ids = torch.as_tensor(self.tabs.flat_ids[self.rank],
+                                        device=dev)
+        self.bin_counts = torch.as_tensor(self.tabs.counts, device=dev)
+        self.octree = OctreeTables.for_config(cfg, dev)
+
+    def rows(self, rgb: torch.Tensor):
+        """(3, H, W) whole image -> (rgb_local, down_local) on the device.
+        The decimation runs on the whole image before sharding: its
+        stride-(rate-1) row pick is not aligned with row shards."""
+        rate = self.cfg.downsample_rate
+        rgb_local = own_rows(rgb, self.rank, self.local_h, self.dev)
+        down_local = rgb_local if rate == 1 else own_rows(
+            downsample_rgb(rgb, rate), self.rank, self.d_local_h, self.dev)
+        return rgb_local, down_local
+
+    def body(self, rgb, boxes, valid, variant, **kw):
+        return spatial_report_body(
+            *self.rows(rgb), boxes, valid, self.flat_ids, self.bin_counts,
+            self.octree, self.tabs.wc, self.height, self.width, self.cfg,
+            self.group, variant, **kw)
+
+
+def _check_shape(x: torch.Tensor, want: tuple, name: str) -> None:
+    if tuple(x.shape) != want:
+        raise ValueError(f"{name}: expected {want}, got {tuple(x.shape)}")
 
 
 def build_spatial_report(group, height: int, width: int, cfg: ReportConfig,
@@ -285,35 +391,60 @@ def build_spatial_report(group, height: int, width: int, cfg: ReportConfig,
     Returns fn(rgb, boxes, valid) -> ReportData (unbatched, the same on
     every rank).  Every rank calls fn with the whole image, (3, H, W) uint8
     or float32 in [0, 1] (numpy, or a tensor on any device), and moves only
-    its own rows to ``device``.  The decimation runs on the whole image
-    before sharding: its stride-(rate-1) row pick is not aligned with
-    row shards.  Heights that the rank count does not divide are padded
-    with zero rows, which every stage masks.  The palette variant
-    (``PHOTOHIVE_PALETTE_KERNEL``) is read at each call."""
-    n, rank = dist.get_world_size(group), dist.get_rank(group)
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    rate = cfg.downsample_rate
-    d_h = height // rate if rate > 1 else height
-    local_h, d_local_h = -(-height // n), -(-d_h // n)
-    tabs = sharded_polar_tables(height, width, cfg.angle_partitions,
-                                cfg.radius_partitions, n)
-    flat_ids = torch.as_tensor(tabs.flat_ids[rank], device=dev)
-    bin_counts = torch.as_tensor(tabs.counts, device=dev)
-    octree = OctreeTables.for_config(cfg, dev)
+    its own rows to ``device``.  Heights that the rank count does not
+    divide are padded with zero rows, which every stage masks.  The palette
+    variant (``PHOTOHIVE_PALETTE_KERNEL``) is read at each call."""
+    shard = _RowShard(group, height, width, cfg, device)
 
     def run(rgb, boxes, valid) -> ReportData:
         rgb = torch.as_tensor(rgb)
-        if tuple(rgb.shape) != (3, height, width):
-            raise ValueError(f"rgb: expected {(3, height, width)}, got "
-                             f"{tuple(rgb.shape)}")
-        rgb_local = own_rows(rgb, rank, local_h, dev)
-        down_local = rgb_local if rate == 1 else \
-            own_rows(downsample_rgb(rgb, rate), rank, d_local_h, dev)
-        return spatial_report_body(rgb_local, down_local, boxes, valid,
-                                   flat_ids, bin_counts, octree, tabs.wc,
-                                   height, width, cfg, group,
-                                   palette_kernel_variant())
+        _check_shape(rgb, (3, height, width), "rgb")
+        return shard.body(rgb, boxes, valid, palette_kernel_variant())
+
+    return run
+
+
+def build_dp_spatial_report(mesh, batch: int, height: int, width: int,
+                            cfg: ReportConfig, device="cuda"):
+    """The full multi-rank step: the batch over ``mesh``'s data axis and
+    each image's rows over its spatial axis (mesh.make_mesh: a JAX device
+    mesh as process groups).
+
+    Returns fn(rgb (B, 3, H, W), boxes (B, 10, 4), valid (B, 10)) ->
+    ReportData with the batch leading, the same on every rank.  Every rank
+    is handed the whole batch (uint8 or float32 in [0, 1]; numpy, or
+    tensors on any device; the boxes on the host) and moves only its own
+    rows of its data group's B / data images to ``device``.  Per local
+    batch: one sharpness route for all its images (one thin box sends
+    every image to the masked route, as ``variance_sharpness_batched``
+    does), the palettes in one deferred pass (``sharded_palette``), then
+    one all_gather of the reports over the data axis, in data-index
+    order.  Each image equals ``build_spatial_report`` of it bit for bit
+    when both take the same sharpness route."""
+    if batch % mesh.data:
+        raise ValueError(f"batch {batch} must divide by data={mesh.data}")
+    per = batch // mesh.data
+    first = mesh.data_index * per
+    shard = _RowShard(mesh.spatial_group, height, width, cfg, device)
+
+    def run(rgb, boxes, valid) -> ReportData:
+        rgb = torch.as_tensor(rgb)
+        _check_shape(rgb, (batch, 3, height, width), "rgb")
+        boxes = np.asarray(boxes, np.int64)[first:first + per]
+        valid = np.asarray(valid, bool)[first:first + per]
+        variant = palette_kernel_variant()
+        route = dict(any_tiny=bool(thin_boxes(boxes, valid).any()),
+                     any_valid=bool(valid.any()), defer_palette=True)
+        reports, hsv = zip(*(shard.body(rgb[first + i], boxes[i], valid[i],
+                                        variant, **route)
+                             for i in range(per)))
+        palette, s_bar = sharded_palette(
+            *(torch.cat(x) for x in zip(*hsv)), shard.d_total, cfg,
+            shard.octree, mesh.spatial_group, variant)
+        local = ReportData(*(torch.stack(x) for x in zip(*reports)))._replace(
+            average_saturation=s_bar, palette_hsv=palette.hsv,
+            palette_pct=palette.percentages, palette_n=palette.n_valid,
+            palette_ids=palette.parent_ids)
+        return gather_reports(local, mesh.data_group)
 
     return run

@@ -7,7 +7,8 @@ src/image_processing.c:185); its input is a bespoke ``.txt`` fixture format
 or a PIL upload (utils.py:30).  Here a streaming corpus runner runs over
 10k-100k images with:
 
-  * per-host sharding (host i processes every num_hosts-th sorted path);
+  * per-host sharding (host i processes every num_hosts-th sorted path),
+    where a mesh of ranks (``parallel.mesh``) counts as one host;
   * a fsync'd watermark file recording completed images, so a preempted
     run resumes where it left off;
   * JSONL output shards with the reference's fixed report schema, written
@@ -26,10 +27,12 @@ import threading
 from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from .. import runtime as native_rt
 from ..config import ReportConfig
 from ..models.batch import run_corpus
+from ..parallel.sharding import flat_data_mesh
 from ..report import Report
 
 
@@ -237,7 +240,7 @@ def parallel_map_iter(fn, items: Iterable, workers: int,
 
 
 def process_corpus(paths: Iterable[str], output_dir: str,
-                   cfg: Optional[ReportConfig] = None,
+                   cfg: Optional[ReportConfig] = None, mesh=None,
                    batch_size: int = 32, num_hosts: int = 1,
                    host_id: int = 0, flush_every: int = 64,
                    prefetch: int = 16, decode_workers: int = 4,
@@ -255,33 +258,49 @@ def process_corpus(paths: Iterable[str], output_dir: str,
     ``prefetch=0`` disables ALL background work (strictly sequential
     single-thread decode, for debugging).  Reports are computed on
     ``device`` (``run_corpus``).
+
+    With a ``mesh`` (parallel.mesh.make_mesh) every rank of it calls this
+    with the same arguments and runs the same shard of paths through
+    ``run_corpus(mesh=...)``; the mesh's rank 0 alone reads the progress
+    files, hands the others the paths left to do and writes
+    ``reports.{host_id}.jsonl``, ``watermark.{host_id}`` and
+    ``skipped.{host_id}.jsonl``, so a mesh acts as one host, as one JAX
+    process driving its devices does.  Every rank decodes every image.
     """
     cfg = cfg or ReportConfig()
+    writer = mesh is None or (mesh.data_index == 0
+                              and mesh.spatial_index == 0)
     os.makedirs(output_dir, exist_ok=True)
-    wm = Watermark(os.path.join(output_dir, f"watermark.{host_id}"))
     out_path = os.path.join(output_dir, f"reports.{host_id}.jsonl")
-    emitted = _recover_shard(out_path)
-
     # Durable record of undecodable inputs: resumed runs neither re-decode
     # known-corrupt files nor silently under-cover the corpus (the skip
     # log is the machine-readable account of every key without a report).
     skip_path = os.path.join(output_dir, f"skipped.{host_id}.jsonl")
-    skipped = set()
-    if os.path.exists(skip_path):
-        with open(skip_path) as f:
-            for line in f:
-                try:
-                    skipped.add(json.loads(line)["key"])
-                except (ValueError, KeyError):
-                    continue
-
-    my_paths = [p for i, p in enumerate(sorted(paths))
-                if i % num_hosts == host_id
-                and p not in wm and str(p) not in emitted
-                and str(p) not in skipped]
+    my_paths = None
+    if writer:
+        wm = Watermark(os.path.join(output_dir, f"watermark.{host_id}"))
+        emitted = _recover_shard(out_path)
+        skipped = set()
+        if os.path.exists(skip_path):
+            with open(skip_path) as f:
+                for line in f:
+                    try:
+                        skipped.add(json.loads(line)["key"])
+                    except (ValueError, KeyError):
+                        continue
+        my_paths = [p for i, p in enumerate(sorted(paths))
+                    if i % num_hosts == host_id
+                    and p not in wm and str(p) not in emitted
+                    and str(p) not in skipped]
+    if mesh is not None:
+        # Every rank must run the same images: the writer's list.
+        box = [my_paths]
+        dist.broadcast_object_list(box, src=0,
+                                   group=flat_data_mesh(mesh).data_group)
+        my_paths = box[0]
 
     shapes = {}
-    skip_log = open(skip_path, "a")
+    skip_log = open(skip_path, "a") if writer else None
     # images() runs inside prefetch_iter's background thread while the
     # finally below closes the file from the consumer thread; the lock +
     # closed check keep a mid-stream consumer exception from racing the
@@ -291,7 +310,7 @@ def process_corpus(paths: Iterable[str], output_dir: str,
 
     def log_skip(p, err) -> None:
         with skip_lock:
-            if skip_log.closed:
+            if skip_log is None or skip_log.closed:
                 return
             skip_log.write(json.dumps({"key": str(p), "error": err}) + "\n")
             skip_log.flush()
@@ -318,11 +337,15 @@ def process_corpus(paths: Iterable[str], output_dir: str,
 
     processed = 0
     pending = []
+    reports = run_corpus(prefetch_iter(images(), prefetch), cfg, mesh=mesh,
+                         batch_size=batch_size, device=device)
     try:
+        if not writer:
+            for _ in reports:
+                processed += 1
+            return processed
         with open(out_path, "a") as out:
-            for key, data in run_corpus(prefetch_iter(images(), prefetch),
-                                        cfg, batch_size=batch_size,
-                                        device=device):
+            for key, data in reports:
                 rep_h, rep_w = shapes[key]
                 rep = Report(data, rep_h, rep_w, num_boxes=0, config=cfg)
                 out.write(json.dumps({"key": str(key),
@@ -341,5 +364,6 @@ def process_corpus(paths: Iterable[str], output_dir: str,
                 wm.mark(pending)
     finally:
         with skip_lock:
-            skip_log.close()
+            if skip_log is not None:
+                skip_log.close()
     return processed

@@ -41,8 +41,8 @@ def test_batch_runner_matches_jax(entry):
     images = u8 if entry == "run_u8" else \
         np.moveaxis(u8, -1, 1).astype(np.float32) / np.float32(255)
     want = getattr(jbatch.BatchRunner(JCfg()), entry)(images, bx, vd)
-    got = getattr(tbatch.BatchRunner(pt.ReportConfig(), "cpu"), entry)(
-        images, bx, vd)
+    got = getattr(tbatch.BatchRunner(pt.ReportConfig(), device="cpu"),
+                  entry)(images, bx, vd)
     for i in range(2):
         assert_match(data_fields(got, i), data_fields(want, i))
 
@@ -84,7 +84,7 @@ def test_run_stream_u8_prefetch_matches_sequential():
     batches = [(rng.integers(0, 256, (2, H, W, 3), dtype=np.uint8),
                 np.stack([boxes] * 2), np.stack([valid] * 2))
                for _ in range(3)]
-    runner = tbatch.BatchRunner(pt.ReportConfig(), "cpu")
+    runner = tbatch.BatchRunner(pt.ReportConfig(), device="cpu")
     seq = list(runner.run_stream_u8(iter(batches)))
     pre = list(runner.run_stream_u8(iter(batches), prefetch=2))
     assert len(seq) == len(pre) == 3
@@ -137,5 +137,5 @@ def test_image_hw_layouts_and_buckets():
     assert {k: [n for n, _ in v] for k, v in groups.items()} == \
         {(H, W): ["a", "b"], (400, 500): ["c"]}
     with pytest.raises(ValueError, match="boxes_valid"):
-        tbatch.BatchRunner(pt.ReportConfig(), "cpu").run_u8(
+        tbatch.BatchRunner(pt.ReportConfig(), device="cpu").run_u8(
             u8[None], np.zeros((1, 10, 4), np.int32), None)

@@ -58,8 +58,8 @@ def test_kill_and_resume_exactly_once(corpus, tmp_path, monkeypatch):
     out_dir = str(tmp_path / "out")
     real_run_corpus = phio.run_corpus
 
-    def crashing(images, cfg, batch_size=32, device="cuda"):
-        it = real_run_corpus(images, cfg, batch_size=batch_size,
+    def crashing(images, cfg, mesh=None, batch_size=32, device="cuda"):
+        it = real_run_corpus(images, cfg, mesh, batch_size=batch_size,
                              device=device)
         for n, item in enumerate(it):
             yield item

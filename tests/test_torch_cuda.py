@@ -1,6 +1,7 @@
 """The CUDA kernels (K1-K15) against their plain PyTorch versions on an
 NVIDIA GPU, the row-sharded report at world size 1 (NCCL) against the
-single-device path, BatchRunner on the card against the CPU path, each
+single-device path, the data-parallel and dp x spatial steps at world
+size 1, BatchRunner on the card against the CPU path, each
 kernel's registered operator under torch.library.opcheck, and a serving
 artifact exported for the card against the live path.  Every test here
 needs the card and nvcc and skips without them; this file imports no JAX,
@@ -338,6 +339,54 @@ def test_cuda_spatial_report_world_size_1(cuda_device, tmp_path):
     assert _snr_db(ref.blur_bins[0], got.blur_bins) >= 55
 
 
+@pytest.mark.cuda
+def test_cuda_mesh_world_size_1(cuda_device):
+    """On one NCCL rank: the data-parallel report equals
+    full_report_batched and the dp x spatial step equals
+    build_spatial_report image by image, bit for bit, with the deferred
+    palette pass's K9 and K10 launched once for the batch."""
+    import torch.distributed as dist
+
+    from photohive_dsp_tpu_torch.parallel import mesh, sharding, spatial
+
+    h, w = 487, 640
+    cfg = ReportConfig()
+    imgs = np.round(np.concatenate([smooth_rgb(1, h, w), noise_rgb(1, h, w)])
+                    * 255).astype(np.uint8)
+    one = pt.set_bounding_boxes([
+        dict(top=40, bottom=200, left=60, right=300),
+        dict(top=300, bottom=487, left=100, right=630)])
+    boxes, valid = np.stack([one[0]] * 2), np.stack([one[1]] * 2)
+    mesh.initialize_distributed(num_processes=1, device=cuda_device)
+    try:
+        m = mesh.make_mesh()
+        u8 = torch.from_numpy(imgs).to(cuda_device).permute(0, 2, 3, 1)
+        fn, tables = sharding.data_parallel_report_u8(h, w, cfg, m,
+                                                      cuda_device)
+        dp = fn(u8, boxes, valid, tables)
+        single = spatial.build_spatial_report(m.spatial_group, h, w, cfg,
+                                              cuda_device)
+        alone = [single(imgs[i], boxes[i], valid[i]) for i in range(2)]
+        dps_fn = spatial.build_dp_spatial_report(m, 2, h, w, cfg,
+                                                 cuda_device)
+        _cuda.reset_launch_counts()
+        dps = dps_fn(imgs, boxes, valid)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["cell_counts_hsv"] == 1
+        assert _cuda.LAUNCHES["palette_sums_flat_q8"] \
+            + _cuda.LAUNCHES["palette_sums_flat_qfull"] == 1
+        assert _cuda.LAUNCHES["sharpness_sums"] == 2
+    finally:
+        dist.destroy_process_group()
+    ref = pt.full_report_batched(torch.from_numpy(imgs).to(cuda_device),
+                                 boxes, valid, tables, cfg)
+    for k in ref._fields:
+        assert torch.equal(getattr(dp, k), getattr(ref, k)), k
+        for i in range(2):
+            assert torch.equal(getattr(dps, k)[i], getattr(alone[i], k)), \
+                (i, k)
+
+
 def _flat_hsv_with_tail(rgb, device, tail=777):
     from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_hsv
 
@@ -437,7 +486,7 @@ def test_cuda_batch_runner_matches_cpu(variant, cuda_device, monkeypatch):
     want = {"bf16": "palette_sums_qfull", "candidate": "palette_sums_qfull_f32",
             "cwide": "palette_sums_cwide"}[variant]
     assert _cuda.LAUNCHES[want] == 1
-    ref = tbatch.BatchRunner(TCFG, "cpu").run_u8(images, bx, vd)
+    ref = tbatch.BatchRunner(TCFG, device="cpu").run_u8(images, bx, vd)
     for k in ("palette_n", "palette_ids", "palette_pct", "blur_vector_angles",
               "blur_vector_mags"):
         assert torch.equal(getattr(got, k).cpu(), getattr(ref, k)), k

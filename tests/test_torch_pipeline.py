@@ -97,6 +97,20 @@ def test_get_report_matches_jax(name, boxes):
     assert got.text_report().count("\n") == want.text_report().count("\n")
 
 
+def test_get_report_salient_characters_keyword_matches_jax():
+    """The crop boxes by the reference's keyword, in both packages: the
+    same frame gives the same to_json keys and the fields meet the bars."""
+    img = IMAGES["structured"]
+    want = ph.get_report(img, salient_characters=ph.set_bounding_boxes(BOXES))
+    got = pt.get_report(img, salient_characters=pt.set_bounding_boxes(BOXES),
+                        device="cpu")
+    assert_match(report_fields(got), report_fields(want))
+    assert len(got.sharpnesses) == len(BOXES)
+    got_json, want_json = json.loads(got.to_json()), json.loads(want.to_json())
+    assert list(got_json) == list(want_json)
+    assert len(got_json) == 439
+
+
 @pytest.mark.parametrize("knobs", [
     dict(downsample_rate=2),
     dict(h_partitions=36, s_partitions=4, v_partitions=4,
