@@ -2,7 +2,8 @@
 
 Drives photohive_dsp_tpu_torch's paths through their CUDA kernels — the
 main path (get_report on 1080x1920 frames and full_report_batched on a
-batch of 8, with and without crop boxes), the corpus path (run_corpus over
+batch of 8, with and without crop boxes), the single-image API
+(full_report on float32 frames), the corpus path (run_corpus over
 config #3's 256 frames under each PHOTOHIVE_PALETTE_KERNEL variant, the
 streaming runner, process_corpus with a crash and a resume) and the
 row-sharded report (parallel/spatial.build_spatial_report, one NCCL rank, a
@@ -50,7 +51,10 @@ Phases, each of which raises on failure:
      (K14) against the bf16 one; then K5, K7+K8, K9 and K10 against their
      plain versions on the inputs the rank hands them there (33 MP of flat
      HSV, the luma with its halo, the rank's |X|^2);
-  7. timing: warm get_report latency, batch-8 throughput, the corpus
+  7. timing: warm get_report latency; warm full_report on a float32
+     frame on the card against full_report_batched at B=1 on it and
+     get_report on it as uint8 (20 calls each between CUDA events, in
+     turns); batch-8 throughput, the corpus
      path's MP/s, the spatial call's wall time, the blur and sharpness
      stages by their plain routes and by the kernels at B=1 and B=8, K6a
      against torch.fft.rfft at ROW_FFT_WIDTHS, K6b against torch.fft.fft
@@ -79,7 +83,19 @@ Phases, each of which raises on failure:
      phase 8's artifact through load_report(mesh=...), bit for bit; the
      launch counts of that run; K9, K10 and K14 on the deferred palette
      pass's batched (2, P) flat HSV against their plain versions; the warm
-     dp x spatial call and the dp call in turns with full_report_batched.
+     dp x spatial call and the dp call in turns with full_report_batched;
+ 10. the single-image API: full_report through jitted_full_report (its
+     default device, its cache) on phase 4's three frame kinds decoded
+     to float32 (q=8, q=1, q_full) under no boxes, main_boxes and
+     main_boxes with thin_box, with the launch counts of that run (K11,
+     K2, K12, K13, K5, K6a, K6b, K7+K8 each at least once, no uint8
+     kernel); each report bit-equal to full_report_batched at B=1, through
+     utils.debug.verify_report and against full_report on the CPU; the
+     dev utilities (hsv_to_rgb on all 2^24 triples' HSV and a hue grid,
+     fft_shift, filter_image, create_filtered_rgb, sharpness_avg,
+     average_sharpness, the crops) on the card against the CPU; and
+     utils.viz on a card report (the PIL and matplotlib images only where
+     those import, as a line says).
 
 Phase 3 also holds K6a to its plain version on its edge cases (odd row
 counts, widths 1001, 3840 and 14520, and short widths that reach each of
@@ -1944,6 +1960,7 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
     mps = 8 * H * W / dt / 1e6
     log(f"  full_report_batched B=8 1080x1920 u8 (device-resident, 3 boxes,"
         f" none thin): {1e3 * dt:.3f} ms per batch, {mps:.1f} MP/s")
+    single_ms = single_image_times(img, cfg, smi)
     stage_times(images, cfg, tables)
     row_fft_width_times(smi)
     col_fft_height_times(smi)
@@ -2120,7 +2137,39 @@ def phase_timing(images, cfg, kin, bkin, skin, fkin, main, smi):
         log(f"  {key} (one-colour B=4 {H}x{W}): kernel {kern_ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {ms:.5f} ms ({by}), equal to "
             f"plain bit for bit ({smi})")
-    return times, bounds, lat_ms, mps
+    return times, bounds, lat_ms, mps, single_ms
+
+
+def single_image_times(img, cfg, smi: str) -> dict:
+    """Warm full_report (jitted_full_report's fn) on a device-resident
+    float32 1080x1920 frame, full_report_batched at B=1 on the same frame
+    and get_report on it as an (H, W, 3) uint8 host array, no boxes: 20
+    calls of each between CUDA events, in turns full_report, batched,
+    get_report, get_report, batched, full_report.  Returns the median ms of
+    each over its 40 calls."""
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.models import pipeline
+
+    fn, tables = pipeline.jitted_full_report(H, W, cfg)
+    x = unit_f32(img)
+    bx, vd = pipeline.empty_boxes()
+    calls = {"full_report": lambda: fn(x, bx, vd, tables),
+             "full_report_batched B=1": lambda: pt.full_report_batched(
+                 x[None], bx[None], vd[None], tables, cfg),
+             "get_report u8": lambda: pt.get_report(img, device=DEVICE)}
+    runs = {k: [] for k in calls}
+    for key in list(calls) + list(calls)[::-1]:
+        runs[key].append(event_times(calls[key]))
+    out = {}
+    for key, (a, b) in runs.items():
+        every = a + b
+        out[key] = float(np.median(every))
+        frame = "u8 host" if key == "get_report u8" else "f32 on the card"
+        log(f"  {key} {H}x{W} {frame}, warm, 2 x 20 calls between CUDA "
+            f"events in turns: median "
+            f"{out[key]:.4f} ms (min {min(every):.4f}, max {max(every):.4f}; "
+            f"runs {np.median(a):.4f} / {np.median(b):.4f}) ({smi})")
+    return out
 
 
 def kernel_time_inputs(cfg):
@@ -2419,8 +2468,8 @@ def verify_rows(data, vd, cfg, label: str) -> None:
             raise AssertionError(f"{label}, image {i}: {e}") from e
 
 
-def median_event_ms(fn, n: int = 20) -> float:
-    """Median of ``n`` calls of fn, each between CUDA events (host
+def event_times(fn, n: int = 20) -> list:
+    """ms of each of ``n`` warm calls of fn, each between CUDA events (host
     included: the call's one device read ends with the stream idle)."""
     fn()
     sync()
@@ -2433,7 +2482,12 @@ def median_event_ms(fn, n: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
+
+
+def median_event_ms(fn, n: int = 20) -> float:
+    """Median of ``n`` calls of fn, each between CUDA events."""
+    return float(np.median(event_times(fn, n)))
 
 
 def dispatch_times() -> dict:
@@ -2797,6 +2851,249 @@ def phase_mesh(cfg, images, blob: bytes, smi: str) -> dict:
                 gather_ms=gather_ms)
 
 
+# ---------------------------------------------------- single image ---
+
+# The kernels full_report must launch on float32 frames (K11, K2, K12 and
+# K13 by tier, K5, K6a, K6b, K7+K8), and the uint8 ones it must not.
+SINGLE_COUNTERS = ("cell_counts_s_f32", "margin_sort", "palette_sums_q1_f32",
+                   "palette_sums_q8_f32", "palette_sums_qfull_f32",
+                   "sharpness_sums", "fft_rows", "fft_cols", "polar_bins")
+U8_COUNTERS = ("cell_counts_s", "palette_sums_q1", "palette_sums_q8",
+               "palette_sums_qfull")
+LAPLACIAN = [[-1, -1, -1], [-1, 8, -1], [-1, -1, -1]]
+# filter_image is fh*fw products added in a fixed order, the same float32
+# operations on every device: bit-equal card to CPU.  Against
+# laplacian_3x3 (separable, another order) on [0, 1] luma: 8 ulp of |8|.
+LAPLACIAN_ATOL = 8 * 2.0 ** -20
+# sharpness_avg's two sums over 2 M values, reduced in the card's order
+# and the CPU's.
+SUM_RTOL = 1e-5
+
+
+def unit_f32(img: np.ndarray) -> torch.Tensor:
+    """An (H, W, 3) uint8 frame as (3, H, W) float32 planes in [0, 1] on
+    the card (the exact x / 255)."""
+    from photohive_dsp_tpu_torch.ops.colorspace import u8_to_unit_f32
+
+    return u8_to_unit_f32(torch.as_tensor(planar(img), device=DEVICE))
+
+
+def hue_grid() -> tuple:
+    """(h, s, v) on the card: a dense hue grid over [0, 360] with every
+    multiple of 60 and its neighbouring floats (hsv_to_rgb's sector
+    edges), s and v from SEED."""
+    edges = np.arange(7, dtype=np.float32) * 60
+    h = np.concatenate([np.linspace(0, 360, 1 << 20, dtype=np.float32),
+                        edges, np.nextafter(edges, np.float32(-1)),
+                        np.nextafter(edges, np.float32(400))])
+    rng = np.random.default_rng(SEED + 10)
+    s, v = rng.random((2, h.size), dtype=np.float32)
+    return tuple(torch.as_tensor(a, device=DEVICE) for a in (h, s, v))
+
+
+def equal_on_cpu(got, want, label: str) -> None:
+    """A tensor (or a tuple of them) of the card bit-equal to the CPU's."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.equal(g.cpu(), w):
+            raise AssertionError(f"{label}: the card's result differs from "
+                                 f"the CPU's")
+
+
+def check_dev_extras(images) -> None:
+    """The dev utilities off the report path on card tensors against the
+    same calls on the CPU: hsv_to_rgb (the HSV of all 2^24 RGB triples and
+    hue_grid) and fft_shift bit-equal; filter_image (the Laplacian and 3x5
+    taps) and create_filtered_rgb bit-equal, and the Laplacian taps equal
+    to laplacian_3x3 (bit for bit on integer-valued planes, within
+    LAPLACIAN_ATOL on luma); sharpness_avg and average_sharpness within
+    SUM_RTOL, NaN with nothing above the threshold; crop_pgm and
+    crop_image equal to slices, None out of range."""
+    from photohive_dsp_tpu_torch.ops import colorspace as cs
+    from photohive_dsp_tpu_torch.ops import fft, filtering
+
+    trip = cs.u8_to_unit_f32(torch.as_tensor(all_triples()[0],
+                                             device=DEVICE))
+    for label, hsv in (("all 2^24 triples' HSV", cs.rgb_to_hsv(*trip)),
+                       ("the hue grid", hue_grid())):
+        got = cs.hsv_to_rgb(*hsv)
+        equal_on_cpu(got, cs.hsv_to_rgb(*(t.cpu() for t in hsv)),
+                     f"hsv_to_rgb on {label}")
+    back = float((torch.stack(cs.hsv_to_rgb(*cs.rgb_to_hsv(*trip)))
+                  - trip).abs().max())
+    if not back < 1e-5:
+        raise AssertionError(f"hsv_to_rgb(rgb_to_hsv(rgb)) off by {back}")
+    log(f"  hsv_to_rgb: bit-equal to the CPU on all 2^24 RGB triples' HSV "
+        f"and {hsv[0].numel()} hues with every sector edge; round trip of "
+        f"the triples within {back:.2e}")
+
+    rgb = unit_f32(images[1])
+    pgm = cs.rgb_to_pgm(*rgb)
+    spec = torch.fft.rfft2(pgm - pgm.mean()).abs().square()
+    shifted = fft.fft_shift(spec)
+    equal_on_cpu(shifted, fft.fft_shift(spec.cpu()), "fft_shift")
+    taps = np.random.default_rng(SEED + 11).standard_normal((3, 5)).astype(
+        np.float32)
+    for name, t in (("Laplacian", LAPLACIAN), ("3x5", taps)):
+        equal_on_cpu(filtering.filter_image(pgm, t),
+                     filtering.filter_image(pgm.cpu(), t),
+                     f"filter_image {name} taps")
+        equal_on_cpu(filtering.create_filtered_rgb(rgb, t),
+                     filtering.create_filtered_rgb(rgb.cpu(), t),
+                     f"create_filtered_rgb {name} taps")
+    ints = torch.as_tensor(planar(images[1])[0], device=DEVICE).float()
+    if not torch.equal(filtering.filter_image(ints, LAPLACIAN),
+                       filtering.laplacian_3x3(ints)):
+        raise AssertionError("filter_image Laplacian differs from "
+                             "laplacian_3x3 on an integer-valued plane")
+    lap_err = float((filtering.filter_image(pgm, LAPLACIAN)
+                     - filtering.laplacian_3x3(pgm)).abs().max())
+    if not lap_err <= LAPLACIAN_ATOL:
+        raise AssertionError(f"filter_image Laplacian off laplacian_3x3 by "
+                             f"{lap_err}")
+    log(f"  fft_shift {tuple(spec.shape)} -> {tuple(shifted.shape)}, "
+        f"filter_image and create_filtered_rgb (Laplacian, 3x5 taps): "
+        f"bit-equal to the CPU; the Laplacian taps equal laplacian_3x3 bit "
+        f"for bit on integers, within {lap_err:.2e} on luma")
+
+    resp = filtering.laplacian_3x3(pgm)
+    for label, got, want in (
+            ("sharpness_avg", filtering.sharpness_avg(resp),
+             filtering.sharpness_avg(resp.cpu())),
+            ("average_sharpness", filtering.average_sharpness(pgm),
+             filtering.average_sharpness(pgm.cpu()))):
+        rel = abs(float(got) / float(want) - 1)
+        if not rel <= SUM_RTOL:
+            raise AssertionError(f"{label}: rel err {rel} against the CPU")
+        log(f"  {label}: {float(got):.6f}, rel err {rel:.2e} against the "
+            f"CPU")
+    if not torch.isnan(filtering.sharpness_avg(-resp.abs() - 1)):
+        raise AssertionError("sharpness_avg with nothing above the "
+                             "threshold is not NaN")
+
+    for args in ((W * 3 // 4, W // 10, H // 2, H // 8), (W, 0, H, 0),
+                 (W // 3, W // 2, H // 2, H // 4)):
+        right, left, bottom, top = args
+        equal_on_cpu(cs.crop_pgm(pgm, *args),
+                     pgm.cpu()[top:bottom, left:right], f"crop_pgm {args}")
+        equal_on_cpu(cs.crop_image(rgb, *args),
+                     cs.crop_image(rgb.cpu(), *args), f"crop_image {args}")
+    for bad in ((W + 1, 0, H, 0), (W, -1, H, 0), (W, 0, H + 1, 0)):
+        if cs.crop_pgm(pgm, *bad) is not None \
+                or cs.crop_image(rgb, *bad) is not None:
+            raise AssertionError(f"crop of {bad} is not None")
+    log("  crop_pgm and crop_image: the slices, bit-equal to the CPU; None "
+        "out of range")
+
+
+def check_viz(rep, ref) -> None:
+    """utils.viz on a card report: blur_profile_visual (numpy only) against
+    the CPU report's at the blur bar; the PIL and matplotlib images where
+    those import."""
+    import importlib.util
+
+    from photohive_dsp_tpu_torch.utils import viz
+
+    vis = viz.blur_profile_visual(np.asarray(rep.blur_profile.bins), H, W)
+    want = viz.blur_profile_visual(np.asarray(ref.blur_profile.bins), H, W)
+    if vis.shape != (H, W // 2) or not np.isfinite(vis).all():
+        raise AssertionError(f"blur_profile_visual: shape {vis.shape}")
+    snr = snr_db(torch.as_tensor(want), torch.as_tensor(vis))
+    if not snr >= 60:
+        raise AssertionError(f"blur_profile_visual: {snr} dB against the CPU")
+    log(f"  viz.blur_profile_visual of the card report: {vis.shape}, "
+        f"{snr:.1f} dB against the CPU report's")
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("PIL", "matplotlib")}
+    log(f"  viz: importable here: PIL {have['PIL']}, matplotlib "
+        f"{have['matplotlib']}; the images below are those they allow")
+    if not have["PIL"]:
+        return
+    images = {"palette": rep.generate_color_palette_image(),
+              "blur profile": rep.generate_blur_profile_image(),
+              "report card": rep.generate_report_card()}
+    if have["matplotlib"]:
+        images["frequency response"] = \
+            rep.generate_blur_direction_frequency_response()
+    if images["blur profile"].size != (W // 2, H):
+        raise AssertionError("generate_blur_profile_image: size "
+                             f"{images['blur profile'].size}")
+    log("  viz: images drawn from the card report: "
+        + ", ".join(f"{k} {v.size[0]}x{v.size[1]}"
+                    for k, v in images.items()))
+
+
+def phase_single_image(images, cfg) -> dict:
+    """The single-image API on the card: full_report (through
+    jitted_full_report's fn, on the default device) on phase 4's three
+    frame kinds decoded to float32 (noise: q=8, structured: q=1, hue
+    wheel: q_full), each under no boxes, main_boxes and main_boxes with
+    thin_box; the launch counts of that run (K11, K2, K12, K13, K5, K6a,
+    K6b, K7+K8 each at least once, no uint8 kernel); each report
+    bit-equal to full_report_batched at B=1 on the card, through
+    utils.debug.verify_report, and at the bars against full_report on the
+    CPU; jitted_full_report cached, its tables on the card; the dev
+    utilities (check_dev_extras) and utils.viz (check_viz).  Returns the
+    launch counts."""
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.models import pipeline
+    from photohive_dsp_tpu_torch.ops import _cuda
+    from photohive_dsp_tpu_torch.utils import debug
+
+    fn, tables = pipeline.jitted_full_report(H, W, cfg)
+    again = pipeline.jitted_full_report(H, W, cfg)
+    if again[0] is not fn or again[1] is not tables:
+        raise AssertionError("jitted_full_report is not cached")
+    if not (tables.polar.bin_ids.is_cuda and tables.octree.centers.is_cuda):
+        raise AssertionError("jitted_full_report's tables are not on the "
+                             "card")
+    frames = {"noise": unit_f32(images[0]), "structured": unit_f32(images[1]),
+              "hue wheel": unit_f32(images[2])}
+    box_sets = {"no boxes": pipeline.empty_boxes(),
+                "3 boxes": pt.set_bounding_boxes(main_boxes(H, W)),
+                "3 boxes + thin": pt.set_bounding_boxes(
+                    main_boxes(H, W) + [thin_box(H, W)])}
+    sync()
+    _cuda.reset_launch_counts()
+    got = {(f, b): fn(x, *box_sets[b], tables)
+           for f, x in frames.items() for b in box_sets}
+    sync()
+    launches = dict(_cuda.LAUNCHES)
+    log(f"  launch counts in the single-image run: {launches}")
+    check_launches(launches, SINGLE_COUNTERS, "single-image path")
+    u8 = [k for k in U8_COUNTERS if launches[k]]
+    if u8:
+        raise AssertionError(f"full_report on float32 frames launched the "
+                             f"uint8 kernels {u8}")
+
+    cpu_tables = pipeline.ReportTables.build(H, W, cfg, "cpu")
+    refs = {}
+    for (f, b), data in got.items():
+        label = f"full_report {f}, {b}"
+        bx, vd = box_sets[b]
+        x = frames[f]
+        one = pt.ReportData(*(t[None] for t in data))
+        same_data(one, pt.full_report_batched(x[None], bx[None], vd[None],
+                                              tables, cfg),
+                  f"{label} against full_report_batched B=1")
+        rep = pt.Report(data, H, W, int(vd.sum()), cfg)
+        try:
+            debug.verify_report(rep)
+        except AssertionError as e:
+            raise AssertionError(f"{label}: {e}") from e
+        ref = refs[f, b] = pipeline.full_report(x.cpu(), bx, vd, cpu_tables,
+                                                cfg)
+        compare_reports(data_fields(one, 0),
+                        data_fields(pt.ReportData(*(t[None] for t in ref)), 0),
+                        label + " (bit-equal to full_report_batched B=1)")
+    check_dev_extras(images)
+    key = ("structured", "3 boxes")
+    check_viz(pt.Report(got[key], H, W, 3, cfg),
+              pt.Report(refs[key], H, W, 3, cfg))
+    return launches
+
+
 KERNELS = [
     ("K1", "cell_counts_s", "cell_counts_s",
      "photohive_dsp_tpu_torch/csrc/palette.cu",
@@ -2940,8 +3237,8 @@ def main(argv) -> int:
     log("phase 7: timing (B=4 1080x1920: u8 for K1-K4, f32 for K11-K13, "
         "f32 luma for K5-K8, flat HSV for K9, K10, K14 and its cell ids for "
         "K15)")
-    times, bounds, lat_ms, mps = phase_timing(images, cfg, kin, bkin, skin,
-                                              fkin, main_out, smi)
+    times, bounds, lat_ms, mps, single_ms = phase_timing(
+        images, cfg, kin, bkin, skin, fkin, main_out, smi)
     log("phase 8: serving path (export_report, load_report in a fresh "
         "process)")
     serving = phase_serving(cfg, smi)
@@ -2950,6 +3247,9 @@ def main(argv) -> int:
         "build_dp_spatial_report, run_corpus and load_report with a mesh)")
     meshed = phase_mesh(cfg, images, serving["blob"], smi)
     launches["mesh path"] = meshed["launches"]
+    log("phase 10: single-image API on the card (full_report, "
+        "jitted_full_report, the dev utilities, utils.viz)")
+    launches["single-image path"] = phase_single_image(images, cfg)
     if parent:
         compare_parent(parent, cfg, smi)
 
@@ -2958,6 +3258,8 @@ def main(argv) -> int:
                     launches_from=path,
                     serving_launches=launches["serving path"][counter],
                     mesh_launches=launches["mesh path"][counter],
+                    single_image_launches=launches["single-image path"][
+                        counter],
                     max_abs_err=err[key], ms=times[key][0],
                     plain_ms=times[key][1], bound_ms=bounds[key][0],
                     bound_by=bounds[key][1], library_ms=times[key][2],
@@ -2981,6 +3283,8 @@ def main(argv) -> int:
         f" ms against full_report_batched {meshed['live_ms']:.4f} ms; "
         f"build_dp_spatial_report B={MESH_DPS_B} {SH}x{SW} "
         f"{meshed['dp_spatial_ms']:.1f} ms")
+    log(f"single image {H}x{W}, warm medians: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in single_ms.items()) + f" ({smi})")
     log(f"get_report warm median {lat_ms:.3f} ms; full_report_batched B=8 "
         f"{mps:.1f} MP/s; build_spatial_report {SH}x{SW} {spatial_ms:.1f} ms")
     log(f"corpus path (config #3, {CORPUS_IMAGES} u8 frames, batch "

@@ -9,7 +9,8 @@ Public API:
     get_report(image, salient_characters=None, *, config=None,
                device="cuda", **knobs)
     set_bounding_boxes(list_of_dicts) -> crop-box arrays
-    ReportConfig, Report, ReportData, ReportTables, full_report_batched
+    ReportConfig, Report, ReportData, ReportTables, full_report (one
+    image), full_report_batched, crop_image, crop_pgm
 
 The batch and corpus layer: ``models.batch`` (BatchRunner, warmup,
 run_corpus) and ``utils.io`` (process_corpus, image IO).  Across process
@@ -28,15 +29,17 @@ import torch
 
 from .config import MAX_CROP_BOXES, ReportConfig, check_image_dims
 from .models.pipeline import (ReportData, ReportTables, cached_tables,
-                              full_report_batched, resolve_device)
+                              full_report, full_report_batched,
+                              jitted_full_report, resolve_device)
+from .ops.colorspace import crop_image, crop_pgm
 from .report import Report
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "ReportConfig", "Report", "ReportData", "ReportTables",
-    "full_report_batched", "get_report", "set_bounding_boxes",
-    "__version__",
+    "ReportConfig", "Report", "ReportData", "ReportTables", "full_report",
+    "full_report_batched", "get_report", "set_bounding_boxes", "crop_image",
+    "crop_pgm", "__version__",
 ]
 
 
@@ -97,13 +100,11 @@ def get_report(image, salient_characters=None, *,
         box_arr = np.zeros((MAX_CROP_BOXES, 4), np.int32)
         valid = np.zeros((MAX_CROP_BOXES,), bool)
     else:
-        box_arr, valid = salient_characters
+        box_arr, valid = (np.asarray(a) for a in salient_characters)
     tables = cached_tables(height, width, cfg, dev)
     # uint8 frames travel to the device as uint8 (4x fewer bytes); the
     # pipeline decodes them exactly.
-    rgb = torch.from_numpy(planar)[None].to(dev)
-    data = full_report_batched(rgb, np.asarray(box_arr)[None],
-                               np.asarray(valid)[None], tables, cfg)
-    data = ReportData(*(x[0] for x in data))
-    return Report(data, height, width, num_boxes=int(np.sum(valid)),
+    rgb = torch.from_numpy(planar).to(dev)
+    data = full_report(rgb, box_arr, valid, tables, cfg)
+    return Report(data, height, width, num_boxes=int(valid.sum()),
                   config=cfg)

@@ -20,12 +20,12 @@ sharpness comes before DC removal; the DC removed is (Br+Bg+Bb)/3.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from ..config import ReportConfig
+from ..config import MAX_CROP_BOXES, ReportConfig
 from ..ops.blur import (PolarTables, blur_bins_lognorm, blur_profile_bins,
                         vectorize_blur_profile)
 from ..ops.colorspace import (downsample_rgb, rgb_to_hsv, rgb_to_pgm,
@@ -40,7 +40,8 @@ from ..ops.stats import div_const, mean_saturation, rgb_statistics
 
 
 class ReportData(NamedTuple):
-    """Fixed-shape reports with a leading batch dimension."""
+    """Fixed-shape reports with a leading batch dimension (one image's
+    report, as ``full_report`` returns it, has none)."""
 
     rgb_stats: torch.Tensor           # (B, 6) [Br, Bg, Bb, Cr, Cg, Cb]
     average_saturation: torch.Tensor  # (B,)
@@ -166,3 +167,43 @@ def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
         palette_n=palette.n_valid, palette_ids=palette.parent_ids,
         sharpness=sharp, blur_bins=bins,
         blur_vector_angles=angles, blur_vector_mags=mags)
+
+
+def full_report(rgb: torch.Tensor, boxes, boxes_valid, tables: ReportTables,
+                cfg: ReportConfig) -> ReportData:
+    """The report of one image: full_report_batched at B=1, each field
+    without its batch dimension.
+
+    rgb:         (3, H, W) float32 in [0, 1] (or uint8), on the device the
+                 tables live on.
+    boxes:       (MAX_CROP_BOXES, 4) int [top, bottom, left, right), a host
+                 array or a CPU tensor.
+    boxes_valid: (MAX_CROP_BOXES,) bool, a host array or a CPU tensor."""
+    data = full_report_batched(rgb[None], torch.as_tensor(boxes)[None],
+                               torch.as_tensor(boxes_valid)[None], tables,
+                               cfg)
+    return ReportData(*(x[0] for x in data))
+
+
+def jitted_full_report(height: int, width: int, cfg: ReportConfig,
+                       device="cuda"):
+    """(fn, tables) for one image shape and config on ``device``: fn is
+    ``full_report`` with cfg bound, called as fn(rgb, boxes, boxes_valid,
+    tables).  Named after the JAX package's compiled counterpart; nothing
+    is compiled here (the kernels build at their first launch).  Cached
+    per resolved device, so a second call returns the same objects."""
+    return _report_fn(height, width, cfg, resolve_device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _report_fn(height: int, width: int, cfg: ReportConfig,
+               device: torch.device):
+    return (functools.partial(full_report, cfg=cfg),
+            cached_tables(height, width, cfg, device))
+
+
+def empty_boxes() -> Tuple[torch.Tensor, torch.Tensor]:
+    """No crop boxes: (MAX_CROP_BOXES, 4) int32 and (MAX_CROP_BOXES,) bool
+    zeros, CPU tensors."""
+    return (torch.zeros((MAX_CROP_BOXES, 4), dtype=torch.int32),
+            torch.zeros((MAX_CROP_BOXES,), dtype=torch.bool))

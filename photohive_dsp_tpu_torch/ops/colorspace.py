@@ -8,6 +8,9 @@ order:
   * rgb->pgm luma: reference src/image_processing.c:505-512.
   * decimation: reference src/image_processing.c:344-366 — output row y
     samples input row y*(N-1), not y*N; reproduced faithfully.
+  * the dev/viz utilities off the report path: hsv->rgb
+    (src/image_processing.c:423-468), the standalone crops (:213-268) and
+    pgm->rgb (:515-524).
 
 Every op here is one IEEE float32 operation per element (eager PyTorch
 never contracts a multiply and an add into an FMA), so the results are
@@ -17,6 +20,8 @@ does.
 """
 
 from __future__ import annotations
+
+import sys
 
 import torch
 
@@ -83,6 +88,32 @@ def rgb_to_pgm(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor)\
     return 0.299 * r + 0.587 * g + 0.114 * b
 
 
+def hsv_to_rgb(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor):
+    """Inverse transform (reference src/image_processing.c:423-468).
+
+    The sector is floor(h / 60) clipped to 0..5, so h = 360 lands in
+    sector 5.  Both divisions by 60 are IEEE on every device: the divisor
+    is a tensor on h's device (see quantize.assign_cells).  The remainder
+    is Python's (the sign of the divisor), as ``jnp.mod``."""
+    sixty = torch.full((), 60.0, dtype=h.dtype, device=h.device)
+    c = v * s
+    x = c * (1.0 - torch.abs(torch.remainder(h / sixty, 2.0) - 1.0))
+    m = v - c
+    sector = torch.clamp(torch.floor_divide(h, sixty).to(torch.int32), 0, 5)
+    zeros = torch.zeros_like(c)
+
+    def select(*values):
+        out = values[-1]
+        for k in range(4, -1, -1):
+            out = torch.where(sector == k, values[k], out)
+        return out
+
+    rs = select(c, x, zeros, zeros, x, c)
+    gs = select(x, c, c, x, zeros, zeros)
+    bs = select(zeros, zeros, x, c, c, x)
+    return rs + m, gs + m, bs + m
+
+
 def downsample_rgb(rgb: torch.Tensor, rate: int) -> torch.Tensor:
     """Stride decimation with the reference's row-stride quirk.
 
@@ -95,3 +126,36 @@ def downsample_rgb(rgb: torch.Tensor, rate: int) -> torch.Tensor:
     rows = torch.arange(h // rate, device=rgb.device) * (rate - 1)
     cols = torch.arange(w // rate, device=rgb.device) * rate
     return rgb[..., rows, :][..., cols]
+
+
+def crop_pgm(pgm: torch.Tensor, right: int, left: int, bottom: int,
+             top: int):
+    """Standalone crop of an (..., H, W) image (reference
+    src/image_processing.c:213-233, same argument order).
+
+    Returns pgm[..., top:bottom, left:right], a view.  Out-of-range or
+    negative bounds print the reference's message and return None (its
+    NULL; right/bottom may equal the width/height); a degenerate box
+    (right <= left or bottom <= top) gives an empty slice, as the C loop
+    copies nothing.  The report pipeline itself never crops: it masks
+    (ops/sharpness.py)."""
+    h, w = pgm.shape[-2], pgm.shape[-1]
+    if right > w or left > w or bottom > h or top > h \
+            or min(right, left, bottom, top) < 0:
+        print("Error: crop boundaries outside of image boundaries.",
+              file=sys.stderr)
+        return None
+    return pgm[..., top:bottom, left:right]
+
+
+def crop_image(rgb: torch.Tensor, right: int, left: int, bottom: int,
+               top: int):
+    """Standalone crop of a (3, H, W) image (reference
+    src/image_processing.c:244-268); the bounds as crop_pgm's."""
+    return crop_pgm(rgb, right, left, bottom, top)
+
+
+def pgm_to_rgb(pgm: torch.Tensor) -> torch.Tensor:
+    """Grayscale (H, W) -> (3, H, W) by channel replication (reference
+    src/image_processing.c:515-524), a broadcast view."""
+    return pgm[None].expand((3,) + tuple(pgm.shape))

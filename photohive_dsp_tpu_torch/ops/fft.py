@@ -10,7 +10,8 @@ reference: src/fft_processing.c
 This is the JAX package's XLA route (``jnp.fft.rfft2``), here
 ``torch.fft.rfft2`` in complex64, taken by shapes outside the FFT kernels'
 gate (fft_plan.fft_kernel_eligible); the others take
-blur.blur_bins_lognorm.
+blur.blur_bins_lognorm.  ``fft_shift`` is the dev/viz centring of a half
+spectrum (src/fft_processing.c:111-157), off the report path.
 """
 
 from __future__ import annotations
@@ -38,3 +39,20 @@ def magnitude_fft_normalized(pgm_dc_removed: torch.Tensor) -> torch.Tensor:
     """compute_magnitude_fft equivalent (reference
     src/fft_processing.c:70-74)."""
     return normalize_fft(magnitude_fft(pgm_dc_removed))
+
+
+def fft_shift(half_mag: torch.Tensor) -> torch.Tensor:
+    """Centre a half-spectrum magnitude for display: (..., H, W2) ->
+    (..., H, 2*W2-1).
+
+    The right half is the input with its rows rolled by H//2, so DC lands
+    on the centre row; the left half is the right half's 180-degree
+    rotation without its last column (a real signal's spectrum magnitude
+    is symmetric about DC).  As in the JAX package, the reference's output
+    layout is not reproduced: it writes the ``2*W2-1``-wide image with the
+    input's width as its row stride, which scrambles it.  For odd H and an
+    odd full width this is ``np.fft.fftshift`` of the full spectrum; for
+    even sizes the left half is one row off, as a rotation implies."""
+    right = torch.roll(half_mag, half_mag.shape[-2] // 2, dims=-2)
+    left = right.flip(-2, -1)[..., :-1]
+    return torch.cat([left, right], dim=-1)

@@ -6,6 +6,9 @@
   float32 convolutions in TF32 by default.
 * Trailing circular 1-D box smoother — reference src/filtering.c:12-24:
   result[i] = mean_{j=0..size-1} x[(i-j) mod n] (a *trailing* window).
+* The general FIR and the reference's unused alternates
+  (src/filtering.c:58, 110, 186), for component parity: on neither
+  package's report path.
 """
 
 from __future__ import annotations
@@ -34,3 +37,48 @@ def trailing_circular_box(x: torch.Tensor, size: int) -> torch.Tensor:
     for j in range(1, size):
         acc = acc + torch.roll(x, j, dims=-1)
     return div_const(acc, size)
+
+
+SHARPNESS_AVG_THRESHOLD = 0.2  # reference src/filtering.c:6
+
+
+def filter_image(x: torch.Tensor, taps) -> torch.Tensor:
+    """Zero-padded 2-D correlation of the last two dims with an (fh, fw)
+    tap matrix (reference filter_image, src/filtering.c:81-107): no kernel
+    flip, no normalisation, out-of-image taps contribute zero.
+
+    ``taps`` may be nested lists; they are cast to x's dtype and device.
+    Written as fh*fw shifted products added in row-major tap order, a
+    multiply and an add apiece, so the result is the same on every device
+    (``conv2d`` would run in TF32 under cuDNN's default).  The JAX package
+    runs one XLA convolution, whose summation order differs."""
+    taps = torch.as_tensor(taps, dtype=x.dtype, device=x.device)
+    fh, fw = taps.shape
+    h, w = x.shape[-2:]
+    xp = F.pad(x, (fw // 2, (fw - 1) // 2, fh // 2, (fh - 1) // 2))
+    out = torch.zeros_like(x)
+    for fy in range(fh):
+        for fx in range(fw):
+            out = out + taps[fy, fx] * xp[..., fy:fy + h, fx:fx + w]
+    return out
+
+
+def create_filtered_rgb(rgb: torch.Tensor, taps) -> torch.Tensor:
+    """Per-channel FIR over a (3, H, W) image (reference
+    src/filtering.c:110-117)."""
+    return filter_image(rgb, taps)
+
+
+def sharpness_avg(response: torch.Tensor) -> torch.Tensor:
+    """Mean of the response values above SHARPNESS_AVG_THRESHOLD
+    (reference src/filtering.c:58-72); NaN when none is above it (0/0), as
+    in the reference."""
+    mask = response > SHARPNESS_AVG_THRESHOLD
+    total = torch.where(mask, response, torch.zeros_like(response)).sum()
+    return total / mask.sum()
+
+
+def average_sharpness(pgm: torch.Tensor) -> torch.Tensor:
+    """get_average_sharpness (reference src/filtering.c:186-199): the
+    Laplacian response's thresholded mean."""
+    return sharpness_avg(laplacian_3x3(pgm))

@@ -1,5 +1,5 @@
-"""Host-side Report object and the fixed JSON schema (counterpart of
-``photohive_dsp_tpu/report.py``, without the visualisation methods).
+"""Host-side Report object, its visualisations and the fixed JSON schema
+(counterpart of ``photohive_dsp_tpu/report.py``).
 
 Mirrors the reference's Python Report class (core.py:23-119) and its
 to_json schema (core.py:388-436): fixed width — exactly 10 blur vectors,
@@ -85,6 +85,65 @@ class Report:
         # No crop boxes -> empty list (reference core.py:39-41,
         # src/filtering.c:152-154).
         self.sharpnesses = [float(x) for x in data.sharpness[:num_boxes]]
+
+    # ---- visualization methods (API parity with reference core.py) -------
+
+    def generate_color_palette_image(self):
+        """reference core.py:182-216."""
+        from .utils import viz
+
+        self.color_palette_image = viz.palette_image(
+            self.color_palette.colors, self.color_palette.quantities)
+        return self.color_palette_image
+
+    def generate_blur_profile_image(self):
+        """reference core.py:219-228 + src/blur_profile.c:140-180."""
+        from .utils import viz
+
+        self.blur_profile_image = viz.blur_profile_image(
+            np.asarray(self.blur_profile.bins), self.rgb_stats.height,
+            self.rgb_stats.width)
+        return self.blur_profile_image
+
+    def generate_blur_direction_frequency_response(self):
+        """reference core.py:122-179."""
+        from .utils import viz
+
+        cfg = self.config
+        self.blur_vector_plot = viz.frequency_response_plot(
+            self.blur_vectors, np.asarray(self.blur_profile.bins),
+            cfg.magnitude_thresh if cfg else 0.3,
+            cfg.fft_streak_thresh if cfg else 1.2,
+            cfg.blur_cutoff_ratio_denom if cfg else 2)
+        return self.blur_vector_plot
+
+    def generate_report_card(self, image=None, bounding_boxes=None):
+        """Headless all-in-one dashboard (stand-in for reference
+        display_all, core.py:267-385)."""
+        from .utils import viz
+
+        return viz.report_card(self, image=image,
+                               bounding_boxes=bounding_boxes)
+
+    def display_all(self, image=None, bounding_boxes=None):  # pragma: no cover
+        """Show the report card in a window when a display is available."""
+        self.generate_report_card(image, bounding_boxes).show()
+
+    def display_color_palette_image(self):  # pragma: no cover
+        """Show the palette image (reference core.py:231-237).
+
+        Generates it first if needed (the reference requires a prior
+        generate_color_palette_image call and crashes otherwise — quirk
+        not reproduced)."""
+        if not hasattr(self, "color_palette_image"):
+            self.generate_color_palette_image()
+        self.color_palette_image.show()
+
+    def display_blur_profile(self):  # pragma: no cover
+        """Show the blur-profile visual (reference core.py:240-264)."""
+        if not hasattr(self, "blur_profile_image"):
+            self.generate_blur_profile_image()
+        self.blur_profile_image.show()
 
     def text_report(self) -> str:
         """Plain-text dump matching the reference's print_full_report layout

@@ -1,1 +1,2 @@
-"""Host utilities: image IO and the resumable corpus runner (utils.io)."""
+"""Host utilities: image IO and the resumable corpus runner (io),
+profiling, NaN hunting (debug) and the visualisations (viz)."""

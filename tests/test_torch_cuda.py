@@ -1,9 +1,10 @@
 """The CUDA kernels (K1-K15) against their plain PyTorch versions on an
 NVIDIA GPU, the row-sharded report at world size 1 (NCCL) against the
 single-device path, the data-parallel and dp x spatial steps at world
-size 1, BatchRunner on the card against the CPU path, each
-kernel's registered operator under torch.library.opcheck, and a serving
-artifact exported for the card against the live path.  Every test here
+size 1, the single-image full_report on float32 frames, BatchRunner on the
+card against the CPU path, each kernel's registered operator under
+torch.library.opcheck, and a serving artifact exported for the card
+against the live path.  Every test here
 needs the card and nvcc and skips without them; this file imports no JAX,
 so the machine with the card runs it with
 
@@ -299,6 +300,58 @@ def test_cuda_flat_hsv_kernels_match_plain(name, cuda_device):
         assert torch.equal(got, tpk.palette_sums_by_k_plain(*hsv, *tabs,
                                                             TCFG))
         assert torch.equal(got, tpk.palette_sums_by_k(*real, *tabs, TCFG))
+
+
+@pytest.mark.cuda
+def test_cuda_full_report_float32_frames(cuda_device):
+    """The single-image API on the card: jitted_full_report's default
+    device is the card; full_report on float32 frames (a structured frame:
+    q=1, noise: q=8, a hue wheel: q_full) launches the float32 palette
+    kernels (K11-K13), K2, K5 and the blur kernels and no uint8 kernel, and
+    equals full_report_batched at B=1 bit for bit and the CPU path's ids,
+    counts and blur vectors."""
+    from photohive_dsp_tpu_torch.models import pipeline as tpipe
+
+    from tests.util import structured_image
+
+    h, w = 360, 512
+    cfg = ReportConfig()
+    cached = tpipe.jitted_full_report(h, w, cfg)
+    assert tpipe.jitted_full_report(h, w, cfg) is cached
+    fn, tables = cached
+    assert tables.polar.bin_ids.is_cuda
+    frames = [structured_image(h, w, seed=3).astype(np.float32),
+              noise_rgb(1, h, w, seed=9)[0], wheel_rgb(1, h, w)[0]]
+    boxes = [tpipe.empty_boxes(), pt.set_bounding_boxes([
+        dict(top=40, bottom=200, left=60, right=300),
+        dict(top=0, bottom=90, left=384, right=512)])]
+    _cuda.reset_launch_counts()
+    got = [fn(torch.from_numpy(f).to(cuda_device), *b, tables)
+           for f in frames for b in boxes]
+    torch.cuda.synchronize()
+    for name in ("cell_counts_s_f32", "margin_sort", "palette_sums_q1_f32",
+                 "palette_sums_q8_f32", "palette_sums_qfull_f32",
+                 "sharpness_sums", "fft_rows", "fft_cols", "polar_bins"):
+        assert _cuda.LAUNCHES[name] >= 1, name
+    for name in ("cell_counts_s", "palette_sums_q1", "palette_sums_q8",
+                 "palette_sums_qfull"):
+        assert _cuda.LAUNCHES[name] == 0, name
+    cpu_tables = pt.ReportTables.build(h, w, cfg)
+    for (f, b), rep in zip([(f, b) for f in frames for b in boxes], got):
+        x = torch.from_numpy(f).to(cuda_device)
+        batched = pt.full_report_batched(x[None], b[0][None], b[1][None],
+                                         tables, cfg)
+        for name, a, c in zip(rep._fields, rep, batched):
+            assert torch.equal(a, c[0]), name
+        ref = pt.full_report(torch.from_numpy(f), *b, cpu_tables, cfg)
+        for k in ("palette_n", "palette_ids", "palette_pct",
+                  "blur_vector_angles", "blur_vector_mags"):
+            assert torch.equal(getattr(rep, k).cpu(), getattr(ref, k)), k
+        assert float((rep.palette_hsv.cpu() - ref.palette_hsv).abs().max()) \
+            < 5e-3
+        assert torch.allclose(rep.sharpness.cpu(), ref.sharpness, rtol=1e-4,
+                              atol=0)
+        assert _snr_db(ref.blur_bins, rep.blur_bins) >= 60
 
 
 @pytest.mark.cuda

@@ -165,7 +165,8 @@ def test_sharpness_routes_match(route):
 
 def test_port_never_imports_jax():
     """Every module of the port, kernels and parallel.* included, imports
-    without pulling in JAX or the JAX package."""
+    without pulling in JAX or the JAX package, or PIL and matplotlib
+    (utils.viz imports them inside the functions that draw)."""
     code = ("import importlib, pkgutil, sys, photohive_dsp_tpu_torch as p; "
             "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
             "p.__name__ + '.')]; "
@@ -174,11 +175,12 @@ def test_port_never_imports_jax():
             "'ops.polar_kernels', 'ops.fft_kernels', 'ops.margin_sort', "
             "'parallel.mesh', 'parallel.spatial', 'models.pipeline', "
             "'models.batch', 'utils.io', 'runtime', 'serving', "
-            "'ops.library', 'utils.profiling', 'utils.debug'}; "
+            "'ops.library', 'utils.profiling', 'utils.debug', "
+            "'utils.viz'}; "
             "missing = need - {n.split('.', 1)[1] for n in names}; "
             "assert not missing, missing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'photohive_dsp_tpu')]; "
+            "('jax', 'jaxlib', 'photohive_dsp_tpu', 'PIL', 'matplotlib')]; "
             "assert not bad, bad; print('clean')")
     root = Path(__file__).resolve().parents[1]
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
