@@ -34,8 +34,10 @@ Phases, each of which raises on failure:
      (bit-identical), a zero frame, and a 360x100-bin table (the polar
      kernel's global-atomics branch);
   4. main path against the CPU path, with the kernel launch counts of that
-     run (each of its kernels at least once, K5 included), and K5 against
-     its plain version on the path's B=8 batch;
+     run (each of its kernels at least once, K5 included), with --parent
+     against the parent checkout's main path on the card, every report
+     field bit for bit, and K5 against its plain version on the path's B=8
+     batch;
   5. corpus path: run_corpus over 256 uint8 frames of 720x1280, 1080x1920
      and 480x640 (bench.py's config #3), batch 16 with padded tails, under
      bf16, candidate and cwide: every report equal across the variants,
@@ -104,8 +106,10 @@ its passes and tile layouts (COL_FFT_EDGES), the palette-sums kernel (K3, K4,
 K10, K12-K14) on a one-colour batch, two-colour stripes, a pixel count
 that is no multiple of 4, and C=2164; the cell histogram (K1, K9, K11,
 K15) on a one-colour batch and, with the palette-sums kernel, on a frame
-of all 2^24 RGB triples at two grids; and K7+K8 on one-bin, below-gate,
-out-of-range-id and odd-length spectra.  Phase 7 also times the
+of all 2^24 RGB triples at four grids (18x2x3, 12x3x2, 24x5x5, 8x4x6),
+and get_report against the CPU path on frames of the triples whose cell
+IEEE division would move (12x3x2, 24x5x5); and K7+K8 on one-bin,
+below-gate, out-of-range-id and odd-length spectra.  Phase 7 also times the
 one-colour batch.
 
 Prints the kernels' JSON line, the card's name and power limit, and, last,
@@ -113,7 +117,8 @@ Prints the kernels' JSON line, the card's name and power limit, and, last,
 phase fails or no CUDA device is present.  Imports no JAX.
 
     python3 chip_smoke.py                     # what the checks need
-    python3 chip_smoke.py --parent DIR        # also time the palette
+    python3 chip_smoke.py --parent DIR        # also hold the main path's
+        # reports bit-equal to the checkout at DIR's, and time the palette
         # kernels, K2 (C=112 and 2164), K5 (and its time in each CUDA
         # kernel it launches, by torch.profiler), K6a, K6b, K7+K8, the blur
         # tail, a B=8 report and warm get_report of the
@@ -232,6 +237,13 @@ def hue_wheel_image(rng, h=H, w=W) -> np.ndarray:
     rgb[: h // 40] = 0.5
     rgb = rgb + rng.normal(0, 0.002, rgb.shape).astype(np.float32)
     return np.round(np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+
+
+def smoke_images() -> list:
+    """The four frames the main path and the timings run on, from SEED."""
+    rng = np.random.default_rng(SEED)
+    return [noise_image(rng), structured_image(rng), hue_wheel_image(rng),
+            noise_image(rng)]
 
 
 def planar(img: np.ndarray) -> np.ndarray:
@@ -1068,13 +1080,81 @@ def check_cell_counts(x, cfg, label: str) -> None:
 POLAR_EDGE_SHAPE = (2, 1080, 1920)
 
 
+# Grids whose cell steps send uint8 triples to other cells under IEEE
+# division than under the JAX package's jitted x * f32(1/L): 1498 triples
+# at 12x3x2, 2640 at 24x5x5, 59 at 8x4x6 (none at the default 18x2x3).
+CELL_GRIDS = [dict(h_partitions=12, s_partitions=3, v_partitions=2),
+              dict(h_partitions=24, s_partitions=5, v_partitions=5),
+              dict(h_partitions=8, s_partitions=4, v_partitions=6)]
+
+
+def grid_name(c) -> str:
+    return f"{c.h_partitions}x{c.s_partitions}x{c.v_partitions}"
+
+
+def ieee_moved_frame(cfg, h: int, w: int, seed: int) -> np.ndarray:
+    """(h, w, 3) uint8 frame, in a seeded order, of the RGB triples whose
+    cell at cfg's grid differs between IEEE division by the cell steps and
+    the multiply by their float32 reciprocals (the port's and jitted JAX's
+    cell id), found in numpy float32 from the port's HSV on the CPU."""
+    from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_hsv, \
+        u8_to_unit_f32
+
+    f32 = np.float32
+    rgb = all_triples()[0].reshape(3, -1)
+    hue, sat, val = (x.numpy() for x in rgb_to_hsv(
+        *u8_to_unit_f32(torch.from_numpy(rgb))))
+
+    def cells(ieee: bool) -> np.ndarray:
+        def index(x, base, step, parts):
+            y = x - f32(base)
+            q = y / f32(step) if ieee else y * (f32(1) / f32(step))
+            return np.clip(q, f32(0), f32(parts - 1e-6)).astype(np.int64)
+
+        color = ((index(hue, 0.0, cfg.cell_Lh, cfg.h_partitions)
+                  * cfg.s_partitions
+                  + index(sat, cfg.gray_thresh, cfg.cell_Ls,
+                          cfg.s_partitions)) * cfg.v_partitions
+                 + index(val, cfg.black_thresh, cfg.cell_Lv,
+                         cfg.v_partitions))
+        return np.where(val < f32(cfg.black_thresh), cfg.black_id,
+                        np.where(sat < f32(cfg.gray_thresh), cfg.gray_start,
+                                 color))
+
+    moved = rgb[:, np.flatnonzero(cells(True) != cells(False))].T
+    rng = np.random.default_rng(seed)
+    idx = np.resize(rng.permutation(len(moved)), h * w)
+    return np.ascontiguousarray(moved[rng.permutation(idx)].reshape(h, w, 3))
+
+
+def check_moved_triples_reports() -> None:
+    """get_report on the card against the CPU path on 1080x1920 frames of
+    the triples IEEE division would move, at 12x3x2 and 24x5x5: ids and
+    percentages exact, the other fields at the port's bars."""
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.config import ReportConfig
+
+    for knobs in CELL_GRIDS[:2]:
+        c = ReportConfig(**knobs)
+        img = ieee_moved_frame(c, H, W, SEED + 9)
+        gpu = pt.get_report(img, device=DEVICE, **knobs)
+        cpu = pt.get_report(img, device="cpu", **knobs)
+        if gpu is None or cpu is None:
+            raise AssertionError(f"{grid_name(c)}: get_report returned None")
+        compare_reports(report_fields(gpu), report_fields(cpu),
+                        f"get_report {H}x{W}, {grid_name(c)} triples "
+                        f"IEEE division would move")
+
+
 def phase_cell_and_polar_edges(cfg) -> None:
     """The cell histogram (K1, K9, K11, K15) on a one-colour batch and on
     every RGB triple (a 4096x4096 frame, at the default 18x2x3 grid and at
-    12x3x2), with the palette-sums kernel on every triple too (the shared
-    front end); K7+K8 (sums, max, means) on a spectrum whose bins are one
-    bin (one run a warp), one below the gate everywhere, one with ids out
-    of range, and one whose pixel count is no multiple of 4."""
+    CELL_GRIDS), with the palette-sums kernel on every triple too (the
+    shared front end); get_report on frames of the triples IEEE division
+    would move (check_moved_triples_reports); K7+K8 (sums, max, means) on a
+    spectrum whose bins are one bin (one run a warp), one below the gate
+    everywhere, one with ids out of range, and one whose pixel count is no
+    multiple of 4."""
     from photohive_dsp_tpu_torch.config import ReportConfig
     from photohive_dsp_tpu_torch.ops.blur import PolarTables
     from photohive_dsp_tpu_torch.ops.fft_kernels import magnitude2
@@ -1084,15 +1164,16 @@ def phase_cell_and_polar_edges(cfg) -> None:
                                       device=DEVICE), cfg,
                       "one colour 1080x1920 B=4")
     triples = torch.as_tensor(all_triples(), device=DEVICE)
-    grids = [cfg, ReportConfig(h_partitions=12, s_partitions=3,
-                               v_partitions=2)]
+    grids = [cfg] + [ReportConfig(**knobs) for knobs in CELL_GRIDS]
     for c in grids:
-        grid = f"{c.h_partitions}x{c.s_partitions}x{c.v_partitions}"
-        check_cell_counts(triples, c, f"all 2^24 triples, {grid}")
-        check_palette_sums_routes(triples, c, f"all 2^24 triples, {grid}")
+        check_cell_counts(triples, c, f"all 2^24 triples, {grid_name(c)}")
+        check_palette_sums_routes(triples, c,
+                                  f"all 2^24 triples, {grid_name(c)}")
     log("  K1, K9, K11, K15 equal plain bit for bit on a one-colour batch "
-        "and on all 2^24 RGB triples (18x2x3 and 12x3x2 grids); K3, K4, "
+        "and on all 2^24 RGB triples ("
+        + ", ".join(grid_name(c) for c in grids) + " grids); K3, K4, "
         "K10, K12-K14 too on the triples")
+    check_moved_triples_reports()
 
     b, h, w = POLAR_EDGE_SHAPE
     rng = np.random.default_rng(SEED + 8)
@@ -1134,10 +1215,10 @@ def check_launches(launches: dict, counters, path: str) -> None:
         raise AssertionError(f"kernels not launched on the {path}: {missing}")
 
 
-def phase_main_path(images, cfg):
+def main_path_inputs(images):
+    """The main path's get_report calls [(label, image, boxes)] and its
+    B=8 batch (frames, boxes, validity), host arrays."""
     import photohive_dsp_tpu_torch as pt
-    from photohive_dsp_tpu_torch.ops import _cuda
-    from photohive_dsp_tpu_torch.ops.sharpness_kernels import box_tensor
 
     noise, structured, wheel = images[:3]
     boxes = pt.set_bounding_boxes(main_boxes(H, W))
@@ -1148,8 +1229,72 @@ def phase_main_path(images, cfg):
              ("structured+thin box", structured, thin),
              ("hue wheel", wheel, None)]
     batch = np.stack([planar(images[i % len(images)]) for i in range(8)])
-    bboxes = np.stack([boxes[0]] * 8)
-    bvalid = np.stack([boxes[1]] * 8)
+    return calls, batch, np.stack([boxes[0]] * 8), np.stack([boxes[1]] * 8)
+
+
+def main_path_fields(reports, batch_data) -> dict:
+    """The main path's results as arrays, "call i/field" for each
+    get_report report and "batch i/field" for each image of the batch."""
+    out = {}
+    for i, rep in enumerate(reports):
+        out.update({f"call {i}/{k}": np.asarray(v)
+                    for k, v in report_fields(rep).items()})
+    for i in range(batch_data.palette_n.shape[0]):
+        out.update({f"batch {i}/{k}": np.asarray(v)
+                    for k, v in data_fields(batch_data, i).items()})
+    return out
+
+
+def main_reports_child(out_path: str) -> int:
+    """The main path of the package on sys.path on the card, its fields
+    saved to ``out_path`` (.npz): what compare_parent_reports reads."""
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.config import ReportConfig
+
+    phase_device()
+    cfg = ReportConfig()
+    calls, batch, bboxes, bvalid = main_path_inputs(smoke_images())
+    tables = pt.ReportTables.build(H, W, cfg, DEVICE)
+    reports = [pt.get_report(img, bx, device=DEVICE) for _, img, bx in calls]
+    data = pt.full_report_batched(torch.as_tensor(batch, device=DEVICE),
+                                  bboxes, bvalid, tables, cfg)
+    np.savez(out_path, **main_path_fields(reports, data))
+    return 0
+
+
+def compare_parent_reports(parent: str, fields: dict) -> None:
+    """The main path's default-config reports of the checkout at ``parent``
+    (its own package, in a child process) against this one's, bit for
+    bit: every field of every call and batch image."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "main_reports.npz")
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--main-reports", os.path.abspath(parent), path],
+                       check=True, timeout=600, stdout=subprocess.DEVNULL)
+        with np.load(path) as npz:
+            theirs = {k: npz[k] for k in npz.files}
+    if sorted(theirs) != sorted(fields):
+        raise AssertionError("main path: the parent's report fields differ "
+                             "in name from this checkout's")
+    for key, ours in fields.items():
+        got = theirs[key]
+        if (got.dtype != ours.dtype or got.shape != ours.shape
+                or got.tobytes() != ours.tobytes()):
+            raise AssertionError(f"main path {key}: differs from the parent "
+                                 f"{parent} on the card")
+    log(f"  main path: all {len(fields)} report fields of the six get_report"
+        f" calls and the B=8 batch bit-equal to the parent {parent}'s on the"
+        f" card")
+
+
+def phase_main_path(images, cfg, parent=None):
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.ops import _cuda
+    from photohive_dsp_tpu_torch.ops.sharpness_kernels import box_tensor
+
+    calls, batch, bboxes, bvalid = main_path_inputs(images)
     tables_gpu = pt.ReportTables.build(H, W, cfg, DEVICE)
     tables_cpu = pt.ReportTables.build(H, W, cfg, "cpu")
     batch_gpu = torch.as_tensor(batch, device=DEVICE)
@@ -1177,6 +1322,9 @@ def phase_main_path(images, cfg):
     for i in range(len(batch)):
         compare_reports(data_fields(gpu_batch, i), data_fields(cpu_batch, i),
                         f"full_report_batched B=8 3 boxes, image {i}")
+    if parent:
+        compare_parent_reports(parent, main_path_fields(gpu_reports,
+                                                        gpu_batch))
     check_launches(launches, MAIN_COUNTERS, "main path")
     _, rel = check_sharpness(luma([images[i % len(images)] for i in range(8)]),
                              box_tensor(bboxes, bvalid, DEVICE),
@@ -3189,6 +3337,11 @@ LIBRARY = {
 def main(argv) -> int:
     if argv[:1] == ["--serve-child"]:
         return serve_child(argv[1], argv[2])
+    if argv[:1] == ["--main-reports"]:
+        # A child of compare_parent_reports: the checkout at argv[1]'s
+        # package.
+        sys.path.insert(0, argv[1])
+        return main_reports_child(argv[2])
     if argv[:1] == ["--kernel-times"]:
         # A child of compare_parent: the checkout at argv[1]'s package.
         if not torch.cuda.is_available():
@@ -3207,9 +3360,7 @@ def main(argv) -> int:
 
     phase_build()
     cfg = ReportConfig()
-    rng = np.random.default_rng(SEED)
-    images = [noise_image(rng), structured_image(rng), hue_wheel_image(rng),
-              noise_image(rng)]
+    images = smoke_images()
     tables = ReportTables.build(H, W, cfg, DEVICE)
     log("phase 3: kernels vs plain versions")
     err, kin = phase_kernels(images, cfg, tables)
@@ -3224,7 +3375,7 @@ def main(argv) -> int:
     phase_palette_sums_edges(cfg)
     phase_cell_and_polar_edges(cfg)
     log("phase 4: main path")
-    main_out = phase_main_path(images, cfg)
+    main_out = phase_main_path(images, cfg, parent)
     launches = {"main path": main_out[0]}
     log("phase 5: corpus path (bench.py config #3)")
     by_variant, corpus_mps = phase_corpus(cfg, smi)

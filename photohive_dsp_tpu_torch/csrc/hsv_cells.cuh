@@ -18,18 +18,20 @@
 // with those divisions (fill_unit_table).
 //
 // The cell id (quantize.assign_cells, pallas_kernels.py:478-501) takes
-// three indices, each trunc(clip(RN(RN(x - base) / L), 0, clip)): a
-// function of one float32 that never decreases as x grows.  So it equals
-// the number of thresholds t_1 <= ... <= t_top that x reaches, t_k the
-// least float32 whose index is k or more (computed on the host from the
-// same float32 operations: ops/palette_kernels.index_bounds).  An index
-// of at most kRegBounds (v and s at the usual grids) is counted against
-// thresholds held in registers; a larger one (the hue) is guessed by
-// bin_index() from one multiply by float32(1 / L), which is within one of
-// it, and the guess corrected by the two thresholds around it, read from
-// shared memory.  No division and no float-to-int conversion, which share
-// the SM's slow pipe with the HSV divisions, and few shared-memory reads,
-// which the palette-sums kernel's candidate walks need.
+// three indices, each trunc(clip(RN(RN(x - base) * RN(1 / L)), 0, clip)):
+// the cell id is XLA's x * f32(1/L), like div_const (ops/stats.py), as
+// the JAX package computes it under jax.jit.  Each index is a function of
+// one float32 that never decreases as x grows.  So it equals the number
+// of thresholds t_1 <= ... <= t_top that x reaches, t_k the least float32
+// whose index is k or more (computed on the host from the same float32
+// operations: ops/palette_kernels.index_bounds).  An index of at most
+// kRegBounds (v and s at the usual grids) is counted against thresholds
+// held in registers; a larger one (the hue) is guessed by bin_index()
+// from that multiply rounded to the nearest integer, which is within one
+// of it, and the guess corrected by the two thresholds around it, read
+// from shared memory.  No division and no float-to-int conversion, which
+// share the SM's slow pipe with the HSV divisions, and few shared-memory
+// reads, which the palette-sums kernel's candidate walks need.
 #pragma once
 
 #include <stdint.h>
@@ -37,7 +39,7 @@
 // Mirror of ops/_cuda.CellParams (same field order).
 struct CellParams {
   float black_thresh, gray_thresh;
-  float inv_lv, inv_ls, inv_lh;  // float32(1 / cell_L*): the index guess
+  float inv_lv, inv_ls, inv_lh;  // RN(1 / float32(cell_L*)): the index guess
   float max_sv;                  // 0.999999, the reference's S and V clamp
   float inv360;                  // float32(1/360), the tie-break hue scale
   int v_top, s_top, h_top;       // trunc(partitions - 1e-6): largest index
@@ -93,11 +95,11 @@ __device__ __forceinline__ CellBounds cell_bounds(const CellParams& p,
   return b;
 }
 
-// trunc(clip(RN(RN(x - base) / L), 0, clip)) as the count of t[1..top]
+// trunc(clip(RN(RN(x - base) * inv), 0, clip)) as the count of t[1..top]
 // that x reaches; t = [-inf, t_1, ..., t_top, NaN].  The guess rounds
-// x * (1 / L) to an integer in [0, top] (the 2^23 add), which is within one
-// of the index, and the two thresholds around it correct it; a NaN x gives
-// 0, as fmaxf does in the division's clip.
+// (x - base) * inv to an integer in [0, top] (the 2^23 add), which is
+// within one of the index, and the two thresholds around it correct it; a
+// NaN x gives 0, as fmaxf does in the clip.
 __device__ __forceinline__ int bin_index(float x, float base, float inv,
                                          int top, const float* t) {
   float q = __fmul_rn(__fsub_rn(x, base), inv);

@@ -36,7 +36,8 @@ from ..ops.quantize import (OctreeTables, color_palette_batched,
                              color_palette_batched_from_rgb,
                              palette_kernel_variant)
 from ..ops.sharpness import variance_sharpness_batched
-from ..ops.stats import div_const, mean_saturation, rgb_statistics
+from ..ops.stats import blur_dc, div_const, mean_saturation, \
+    rgb_statistics
 
 
 class ReportData(NamedTuple):
@@ -147,7 +148,7 @@ def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
     stats = rgb_statistics(rgb)
     sharp = variance_sharpness_batched(pgm, boxes, boxes_valid)
 
-    dc = (stats[:, 0] + stats[:, 1] + stats[:, 2]) / 3.0
+    dc = blur_dc(stats)
     pgm_dc = pgm - dc[:, None, None]
     h, w = pgm_dc.shape[1:]
     if fft_kernel_eligible(h, w):

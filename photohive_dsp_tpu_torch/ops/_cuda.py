@@ -35,6 +35,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .stats import reciprocal_f32
+
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 LIB_NAME = "libphotohive_kernels.so"
@@ -61,9 +63,9 @@ def reset_launch_counts() -> None:
 
 class CellParams(ctypes.Structure):
     """Mirror of ``struct CellParams`` in csrc/hsv_cells.cuh: the float32
-    constants of the HSV -> cell-id mapping (ops/quantize.assign_cells) and
-    the device address of its index thresholds
-    (``palette_kernels.index_bounds``)."""
+    constants of the HSV -> cell-id mapping (ops/quantize.assign_cells: the
+    cell id is XLA's ``x * f32(1/L)``, like ``div_const``) and the device
+    address of its index thresholds (``palette_kernels.index_bounds``)."""
 
     _fields_ = [(name, ctypes.c_float) for name in (
         "black_thresh", "gray_thresh", "inv_lv", "inv_ls", "inv_lh",
@@ -82,8 +84,9 @@ class CellParams(ctypes.Structure):
         return cls(
             black_thresh=f32(cfg.black_thresh),
             gray_thresh=f32(cfg.gray_thresh),
-            inv_lv=f32(1.0 / cfg.cell_Lv), inv_ls=f32(1.0 / cfg.cell_Ls),
-            inv_lh=f32(1.0 / cfg.cell_Lh),
+            inv_lv=reciprocal_f32(cfg.cell_Lv),
+            inv_ls=reciprocal_f32(cfg.cell_Ls),
+            inv_lh=reciprocal_f32(cfg.cell_Lh),
             max_sv=f32(0.999999), inv360=f32(1.0 / 360.0),
             v_top=tops[0], s_top=tops[1], h_top=tops[2],
             s_partitions=cfg.s_partitions, v_partitions=cfg.v_partitions,

@@ -92,9 +92,11 @@ def hsv_to_rgb(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor):
     """Inverse transform (reference src/image_processing.c:423-468).
 
     The sector is floor(h / 60) clipped to 0..5, so h = 360 lands in
-    sector 5.  Both divisions by 60 are IEEE on every device: the divisor
-    is a tensor on h's device (see quantize.assign_cells).  The remainder
-    is Python's (the sign of the divisor), as ``jnp.mod``."""
+    sector 5.  Both divisions by 60 are IEEE on every device, as in the
+    JAX package's eager op: the divisor is a tensor on h's device, since
+    PyTorch's CUDA kernel divides by a Python scalar as a multiply by its
+    reciprocal.  The remainder is Python's (the sign of the divisor), as
+    ``jnp.mod``."""
     sixty = torch.full((), 60.0, dtype=h.dtype, device=h.device)
     c = v * s
     x = c * (1.0 - torch.abs(torch.remainder(h / sixty, 2.0) - 1.0))

@@ -33,7 +33,8 @@ h, s and v partitions and the black and gray thresholds, all that the cell
 id depends on) and rebuild it (``palette_kernels.grid_config``); the FFT
 operators get the plan's stage radices and twiddle tables.  What the
 launch derives from those, the cell-id thresholds
-(``palette_kernels.index_bounds``, on the device once per grid), K2's
+(``palette_kernels.index_bounds``, on the device once per grid; the cell id
+is XLA's ``x * f32(1/L)``, like ``div_const``), K2's
 bucket, K6b's tile and K5's scratch, tickets and 16-byte row loads, stays
 inside the CUDA implementations, out of any traced graph.
 

@@ -44,6 +44,7 @@ from .colorspace import rgb_to_hsv, u8_to_unit_f32
 from .fixed_point import from_fixed, to_fixed
 from .quantize import ParentAssignment, OctreeTables, assign_cells, \
     candidate_slots
+from .stats import reciprocal_f32
 
 _RGB_DTYPES = (torch.float32, torch.uint8)
 # Pixels per step of the plain K4/K10 tie-break (its (P, q) temporaries)
@@ -104,8 +105,8 @@ def _flat_hsv_cells(h, s, v, cfg):
 
 def _index_specs(cfg):
     """(base, step, clip) of quantize.assign_cells' v, s and h indices,
-    each trunc(clip((x - base) / step, 0, clip)) in float32 (no base: x /
-    step)."""
+    each trunc(clip((x - base) * f32(1/step), 0, clip)) in float32 (no
+    base: x * f32(1/step))."""
     return ((cfg.black_thresh, cfg.cell_Lv, cfg.v_partitions - 1e-6),
             (cfg.gray_thresh, cfg.cell_Ls, cfg.s_partitions - 1e-6),
             (None, cfg.cell_Lh, cfg.h_partitions - 1e-6))
@@ -113,12 +114,13 @@ def _index_specs(cfg):
 
 def cell_index(x: np.ndarray, base, step, clip) -> np.ndarray:
     """One index of ``assign_cells`` on float32 ``x``, in numpy's float32
-    (IEEE, round to nearest: the same bits as torch's and the kernels'
-    division)."""
+    (round to nearest: the same bits as torch's and the kernels').  The
+    cell id is XLA's ``x * f32(1/L)``, like ``div_const``."""
     f32 = np.float32
     with np.errstate(invalid="ignore", over="ignore"):
         y = x if base is None else x - f32(base)
-        return np.clip(y / f32(step), f32(0), f32(clip)).astype(np.int64)
+        return np.clip(y * reciprocal_f32(step), f32(0),
+                       f32(clip)).astype(np.int64)
 
 
 def _keys(x: np.ndarray) -> np.ndarray:
@@ -139,9 +141,10 @@ def index_bounds(cfg):
     (csrc/hsv_cells.cuh bin_index): for each of assign_cells' v, s and h
     indices, ``(top, t)`` with top the largest index (trunc of the clip)
     and t = [-inf, t_1, ..., t_top, NaN] float32, t_k the least float32
-    whose index is k or more.  An index never decreases as its input
-    grows, so it is the number of t_k an input reaches, for every float32.
-    Found by bisection over the float32 values."""
+    whose index (``cell_index``: the reciprocal multiply) is k or more.  An
+    index never decreases as its input grows, so it is the number of t_k
+    an input reaches, for every float32.  Found by bisection over the
+    float32 values."""
     out = []
     inf = np.array([np.inf], np.float32)
     for spec in _index_specs(cfg):

@@ -95,18 +95,16 @@ def assign_cells(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor,
                  cfg: ReportConfig) -> torch.Tensor:
     """Per-pixel octree cell id, int32 (reference
     src/color_quantization.c:127-145).  Python constants round to float32
-    in these ops, as in the JAX package.  The divisions are IEEE on every
-    device: the divisors are tensors on the pixels' device, since PyTorch's
-    CUDA kernel divides by a Python scalar as a multiply by its reciprocal
-    (which moves some pixels of a 12x3x2 grid to another cell)."""
-    def ieee_div(x: torch.Tensor, d: float) -> torch.Tensor:
-        return x / torch.full((), d, dtype=x.dtype, device=x.device)
-
-    vi = torch.clamp(ieee_div(v - cfg.black_thresh, cfg.cell_Lv), 0,
+    in these ops, as in the JAX package.  The cell id is XLA's
+    ``x * f32(1/L)``, like ``div_const``: inside ``jax.jit``, as
+    ``get_report`` runs, the JAX package's divisions by the cell steps
+    become multiplies by their float32 reciprocals, and a multiply rounds
+    alike on the CPU and the card."""
+    vi = torch.clamp(div_const(v - cfg.black_thresh, cfg.cell_Lv), 0,
                      cfg.v_partitions - 1e-6).to(torch.int32)
-    si = torch.clamp(ieee_div(s - cfg.gray_thresh, cfg.cell_Ls), 0,
+    si = torch.clamp(div_const(s - cfg.gray_thresh, cfg.cell_Ls), 0,
                      cfg.s_partitions - 1e-6).to(torch.int32)
-    hi = torch.clamp(ieee_div(h, cfg.cell_Lh), 0,
+    hi = torch.clamp(div_const(h, cfg.cell_Lh), 0,
                      cfg.h_partitions - 1e-6).to(torch.int32)
     color_id = (hi * cfg.s_partitions + si) * cfg.v_partitions + vi
     # Gray: the premature int cast in the reference (:136) zeroes the value

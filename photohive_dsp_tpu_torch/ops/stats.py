@@ -13,11 +13,20 @@ import numpy as np
 import torch
 
 
+def reciprocal_f32(n) -> np.float32:
+    """The float32 reciprocal of float32(n), as XLA folds a division by the
+    constant n: the one multiplier every constant division of the port
+    uses (``div_const``, the cell-id steps of ``quantize.assign_cells``,
+    ``palette_kernels.cell_index`` and the kernels' ``CellParams``)."""
+    return np.float32(1.0) / np.float32(n)
+
+
 def div_const(x: torch.Tensor, n) -> torch.Tensor:
     """x / n for a constant n, computed as XLA lowers it: x times the
     float32 reciprocal of n.  The JAX package's results carry that rounding
-    (e.g. palette percentages), and the port matches them bit for bit."""
-    return x * float(np.float32(1.0) / np.float32(n))
+    (e.g. palette percentages, the cell ids), and the port matches them bit
+    for bit.  A multiply rounds alike on the CPU and the card."""
+    return x * float(reciprocal_f32(n))
 
 
 def mean_and_std(x: torch.Tensor, dims=(-2, -1)):
@@ -33,6 +42,13 @@ def rgb_statistics(rgb: torch.Tensor) -> torch.Tensor:
     reference: src/image_processing.c:543-553."""
     mean, std = mean_and_std(rgb)
     return torch.cat([mean, std], dim=-1)
+
+
+def blur_dc(stats: torch.Tensor) -> torch.Tensor:
+    """(..., 6) ``rgb_statistics`` -> (...) the DC term the blur stage
+    removes from the luma, (Br + Bg + Bb) / 3, with the division as XLA
+    lowers it (``div_const``)."""
+    return div_const(stats[..., 0] + stats[..., 1] + stats[..., 2], 3)
 
 
 def mean_saturation(s: torch.Tensor) -> torch.Tensor:

@@ -53,7 +53,7 @@ from ..ops.quantize import (OctreeTables, PaletteResult,
                             parent_assignment_from_order, saliency_f32)
 from ..ops.sharpness import finish_sharpness, thin_boxes
 from ..ops.sharpness_kernels import box_crops, box_tensor, sharpness_sums
-from ..ops.stats import div_const
+from ..ops.stats import blur_dc, div_const
 from .sharding import gather_reports
 
 SUM = dist.ReduceOp.SUM
@@ -323,7 +323,7 @@ def spatial_report_body(rgb_local: torch.Tensor, down_local: torch.Tensor,
     sharp = _sharded_sharpness(pgm, boxes, boxes_valid, row_offset, group,
                                any_tiny, any_valid)
 
-    dc = (stats[0] + stats[1] + stats[2]) / 3.0
+    dc = blur_dc(stats)
     bins = _sharded_blur_bins(pgm, dc, flat_ids, bin_counts, wc, height,
                               width, cfg, group)
     angles, mags = vectorize_blur_profile(bins[None], cfg)

@@ -106,7 +106,7 @@ def stage_timings(height: int = 1080, width: int = 1920, batch: int = 16,
         h, s, v, cfg, tables.octree, "bf16"))
     stage("sharpness", lambda: sharpness.variance_sharpness_batched(
         pgm, boxes, valid))
-    pgm_dc = pgm - ((st[:, 0] + st[:, 1] + st[:, 2]) / 3.0)[:, None, None]
+    pgm_dc = pgm - stats.blur_dc(st)[:, None, None]
     if fft_kernel_eligible(height, width):
         plan = FftPlan.for_shape(height, width, dev)
         mag = stage("magnitude fft", lambda: magnitude2(pgm_dc, plan))

@@ -4,9 +4,12 @@ rgb_to_hsv, quantize.assign_cells, fixed_point.to_fixed): the uint8 decode
 table on all 256 inputs, the cell-index thresholds
 (palette_kernels.index_bounds) on every float32 around them, and the whole
 uint8 front end (one hue division, the cell id by thresholds) on all 2^24
-RGB triples at the default 18x2x3 grid and at 12x3x2.  Every comparison is
-bit for bit.  The kernels themselves run on the card only: chip_smoke.py
-holds them to the plain versions on the same triples."""
+RGB triples at the default 18x2x3 grid, 12x3x2 and 24x5x5 (whose v and s
+indices take the guess-and-correct route).  The cell id is XLA's
+``x * f32(1/L)``, like ``div_const``: the kernels' multiplier is
+``CellParams``' reciprocal of each cell step.  Every comparison is bit for
+bit.  The kernels themselves run on the card only: chip_smoke.py holds
+them to the plain versions on the same triples."""
 
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ import torch
 
 from photohive_dsp_tpu_torch.config import ReportConfig
 from photohive_dsp_tpu_torch.ops import palette_kernels as tpk
+from photohive_dsp_tpu_torch.ops._cuda import CellParams
 from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_hsv, \
     u8_to_unit_f32
 from photohive_dsp_tpu_torch.ops.fixed_point import to_fixed
@@ -25,7 +29,9 @@ CONFIGS = {"18x2x3": ReportConfig(),
                                   v_partitions=2),
            "36x4x4": ReportConfig(h_partitions=36, s_partitions=4,
                                   v_partitions=4),
-           "360x2x3": ReportConfig(h_partitions=360)}
+           "360x2x3": ReportConfig(h_partitions=360),
+           "24x5x5": ReportConfig(h_partitions=24, s_partitions=5,
+                                  v_partitions=5)}
 
 
 def unit_table() -> np.ndarray:
@@ -34,9 +40,9 @@ def unit_table() -> np.ndarray:
 
 
 def bin_index(x, base, inv, top, t):
-    """hsv_cells.cuh bin_index: the guess x * (1 / L) rounded to an
-    integer in [0, top] by the 2^23 add, corrected by the thresholds
-    around it."""
+    """hsv_cells.cuh bin_index: the guess (x - base) * inv, inv the
+    reciprocal of the cell step, rounded to an integer in [0, top] by the
+    2^23 add, corrected by the thresholds around it."""
     with np.errstate(invalid="ignore", over="ignore"):
         q = (x - f32(base)) * f32(inv)
         q = np.minimum(np.fmax(q, f32(0)), f32(top))
@@ -55,19 +61,26 @@ def reg_index(x, top, t):
     return sum((x >= r[i]).astype(np.int64) for i in range(REG_BOUNDS))
 
 
-def index_of(x, base, step, top, t):
+def index_of(x, base, inv, top, t):
     """The kernels' index: in registers when it fits, else guessed."""
     if top <= REG_BOUNDS:
         return reg_index(x, top, t)
-    return bin_index(x, base, 1.0 / step, top, t)
+    return bin_index(x, base, inv, top, t)
+
+
+def cell_params(cfg) -> CellParams:
+    """The kernels' constants for cfg (no thresholds on a device)."""
+    tops = [top for top, _ in tpk.index_bounds(cfg)]
+    return CellParams.for_config(cfg, tops, torch.zeros(1))
 
 
 def kernel_cells(h, s, v, cfg):
-    """hsv_cells.cuh hsv_cell, emulated."""
+    """hsv_cells.cuh hsv_cell, emulated with CellParams' multipliers."""
     (vt, tv), (st, ts), (ht, th) = tpk.index_bounds(cfg)
-    vi = index_of(v, cfg.black_thresh, cfg.cell_Lv, vt, tv)
-    si = index_of(s, cfg.gray_thresh, cfg.cell_Ls, st, ts)
-    hi = bin_index(h, 0.0, 1.0 / cfg.cell_Lh, ht, th)
+    p = cell_params(cfg)
+    vi = index_of(v, cfg.black_thresh, p.inv_lv, vt, tv)
+    si = index_of(s, cfg.gray_thresh, p.inv_ls, st, ts)
+    hi = bin_index(h, 0.0, p.inv_lh, ht, th)
     color = (hi * cfg.s_partitions + si) * cfg.v_partitions + vi
     return np.where(v < f32(cfg.black_thresh), cfg.black_id,
                     np.where(s < f32(cfg.gray_thresh), cfg.gray_start,
@@ -117,10 +130,10 @@ def _near(t: np.ndarray, steps: int = 4) -> np.ndarray:
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_index_bounds_are_the_least_floats_of_each_index(name):
-    """t_k is the least float32 whose index is k or more: its index
-    reaches k, the float below it does not, and top is the index of
-    +inf.  An index never decreases, so counting the t_k an input reaches
-    gives the index of every float32."""
+    """t_k is the least float32 whose index (the reciprocal multiply,
+    ``cell_index``) is k or more: its index reaches k, the float below it
+    does not, and top is the index of +inf.  An index never decreases, so
+    counting the t_k an input reaches gives the index of every float32."""
     cfg = CONFIGS[name]
     for spec, (top, t) in zip(tpk._index_specs(cfg), tpk.index_bounds(cfg)):
         assert tpk.cell_index(np.array([np.inf], f32), *spec)[0] == top
@@ -135,32 +148,34 @@ def test_index_bounds_are_the_least_floats_of_each_index(name):
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_bin_index_equals_the_division(name):
-    """The kernels' guess-and-correct index, and the register count where
-    the index fits it, against the division, around every threshold, on
-    the specials and on random floats."""
+    """The kernels' guess-and-correct index, with CellParams' multiplier,
+    and the register count where the index fits it, against the index
+    (XLA's lowering of the division: x * f32(1/L)), around every
+    threshold, on the specials and on random floats."""
     cfg = CONFIGS[name]
     rng = np.random.default_rng(5)
     bases = (cfg.black_thresh, cfg.gray_thresh, 0.0)
-    steps = (cfg.cell_Lv, cfg.cell_Ls, cfg.cell_Lh)
-    for spec, (top, t), base, step in zip(tpk._index_specs(cfg),
-                                          tpk.index_bounds(cfg), bases,
-                                          steps):
+    p = cell_params(cfg)
+    invs = (p.inv_lv, p.inv_ls, p.inv_lh)
+    for spec, (top, t), base, inv in zip(tpk._index_specs(cfg),
+                                         tpk.index_bounds(cfg), bases, invs):
+        assert f32(inv) == f32(1) / f32(spec[1])
         x = np.concatenate([
             _near(t), _near(np.array([0.0, 1.0, 360.0, base], f32)),
             np.array([np.inf, -np.inf, 3e38, -3e38, -0.0], f32),
             (rng.random(200000) * 420 - 30).astype(f32),
             rng.random(200000).astype(f32)])
         want = tpk.cell_index(x, *spec)
-        assert np.array_equal(bin_index(x, base, 1.0 / step, top, t), want)
+        assert np.array_equal(bin_index(x, base, inv, top, t), want)
         if top <= REG_BOUNDS:
             assert np.array_equal(reg_index(x, top, t), want)
 
 
 def test_front_end_on_every_uint8_triple():
-    """h and s bit for bit, the fixed-point s and the cell id at both grids
+    """h and s bit for bit, the fixed-point s and the cell id at each grid
     equal, over all 2^24 RGB triples in chunks."""
     unit = unit_table()
-    grids = [CONFIGS["18x2x3"], CONFIGS["12x3x2"]]
+    grids = [CONFIGS[k] for k in ("18x2x3", "12x3x2", "24x5x5")]
     chunk = 1 << 22
     for start in range(0, 1 << 24, chunk):
         i = np.arange(start, start + chunk, dtype=np.uint32)

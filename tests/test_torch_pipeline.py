@@ -117,10 +117,10 @@ def test_get_report_salient_characters_keyword_matches_jax():
          radius_partitions=10, angle_partitions=24)],
     ids=["downsample2", "581_cells"])
 def test_get_report_nondefault_config_matches_jax(knobs):
-    """C=581 takes K2 past the JAX Pallas sort's 512-cell limit.  (Grids
-    whose cell sizes make XLA's reciprocal-multiply cell ids differ from
-    IEEE division on u8 pixels, e.g. 12x3x2, are left out: see ROADMAP.md
-    Queue 3.)"""
+    """C=581 takes K2 past the JAX Pallas sort's 512-cell limit.  Grids
+    where XLA's reciprocal-multiply cell ids differ from IEEE division on
+    uint8 pixels (12x3x2, 24x5x5) are held on frames of those very pixels
+    by tests/test_torch_cell_grids.py."""
     img = IMAGES["structured"]
     want = ph.get_report(img, ph.set_bounding_boxes(BOXES), **knobs)
     got = pt.get_report(img, pt.set_bounding_boxes(BOXES), device="cpu",
