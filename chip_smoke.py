@@ -33,11 +33,14 @@ Phases, each of which raises on failure:
      float64 rfft2 (>= 90 dB), the polar sums, maxima and bin means twice
      (bit-identical), a zero frame, and a 360x100-bin table (the polar
      kernel's global-atomics branch);
-  4. main path against the CPU path, with the kernel launch counts of that
-     run (each of its kernels at least once, K5 included), with --parent
-     against the parent checkout's main path on the card, every report
-     field bit for bit, and K5 against its plain version on the path's B=8
-     batch;
+  4. main path against the CPU path (seven get_report calls, the last on
+     the near-tie frame, and a B=8 batch), with the kernel launch counts of
+     that run (each of its kernels at least once, K5 included), with
+     --parent against the parent checkout's main path on the card, every
+     report field bit for bit but, against a parent that rounds the
+     palette's distance and saliency weight unfused, the predicted
+     UNFUSED_MOVES, which must move, and K5 against its plain version on
+     the path's B=8 batch;
   5. corpus path: run_corpus over 256 uint8 frames of 720x1280, 1080x1920
      and 480x640 (bench.py's config #3), batch 16 with padded tails, under
      bf16, candidate and cwide: every report equal across the variants,
@@ -108,8 +111,12 @@ that is no multiple of 4, and C=2164; the cell histogram (K1, K9, K11,
 K15) on a one-colour batch and, with the palette-sums kernel, on a frame
 of all 2^24 RGB triples at four grids (18x2x3, 12x3x2, 24x5x5, 8x4x6),
 and get_report against the CPU path on frames of the triples whose cell
-IEEE division would move (12x3x2, 24x5x5); and K7+K8 on one-bin,
-below-gate, out-of-range-id and odd-length spectra.  Phase 7 also times the
+IEEE division would move (12x3x2, 24x5x5); every route of the
+palette-sums kernel (K4 on uint8, K13 on float32, K10 and K14 on flat HSV,
+K3, K12) on a 1080x1920 noise frame (seed 5) where the fused tie-break
+distance moves two pixels against the unfused one, the plain versions
+carrying the fused counts; and K7+K8 on one-bin, below-gate,
+out-of-range-id and odd-length spectra.  Phase 7 also times the
 one-colour batch.
 
 Prints the kernels' JSON line, the card's name and power limit, and, last,
@@ -118,7 +125,8 @@ phase fails or no CUDA device is present.  Imports no JAX.
 
     python3 chip_smoke.py                     # what the checks need
     python3 chip_smoke.py --parent DIR        # also hold the main path's
-        # reports bit-equal to the checkout at DIR's, and time the palette
+        # reports bit-equal to the checkout at DIR's (but UNFUSED_MOVES
+        # against a checkout without the FMAs), and time the palette
         # kernels, K2 (C=112 and 2164), K5 (and its time in each CUDA
         # kernel it launches, by torch.profiler), K6a, K6b, K7+K8, the blur
         # tail, a B=8 report and warm get_report of the
@@ -1015,6 +1023,88 @@ def check_palette_sums_routes(x, cfg, label: str) -> None:
                 f"{float((got - want).abs().max())}")
 
 
+# A noise frame (seed 5) on which the tie-break distance decides: two
+# pixels (flat indices) take another parent when the distance rounds after
+# every operation than when it is fused as jitted XLA fuses it
+# (ops/palette_kernels._nearest_candidates).
+NEAR_TIE_SEED = 5
+NEAR_TIE_PIXELS = [529788, 1153689]
+
+
+def near_tie_frame() -> np.ndarray:
+    return noise_image(np.random.default_rng(NEAR_TIE_SEED))
+
+
+def tie_break_slots(x, cfg, octree, assign, fused: bool) -> torch.Tensor:
+    """(P,) slot of each pixel of one (1, 3, H, W) uint8 frame among its
+    cell's q=8 candidates, the distance fused as the plain versions compute
+    it (``stats.fma_f32``) or rounded after every operation; C for a pixel
+    without a candidate."""
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops.colorspace import rgb_to_hsv, \
+        u8_to_unit_f32
+    from photohive_dsp_tpu_torch.ops.quantize import assign_cells
+    from photohive_dsp_tpu_torch.ops.stats import fma_f32
+
+    c = cfg.num_cells
+    rgb = u8_to_unit_f32(x[0]).reshape(3, -1)
+    h, s, v = rgb_to_hsv(rgb[0], rgb[1], rgb[2])
+    cand, ctr = pk.palette_candidate_table(assign, octree, c, 8)
+    cand = cand[0].long()[assign_cells(h, s, v, cfg).long()]    # (P, 8)
+    m = ctr[0][cand.clamp(max=c - 1)]                            # (P, 8, 3)
+    hd = (h[:, None] - m[..., 0]).abs()
+    hd = torch.where(hd > 180.0, 360.0 - hd, hd) * (1.0 / 360.0)
+    sd = s[:, None] - m[..., 1]
+    vd = v[:, None] - m[..., 2]
+    d = fma_f32(vd, vd, fma_f32(sd, sd, hd * hd)) if fused else \
+        hd * hd + sd * sd + vd * vd
+    d = torch.where(cand < c, d, float("inf"))
+    return torch.gather(cand, 1, d.argmin(dim=1, keepdim=True))[:, 0]
+
+
+def phase_near_tie_frame(cfg) -> None:
+    """The palette-sums kernel on the 1080x1920 near-tie frame: every route
+    of palette_sums_routes (K4 on uint8, K13 on float32, K10 and K14 on flat
+    HSV, and K3/K12) equal to its plain version bit for bit, and the
+    tie-breaking plain versions' counts those of the fused distance, which
+    moves exactly NEAR_TIE_PIXELS against the unfused one."""
+    from photohive_dsp_tpu_torch.ops import palette_kernels as pk
+    from photohive_dsp_tpu_torch.ops import quantize as qz
+
+    x = torch.as_tensor(planar(near_tie_frame())[None], device=DEVICE)
+    octree = qz.OctreeTables.for_config(cfg, DEVICE)
+    counts, _ = pk.cell_counts_s_from_rgb(x, cfg)
+    assign = assignment(counts, H * W, cfg, octree)
+    if int(qz.palette_tier(counts, assign, cfg)) != 8:
+        raise AssertionError("near-tie frame: not a q=8 frame")
+    fused, unfused = (tie_break_slots(x, cfg, octree, assign, f)
+                      for f in (True, False))
+    moved = torch.nonzero(fused != unfused)[:, 0].tolist()
+    if moved != NEAR_TIE_PIXELS:
+        raise AssertionError(f"near-tie frame: the fused distance moves "
+                             f"pixels {moved}, not {NEAR_TIE_PIXELS}")
+    c = cfg.num_cells
+    want_counts = torch.bincount(fused, minlength=c + 1)[:c]
+    checked = []
+    for key, kern, plain, px, tabs in palette_sums_routes(x, cfg, octree):
+        want = plain(*px, *tabs, cfg)
+        got = kern(*px, *tabs, cfg)
+        sync()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{key} near-tie frame: differs from plain, max abs err "
+                f"{float((got - want).abs().max())}")
+        if key not in ("K3", "K12") and not torch.equal(
+                want[0, :, 3].long(), want_counts):
+            raise AssertionError(f"{key} near-tie frame: the plain version's"
+                                 f" counts are not the fused distance's")
+        checked.append(key)
+    log(f"  near-tie frame {H}x{W} seed {NEAR_TIE_SEED}: the fused distance "
+        f"moves pixels {moved} against the unfused one; "
+        + ", ".join(checked) + " equal plain bit for bit, the tie-breaking "
+        "ones with the fused distance's counts")
+
+
 def phase_palette_sums_edges(cfg) -> None:
     """The palette-sums kernel (K3, K4, K10, K12-K14) on its edge cases: a
     one-colour 1080x1920 batch of 4 (the timed collision case), two-colour
@@ -1227,7 +1317,8 @@ def main_path_inputs(images):
              ("structured+3 boxes", structured, boxes),
              ("noise+3 boxes", noise, boxes),
              ("structured+thin box", structured, thin),
-             ("hue wheel", wheel, None)]
+             ("hue wheel", wheel, None),
+             ("noise seed 5 (near ties)", near_tie_frame(), None)]
     batch = np.stack([planar(images[i % len(images)]) for i in range(8)])
     return calls, batch, np.stack([boxes[0]] * 8), np.stack([boxes[1]] * 8)
 
@@ -1262,10 +1353,34 @@ def main_reports_child(out_path: str) -> int:
     return 0
 
 
+# The main path's fields that move against a checkout whose palette rounds
+# the tie-break distance and the saliency weight after every operation (one
+# without ops/stats.fma_f32, as before the FMAs): pixels on near ties of the
+# noise frames (calls 0, 3 and 6; batch images 0 and 4) and the hue wheel's
+# gray band (call 5; batch images 2 and 6) take other parents, so their
+# percentages and average HSV move.  Predicted by running both checkouts'
+# plain versions on the CPU on these inputs; no id, count or other field
+# moves.
+UNFUSED_MOVES = frozenset(
+    f"{item}/{field}" for item in ("call 0", "call 3", "call 5", "call 6",
+                                   "batch 0", "batch 2", "batch 4", "batch 6")
+    for field in ("palette_pct", "palette_hsv"))
+
+
+def rounds_unfused(checkout: str) -> bool:
+    """Whether the checkout's palette predates the distance's and the
+    weight's FMAs (its ops/stats.py has no fma_f32)."""
+    path = os.path.join(checkout, "photohive_dsp_tpu_torch", "ops",
+                        "stats.py")
+    with open(path) as f:
+        return "def fma_f32" not in f.read()
+
+
 def compare_parent_reports(parent: str, fields: dict) -> None:
     """The main path's default-config reports of the checkout at ``parent``
     (its own package, in a child process) against this one's, bit for
-    bit: every field of every call and batch image."""
+    bit: every field of every call and batch image, but for a parent that
+    rounds unfused, the UNFUSED_MOVES fields, which must differ."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1278,15 +1393,21 @@ def compare_parent_reports(parent: str, fields: dict) -> None:
     if sorted(theirs) != sorted(fields):
         raise AssertionError("main path: the parent's report fields differ "
                              "in name from this checkout's")
+    moves = UNFUSED_MOVES if rounds_unfused(parent) else frozenset()
     for key, ours in fields.items():
         got = theirs[key]
-        if (got.dtype != ours.dtype or got.shape != ours.shape
-                or got.tobytes() != ours.tobytes()):
+        same = (got.dtype == ours.dtype and got.shape == ours.shape
+                and got.tobytes() == ours.tobytes())
+        if same and key in moves:
+            raise AssertionError(f"main path {key}: predicted to move "
+                                 f"against the parent {parent}, but equal")
+        if not same and key not in moves:
             raise AssertionError(f"main path {key}: differs from the parent "
                                  f"{parent} on the card")
-    log(f"  main path: all {len(fields)} report fields of the six get_report"
-        f" calls and the B=8 batch bit-equal to the parent {parent}'s on the"
-        f" card")
+    log(f"  main path: {len(fields) - len(moves)} of the {len(fields)} "
+        f"report fields of the get_report calls and the B=8 batch bit-equal"
+        f" to the parent {parent}'s on the card, the {len(moves)} predicted "
+        f"to move (UNFUSED_MOVES) moved")
 
 
 def phase_main_path(images, cfg, parent=None):
@@ -2022,7 +2143,7 @@ def dilated_area(boxes, valid, h: int, w: int) -> int:
 
 
 # Launches of each plain version timed (3 by default): K14's builds a
-# (1 M px, C) distance matrix a chunk.
+# (256 K px, C) float64 distance matrix a chunk.
 PLAIN_ITERS = {"K14": 1}
 
 
@@ -3373,6 +3494,7 @@ def main(argv) -> int:
     phase_row_fft_edges()
     phase_col_fft_edges()
     phase_palette_sums_edges(cfg)
+    phase_near_tie_frame(cfg)
     phase_cell_and_polar_edges(cfg)
     log("phase 4: main path")
     main_out = phase_main_path(images, cfg, parent)

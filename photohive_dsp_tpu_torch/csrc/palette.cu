@@ -438,9 +438,11 @@ __device__ __forceinline__ void add_pixel(int k, u64 h, u64 s, u64 v,
 // values (K3: the hue offset of each cell; else the centre of
 // each slot as float4 h, s, v, 0) | cell table.  Block (x, b) takes
 // pixels [x run, (x + 1) run) of image b, run a multiple of kVec *
-// kThreads and at most kMaxRun.
+// kThreads and at most kMaxRun.  Six blocks an SM caps every instantiation
+// at 40 registers: left to itself, ptxas gives the RGB tie-break (with its
+// FMAs) 55-59 and so four blocks, which made K4 16% slower (PERF.md).
 template <typename Src, int kRule>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
     palette_sums_kernel(Src src, CellParams p, const int* __restrict__ cell_tab,
                         const float* __restrict__ val_tab, int q,
                         bool tab_in_shared, long long run,
@@ -500,10 +502,12 @@ __global__ void __launch_bounds__(kThreads)
           k = tab[cell];
           off[jj] = vals[cell];
         } else {
-          // Distance in the exact float32 op order of
-          // photohive_dsp_tpu/ops/quantize.py:364-371; slots are visited
-          // in ascending valid order, so the strict < keeps the first
-          // minimum, the reference's tie rule.
+          // Distance as jitted XLA computes
+          // photohive_dsp_tpu/ops/quantize.py:364-371: the sum of squares
+          // contracted into two FMAs, explicit here since --fmad=false
+          // contracts nothing else.  Slots are visited in ascending valid
+          // order, so the strict < keeps the first minimum, the
+          // reference's tie rule.
           float best = INFINITY;
           auto visit = [&](int kk) {
             const float4 m = ctr[kk];
@@ -512,9 +516,8 @@ __global__ void __launch_bounds__(kThreads)
             hd = __fmul_rn(hd, p.inv360);
             const float sd = __fsub_rn(s, m.y);
             const float vd = __fsub_rn(v, m.z);
-            const float d = __fadd_rn(
-                __fadd_rn(__fmul_rn(hd, hd), __fmul_rn(sd, sd)),
-                __fmul_rn(vd, vd));
+            const float d =
+                __fmaf_rn(vd, vd, __fmaf_rn(sd, sd, __fmul_rn(hd, hd)));
             if (d < best) {
               best = d;
               k = kk;

@@ -10,7 +10,9 @@ at import time: the CPU-only tests import every module.
 
 Floating point: ``--fmad=false`` forbids FMA contraction and
 ``--use_fast_math`` is never passed, so ``/`` is IEEE division.  The kernels
-also spell their bit-critical arithmetic with the ``__f*_rn`` intrinsics.
+also spell their bit-critical arithmetic with the ``__f*_rn`` intrinsics,
+with an explicit ``__fmaf_rn`` where jitted XLA contracts the JAX package's
+multiply-add (the palette's tie-break distance).
 
 ``LAUNCHES`` counts kernel launches by name.  A wrapper adds one exactly
 where it launches its kernel, so a run can show which kernels it went

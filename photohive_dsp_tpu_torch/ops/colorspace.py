@@ -14,7 +14,10 @@ order:
 
 Every op here is one IEEE float32 operation per element (eager PyTorch
 never contracts a multiply and an add into an FMA), so the results are
-bit-equal to the JAX package's on the same inputs.  Python float constants
+bit-equal to the JAX package's on the same inputs, run eagerly.  Under
+``jax.jit`` the HSV planes stay bit-equal, but XLA contracts the luma's
+multiply-adds, which moves ``rgb_to_pgm`` by rounding on some pixels; the
+luma feeds only fields held to a tolerance.  Python float constants
 are rounded to float32 by PyTorch's type promotion, as JAX's weak typing
 does.
 """

@@ -44,13 +44,14 @@ from .colorspace import rgb_to_hsv, u8_to_unit_f32
 from .fixed_point import from_fixed, to_fixed
 from .quantize import ParentAssignment, OctreeTables, assign_cells, \
     candidate_slots
-from .stats import reciprocal_f32
+from .stats import fma_f32, reciprocal_f32
 
 _RGB_DTYPES = (torch.float32, torch.uint8)
 # Pixels per step of the plain K4/K10 tie-break (its (P, q) temporaries)
-# and of the plain K14 (its (P, C) temporaries).
-_CHUNK_PX = 1 << 22
-_CWIDE_CHUNK_PX = 1 << 20
+# and of the plain K14 (its (P, C) temporaries), float64 in the distance's
+# FMAs.
+_CHUNK_PX = 1 << 20
+_CWIDE_CHUNK_PX = 1 << 18
 # K14's mask value for slots outside a cell's allowed row: finite, as in
 # the JAX kernel (pallas_kernels._BIG), so an empty row picks slot 0.
 _BIG = 3.0e38
@@ -358,10 +359,12 @@ def palette_sums_by_k_rgb_q1(rgb, slot_of_cell, offset_of_cell, cfg):
 
 
 def _nearest_candidates(h, s, v, cells, cand, centers_by_k, c: int):
-    """Per pixel, the float32 distance to each of its cell's candidates in
-    the op order of the JAX package's pixel pass
-    (quantize.palette_pixel_sums); the first minimum wins.  Returns the
-    slot (B, P) and the hue offset 180 - centre hue of that slot."""
+    """Per pixel, the float32 distance to each of its cell's candidates as
+    jitted XLA computes the JAX package's pixel pass
+    (quantize.palette_pixel_sums): ``hd * hd + sd * sd + vd * vd``
+    contracted into ``fma(vd, vd, fma(sd, sd, hd * hd))``
+    (``stats.fma_f32``); the first minimum wins.  Returns the slot (B, P)
+    and the hue offset 180 - centre hue of that slot."""
     slots, offsets = [], []
     # One image and _CHUNK_PX pixels at a time bound the (P, q) temporaries.
     for i in range(h.shape[0]):
@@ -374,7 +377,7 @@ def _nearest_candidates(h, s, v, cells, cand, centers_by_k, c: int):
             hd = torch.where(hd > 180.0, 360.0 - hd, hd) * (1.0 / 360.0)
             sd = s[i, px][:, None] - ctr[..., 1]
             vd = v[i, px][:, None] - ctr[..., 2]
-            d = hd * hd + sd * sd + vd * vd
+            d = fma_f32(vd, vd, fma_f32(sd, sd, hd * hd))
             d = torch.where(cand_p < c, d, float("inf"))
             slot = torch.gather(cand_p, 1, d.argmin(dim=1, keepdim=True))[:, 0]
             slots.append(torch.where(cell < c, slot, c))
@@ -433,9 +436,9 @@ def palette_sums_by_k(h, s, v, cand, centers_by_k, cfg):
 def palette_sums_by_k_cwide_plain(h, s, v, allowed, centers_by_k, cfg):
     """Plain version of K14, the JAX kernel's formulation
     (pallas_kernels_cwide.py:63-87): the float32 distance of each pixel to
-    every slot's centre, masked by its cell's allowed row with a finite
-    big value, first minimum (slot 0 for an empty row), sums on the fixed
-    point; hue < 0 dropped."""
+    every slot's centre (``_nearest_candidates``'s two FMAs), masked by
+    its cell's allowed row with a finite big value, first minimum (slot 0
+    for an empty row), sums on the fixed point; hue < 0 dropped."""
     c = cfg.num_cells
     cells, real = _flat_hsv_cells(h, s, v, cfg)
     h = torch.where(real, h, 0.0)
@@ -452,7 +455,7 @@ def palette_sums_by_k_cwide_plain(h, s, v, allowed, centers_by_k, cfg):
             hd = torch.where(hd > 180.0, 360.0 - hd, hd) * (1.0 / 360.0)
             sd = s[i, px][:, None] - ctr[:, 1]
             vd = v[i, px][:, None] - ctr[:, 2]
-            d = hd * hd + sd * sd + vd * vd
+            d = fma_f32(vd, vd, fma_f32(sd, sd, hd * hd))
             d = torch.where(mask[i][torch.clamp(cell, max=c - 1)], d, _BIG)
             slot = d.argmin(dim=1)
             slots.append(torch.where(cell < c, slot, c))

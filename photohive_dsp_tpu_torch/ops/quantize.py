@@ -41,7 +41,7 @@ import torch
 
 from ..config import ReportConfig
 from .geometry import octree_geometry
-from .stats import div_const
+from .stats import div_const, fma_f32
 
 
 class OctreeTables(NamedTuple):
@@ -118,8 +118,12 @@ def assign_cells(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor,
 def saliency_f32(counts: torch.Tensor, s_v_f32: torch.Tensor,
                  cfg: ReportConfig) -> torch.Tensor:
     """Float32 replica of the C saliency (src/color_quantization.c:588-595):
-    (B, C) counts -> (B, C) f32."""
-    weight = cfg.quantity_weight + cfg.saturation_value_weight * s_v_f32
+    (B, C) counts -> (B, C) f32.  The weight is one FMA
+    (``stats.fma_f32``), as XLA contracts the JAX package's ``qw + svw *
+    s_v`` inside ``jax.jit``: rounded twice, it moves by an ulp on some
+    cells, and saliencies a few units apart can then swap in K2's order."""
+    weight = fma_f32(cfg.saturation_value_weight, s_v_f32,
+                     cfg.quantity_weight)
     return counts.to(torch.float32) * weight * 1000.0
 
 

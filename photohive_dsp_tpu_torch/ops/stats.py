@@ -21,6 +21,33 @@ def reciprocal_f32(n) -> np.float32:
     return np.float32(1.0) / np.float32(n)
 
 
+def fma_f32(a, b, c) -> torch.Tensor:
+    """float32 round(a * b + c) with one rounding, as XLA emits a float32
+    multiply-add it contracts (inside ``jax.jit`` on the CPU), on the
+    device of the tensor operands; Python scalars are taken as float32.
+
+    PyTorch has no float32 FMA that promises one rounding, so the sum runs
+    in float64: the product of two float32 values is exact there (48
+    bits), and the float64 sum rounds once more only where it lands on a
+    float32 midpoint that the exact sum misses.  There the exact remainder
+    (TwoSum) says which neighbour the exact sum is nearer.  Scalars stay
+    on the host (a scalar copied to the card would wait for its queue)."""
+    a, b, c = (x.double() if isinstance(x, torch.Tensor)
+               else float(np.float32(x)) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    p_part = s - c
+    rem = (p - p_part) + (c - (s - p_part))       # p + c == s + rem exactly
+    r = s.float()
+    rd = r.double()
+    toward_s = torch.where(rd < s, torch.inf, -torch.inf).float()
+    other = torch.nextafter(r, toward_s)
+    tie = ((rd + other.double()) * 0.5 == s) & (rem != 0)
+    nearer = torch.where(rem > 0, torch.maximum(r, other),
+                         torch.minimum(r, other))
+    return torch.where(tie, nearer, r)
+
+
 def div_const(x: torch.Tensor, n) -> torch.Tensor:
     """x / n for a constant n, computed as XLA lowers it: x times the
     float32 reciprocal of n.  The JAX package's results carry that rounding

@@ -41,8 +41,12 @@ def tables():
 
 
 def jax_assign(counts, total, tabs):
+    """The JAX package's parent assignment, its saliency jitted with the
+    tables as arguments, as get_report runs it (XLA contracts the weight
+    into an FMA; tables closed over would be folded unfused)."""
     jt = tabs[0]
-    sal = jax.vmap(lambda x: jq.saliency_f32(x, jt.s_v_f32, JCFG))(counts)
+    sal = jax.jit(jax.vmap(lambda x, sv: jq.saliency_f32(x, sv, JCFG),
+                           in_axes=(0, None)))(counts, jt.s_v_f32)
     order = jax.vmap(jq.margin_insertion_argsort)(sal)
     return sal, jax.vmap(lambda cnt, o: jq.parent_assignment_from_order(
         cnt, o, total, JCFG, jt))(counts, order)

@@ -159,8 +159,11 @@ def test_k15_plain_matches_jax_kernel():
 
 
 def jax_assign(counts, total, tabs):
-    sal = jax.vmap(lambda x: jq.saliency_f32(x, tabs[0].s_v_f32, JCFG))(
-        counts)
+    """The JAX package's parent assignment, its saliency jitted with the
+    tables as arguments, as get_report runs it (XLA contracts the weight
+    into an FMA)."""
+    sal = jax.jit(jax.vmap(lambda x, sv: jq.saliency_f32(x, sv, JCFG),
+                           in_axes=(0, None)))(counts, tabs[0].s_v_f32)
     order = jax.vmap(jq.margin_insertion_argsort)(sal)
     return jax.vmap(lambda cnt, o: jq.parent_assignment_from_order(
         cnt, o, total, JCFG, tabs[0]))(counts, order)
