@@ -33,6 +33,7 @@ from .models.pipeline import (ReportData, ReportTables, cached_tables,
                               jitted_full_report, resolve_device)
 from .ops.colorspace import crop_image, crop_pgm
 from .report import Report
+from .utils.profiling import span
 
 __version__ = "0.1.0"
 
@@ -86,25 +87,28 @@ def get_report(image, salient_characters=None, *,
 
     Returns None (with a message) on invalid input, like the reference's
     NULL-report path (core.py:476-478, src/utilities.c:64-87)."""
-    dev = resolve_device(device)
-    cfg = config if config is not None else ReportConfig(**knobs)
-    cfg.validate()
-    planar = _image_to_planar(image)
-    _, height, width = planar.shape
-    ok, msg = check_image_dims(height, width)
-    if not ok:
-        print(f"Failed to get report data: {msg}")
-        return None
+    with span("photohive.get_report"):
+        dev = resolve_device(device)
+        cfg = config if config is not None else ReportConfig(**knobs)
+        cfg.validate()
+        with span("photohive.entry.planar"):
+            planar = _image_to_planar(image)
+            if salient_characters is None:
+                box_arr = np.zeros((MAX_CROP_BOXES, 4), np.int32)
+                valid = np.zeros((MAX_CROP_BOXES,), bool)
+            else:
+                box_arr, valid = (np.asarray(a) for a in salient_characters)
+        _, height, width = planar.shape
+        ok, msg = check_image_dims(height, width)
+        if not ok:
+            print(f"Failed to get report data: {msg}")
+            return None
 
-    if salient_characters is None:
-        box_arr = np.zeros((MAX_CROP_BOXES, 4), np.int32)
-        valid = np.zeros((MAX_CROP_BOXES,), bool)
-    else:
-        box_arr, valid = (np.asarray(a) for a in salient_characters)
-    tables = cached_tables(height, width, cfg, dev)
-    # uint8 frames travel to the device as uint8 (4x fewer bytes); the
-    # pipeline decodes them exactly.
-    rgb = torch.from_numpy(planar).to(dev)
-    data = full_report(rgb, box_arr, valid, tables, cfg)
-    return Report(data, height, width, num_boxes=int(valid.sum()),
-                  config=cfg)
+        tables = cached_tables(height, width, cfg, dev)
+        # uint8 frames travel to the device as uint8 (4x fewer bytes); the
+        # pipeline decodes them exactly.
+        with span("photohive.h2d"):
+            rgb = torch.from_numpy(planar).to(dev)
+        data = full_report(rgb, box_arr, valid, tables, cfg)
+        return Report(data, height, width, num_boxes=int(valid.sum()),
+                      config=cfg)

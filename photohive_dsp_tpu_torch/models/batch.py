@@ -32,6 +32,7 @@ import torch
 
 from ..config import MAX_CROP_BOXES, ReportConfig
 from ..ops.fft_plan import FftPlan, fft_kernel_eligible
+from ..utils.profiling import span
 from .pipeline import (ReportData, cached_tables, full_report_batched,
                        resolve_device)
 
@@ -123,7 +124,8 @@ class BatchRunner:
         h, w = x.shape[1:3] if u8 else x.shape[2:]
         boxes, boxes_valid = self._norm_boxes(b, boxes, boxes_valid)
         if self.mesh is None:
-            x = x.to(self.device, non_blocking=True)
+            with span("photohive.h2d"):
+                x = x.to(self.device, non_blocking=True)
             x = x.permute(0, 3, 1, 2) if u8 else x
             tables = cached_tables(h, w, self.cfg, self.device)
             return full_report_batched(x.contiguous(), boxes, boxes_valid,
@@ -170,11 +172,12 @@ class BatchRunner:
             return
         side = torch.cuda.Stream(self.device)
         for images_u8, boxes, valid in batches:
-            host = torch.as_tensor(images_u8).pin_memory()
-            with torch.cuda.stream(side):
-                x = host.to(self.device, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(side)
+            with span("photohive.h2d"):
+                host = torch.as_tensor(images_u8).pin_memory()
+                with torch.cuda.stream(side):
+                    x = host.to(self.device, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(side)
             yield x, boxes, valid, ready
 
     def run_stream_u8(self, batches, prefetch: int = 0)\
@@ -292,16 +295,21 @@ def run_corpus(images: Iterable[Tuple[object, np.ndarray]],
             else batch_size
 
     def flush(group, size):
-        arr = np.stack([img for _, img in group])
-        if len(group) < size:
-            arr = _pad_tail(arr, size - len(group))
+        with span("photohive.corpus.stack"):
+            arr = np.stack([img for _, img in group])
+            if len(group) < size:
+                arr = _pad_tail(arr, size - len(group))
         if arr.dtype == np.uint8:
             out = runner.run_u8(arr)
         else:
             out = runner.run(arr.astype(np.float32))
-        host = ReportData(*(x.cpu() for x in out))
-        for j, (key, _) in enumerate(group):
-            yield key, ReportData(*(x[j] for x in host))
+        with span("photohive.d2h"):
+            host = ReportData(*(x.cpu() for x in out))
+        # Split before yielding: a span must not hold the consumer's time.
+        with span("photohive.corpus.split"):
+            rows = [(key, ReportData(*(x[j] for x in host)))
+                    for j, (key, _) in enumerate(group)]
+        yield from rows
 
     for key, img in images:
         bkey = _bucket_key(img)

@@ -38,6 +38,7 @@ from ..ops.quantize import (OctreeTables, color_palette_batched,
 from ..ops.sharpness import variance_sharpness_batched
 from ..ops.stats import blur_dc, div_const, mean_saturation, \
     rgb_statistics
+from ..utils.profiling import span
 
 
 class ReportData(NamedTuple):
@@ -123,51 +124,60 @@ def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
     RGB palette routes, from one scalar of the palette's tie structure
     copied from the device.  So ``torch.export`` traces the whole function
     (``serving.export_report``)."""
-    variant = palette_kernel_variant()
-    # On the bf16 route uint8 frames feed the palette kernels directly when
-    # no decimation is configured (in-kernel x/255, bit-identical to the
-    # float planes); the candidate and cwide routes take the float planes.
-    pal_in = rgb
-    if rgb.dtype == torch.uint8:
-        rgb = u8_to_unit_f32(rgb)
-    if variant != "bf16" or pal_in.dtype != torch.uint8 \
-            or cfg.downsample_rate != 1:
-        pal_in = downsample_rgb(rgb, cfg.downsample_rate)
-    if variant == "cwide":
-        # Flat HSV planes (12 B a pixel), K9 and K14.
-        h, s, v = rgb_to_hsv(pal_in[:, 0], pal_in[:, 1], pal_in[:, 2])
-        s_bar = mean_saturation(s)
-        palette = color_palette_batched(h, s, v, cfg, tables.octree, variant)
-    else:
-        pal_in = pal_in.contiguous()
-        palette, s_sum = color_palette_batched_from_rgb(pal_in, cfg,
-                                                        tables.octree)
-        s_bar = div_const(s_sum, pal_in.shape[2] * pal_in.shape[3])
+    with span("photohive.pipeline"):
+        variant = palette_kernel_variant()
+        # On the bf16 route uint8 frames feed the palette kernels directly
+        # when no decimation is configured (in-kernel x/255, bit-identical
+        # to the float planes); the candidate and cwide routes take the
+        # float planes.
+        with span("photohive.stage.decode"):
+            pal_in = rgb
+            if rgb.dtype == torch.uint8:
+                rgb = u8_to_unit_f32(rgb)
+            if variant != "bf16" or pal_in.dtype != torch.uint8 \
+                    or cfg.downsample_rate != 1:
+                pal_in = downsample_rgb(rgb, cfg.downsample_rate)
+        with span("photohive.stage.palette"):
+            if variant == "cwide":
+                # Flat HSV planes (12 B a pixel), K9 and K14.
+                h, s, v = rgb_to_hsv(pal_in[:, 0], pal_in[:, 1], pal_in[:, 2])
+                s_bar = mean_saturation(s)
+                palette = color_palette_batched(h, s, v, cfg, tables.octree,
+                                                variant)
+            else:
+                pal_in = pal_in.contiguous()
+                palette, s_sum = color_palette_batched_from_rgb(
+                    pal_in, cfg, tables.octree)
+                s_bar = div_const(s_sum, pal_in.shape[2] * pal_in.shape[3])
 
-    pgm = rgb_to_pgm(rgb[:, 0], rgb[:, 1], rgb[:, 2])
-    stats = rgb_statistics(rgb)
-    sharp = variance_sharpness_batched(pgm, boxes, boxes_valid)
+        with span("photohive.stage.stats"):
+            pgm = rgb_to_pgm(rgb[:, 0], rgb[:, 1], rgb[:, 2])
+            stats = rgb_statistics(rgb)
+        with span("photohive.stage.sharpness"):
+            sharp = variance_sharpness_batched(pgm, boxes, boxes_valid)
 
-    dc = blur_dc(stats)
-    pgm_dc = pgm - dc[:, None, None]
-    h, w = pgm_dc.shape[1:]
-    if fft_kernel_eligible(h, w):
-        bins = blur_bins_lognorm(pgm_dc,
-                                 FftPlan.for_shape(h, w, pgm_dc.device),
-                                 tables.polar, cfg.angle_partitions,
-                                 cfg.radius_partitions)
-    else:
-        bins = blur_profile_bins(magnitude_fft_normalized(pgm_dc),
-                                 tables.polar, cfg.angle_partitions,
-                                 cfg.radius_partitions)
-    angles, mags = vectorize_blur_profile(bins, cfg)
+        with span("photohive.stage.blur"):
+            dc = blur_dc(stats)
+            pgm_dc = pgm - dc[:, None, None]
+            h, w = pgm_dc.shape[1:]
+            if fft_kernel_eligible(h, w):
+                plan = FftPlan.for_shape(h, w, pgm_dc.device)
+                bins = blur_bins_lognorm(pgm_dc, plan, tables.polar,
+                                         cfg.angle_partitions,
+                                         cfg.radius_partitions)
+            else:
+                bins = blur_profile_bins(magnitude_fft_normalized(pgm_dc),
+                                         tables.polar, cfg.angle_partitions,
+                                         cfg.radius_partitions)
+        with span("photohive.stage.vectors"):
+            angles, mags = vectorize_blur_profile(bins, cfg)
 
-    return ReportData(
-        rgb_stats=stats, average_saturation=s_bar,
-        palette_hsv=palette.hsv, palette_pct=palette.percentages,
-        palette_n=palette.n_valid, palette_ids=palette.parent_ids,
-        sharpness=sharp, blur_bins=bins,
-        blur_vector_angles=angles, blur_vector_mags=mags)
+        return ReportData(
+            rgb_stats=stats, average_saturation=s_bar,
+            palette_hsv=palette.hsv, palette_pct=palette.percentages,
+            palette_n=palette.n_valid, palette_ids=palette.parent_ids,
+            sharpness=sharp, blur_bins=bins,
+            blur_vector_angles=angles, blur_vector_mags=mags)
 
 
 def full_report(rgb: torch.Tensor, boxes, boxes_valid, tables: ReportTables,

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..config import ReportConfig
+from ..utils.profiling import span
 from .geometry import octree_geometry
 from .stats import div_const, fma_f32
 
@@ -224,7 +225,8 @@ def palette_tier(counts: torch.Tensor, assign: ParentAssignment,
     q_needed = torch.where(counts > 0, ncand, 0).amax()
     width = torch.where(q_needed <= 1, 1,
                         torch.where(q_needed <= q_small, q_small, q_full))
-    return width.cpu()
+    with span("photohive.d2h"):
+        return width.cpu()
 
 
 PALETTE_KERNEL_VARIANTS = ("bf16", "candidate", "cwide")

@@ -74,7 +74,9 @@ def box_crops(pgm, boxes, halo=None, row_offset: int = 0):
     """For each (image, slot) whose box meets the rows handed in, yield
     (i, k, xc, resp, wgt): the box's pixels on these rows (rows, cols)
     float32, their masked-crop Laplacian response and their ring weights
-    9 - rows_in * cols_in, in the kernel's operation order."""
+    9 - rows_in * cols_in, in the kernel's operation order.  ``boxes``:
+    K5's (B, K, 4) boxes, read on the host (a device tensor is copied
+    back, a read the host waits for)."""
     b, h, w = pgm.shape
     if halo is None:
         halo = pgm.new_zeros((b, 2, w))

@@ -20,6 +20,7 @@ import torch.distributed as dist
 from ..config import ReportConfig
 from ..models.pipeline import (ReportData, cached_tables, full_report_batched,
                                resolve_device)
+from ..utils.profiling import span
 from .mesh import Mesh
 
 
@@ -35,7 +36,8 @@ def gather_reports(local: ReportData, group) -> ReportData:
                        for x in local], dim=1)
     parts = [torch.empty_like(words)
              for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, words, group=group)
+    with span("photohive.collective.all_gather"):
+        dist.all_gather(parts, words, group=group)
     words = torch.cat(parts)
     fields, at = [], 0
     for x in local:
@@ -64,7 +66,9 @@ def _data_parallel(height: int, width: int, cfg: ReportConfig, mesh: Mesh,
     def fn(batch, boxes, valid, tables) -> ReportData:
         batch = torch.as_tensor(batch)
         rows = _local_slice(mesh, batch.shape[0])
-        x = planar_of(batch[rows].to(dev))
+        with span("photohive.h2d"):
+            x = batch[rows].to(dev)
+        x = planar_of(x)
         local = full_report_batched(x, torch.as_tensor(boxes)[rows].cpu(),
                                     torch.as_tensor(valid)[rows].cpu(),
                                     tables, cfg)

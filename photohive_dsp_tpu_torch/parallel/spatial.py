@@ -54,9 +54,16 @@ from ..ops.quantize import (OctreeTables, PaletteResult,
 from ..ops.sharpness import finish_sharpness, thin_boxes
 from ..ops.sharpness_kernels import box_crops, box_tensor, sharpness_sums
 from ..ops.stats import blur_dc, div_const
+from ..utils.profiling import span
 from .sharding import gather_reports
 
 SUM = dist.ReduceOp.SUM
+
+
+def _all_reduce(x: torch.Tensor, op, group) -> None:
+    """``dist.all_reduce`` of ``x`` in place over ``group``, in its span."""
+    with span("photohive.collective.all_reduce"):
+        dist.all_reduce(x, op, group=group)
 
 
 class ShardedPolarTables(NamedTuple):
@@ -101,7 +108,8 @@ def own_rows(x: torch.Tensor, rank: int, rows: int,
              device: torch.device) -> torch.Tensor:
     """(3, H, W) whole image, uint8 or float32 in [0, 1] -> (3, rows, W)
     float32 on ``device``: rows rank*rows onwards, zero rows past H."""
-    part = x[:, rank * rows:(rank + 1) * rows].to(device)
+    with span("photohive.h2d"):
+        part = x[:, rank * rows:(rank + 1) * rows].to(device)
     part = u8_to_unit_f32(part) if part.dtype == torch.uint8 else part.float()
     pad = rows - part.shape[1]
     if pad:
@@ -117,13 +125,13 @@ def rgb_stats(rgb_local: torch.Tensor, row_offset: int, height: int,
     total = height * width
     local_h = rgb_local.shape[1]
     sums = rgb_local.sum(dim=(1, 2), dtype=torch.float64)
-    dist.all_reduce(sums, SUM, group=group)
+    _all_reduce(sums, SUM, group)
     means = (sums / total).float()
     real_rows = (row_offset
                  + torch.arange(local_h, device=rgb_local.device)) < height
     dev2 = (torch.square(rgb_local - means[:, None, None])
             * real_rows[:, None]).sum(dim=(1, 2), dtype=torch.float64)
-    dist.all_reduce(dev2, SUM, group=group)
+    _all_reduce(dev2, SUM, group)
     return torch.cat([means, torch.sqrt(dev2 / total).float()])
 
 
@@ -146,7 +154,8 @@ def halo_rows(x: torch.Tensor, group) -> torch.Tensor:
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     edges = torch.stack([x[0], x[-1]])
     gathered = [torch.empty_like(edges) for _ in range(n)]
-    dist.all_gather(gathered, edges, group=group)
+    with span("photohive.collective.all_gather"):
+        dist.all_gather(gathered, edges, group=group)
     zero = torch.zeros_like(x[0])
     return torch.stack([gathered[rank - 1][1] if rank > 0 else zero,
                         gathered[rank + 1][0] if rank < n - 1 else zero])
@@ -172,10 +181,11 @@ def _sharded_sharpness(pgm_local: torch.Tensor, boxes: np.ndarray,
         return torch.zeros(boxes_valid.shape, dtype=torch.float32, device=dev)
     halo = halo_rows(pgm_local, group)[None].contiguous()
     pgm = pgm_local[None].contiguous()
-    bt = box_tensor(boxes[None], boxes_valid[None], dev)
+    host_bt = box_tensor(boxes[None], boxes_valid[None], "cpu")
+    bt = host_bt.to(dev)
     s1, s2 = sharpness_sums(pgm, bt, halo, row_offset)
     sums = torch.stack([s1, s2], dim=-1)
-    dist.all_reduce(sums, SUM, group=group)
+    _all_reduce(sums, SUM, group)
     s1, s2 = sums[..., 0], sums[..., 1]
     if not any_tiny:
         return finish_sharpness(s1, s2, boxes[None], boxes_valid[None])[0]
@@ -185,9 +195,9 @@ def _sharded_sharpness(pgm_local: torch.Tensor, boxes: np.ndarray,
     n = torch.clamp(area, min=1).float()
     mean = s1[0].float() / n
     dev2 = torch.zeros(boxes_valid.shape, dtype=torch.float64, device=dev)
-    for _, k, _, resp, _ in box_crops(pgm, bt, halo, row_offset):
+    for _, k, _, resp, _ in box_crops(pgm, host_bt, halo, row_offset):
         dev2[k] = torch.square(resp - mean[k]).double().sum()
-    dist.all_reduce(dev2, SUM, group=group)
+    _all_reduce(dev2, SUM, group)
     var = dev2.float() / n
     return torch.where(torch.as_tensor(boxes_valid, device=dev), var / mean,
                        torch.zeros_like(mean))
@@ -207,7 +217,8 @@ def power_spectrum(pgm_local: torch.Tensor, dc: torch.Tensor, wc: int,
     send = torch.view_as_real(spec).reshape(lh, n, wc, 2).transpose(0, 1)
     send = send.contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    with span("photohive.collective.all_to_all"):
+        dist.all_to_all_single(recv, send, group=group)
     # Row r of the stacked chunks is image row r; the padded rows go.
     cols = torch.view_as_complex(recv.reshape(n * lh, wc, 2))[:height]
     col_spec = torch.fft.fft(cols, dim=0)
@@ -225,8 +236,8 @@ def _sharded_blur_bins(pgm_local: torch.Tensor, dc: torch.Tensor,
     a, r = cfg.angle_partitions, cfg.radius_partitions
     # The kernel's pass gives the rank's maximum beside its sums.
     acc, mx = polar_bin_sums_lognorm(mag2, flat_ids, a * r, fixed=True)
-    dist.all_reduce(mx, dist.ReduceOp.MAX, group=group)
-    dist.all_reduce(acc, SUM, group=group)
+    _all_reduce(mx, dist.ReduceOp.MAX, group)
+    _all_reduce(acc, SUM, group)
     return bin_means(from_fixed(acc) * lognorm_gain(mx)[:, None],
                      bin_counts, a, r)[0]
 
@@ -258,7 +269,7 @@ def sharded_palette(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor,
     alone bit for bit (the sums are exact, and a wider tier finds the same
     first-minimum parent)."""
     acc = pk.cell_counts_from_hsv(h, s, v, cfg)
-    dist.all_reduce(acc, SUM, group=group)
+    _all_reduce(acc, SUM, group)
     counts, s_sum = pk.counts_s_from_fixed(acc)
     s_bar = div_const(s_sum, d_total)
     order = margin_sort(saliency_f32(counts, octree.s_v_f32, cfg))
@@ -266,7 +277,7 @@ def sharded_palette(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor,
                                           octree)
     acc = palette_sums_by_k_auto(h, s, v, assign, counts, cfg, octree,
                                  variant)
-    dist.all_reduce(acc, SUM, group=group)
+    _all_reduce(acc, SUM, group)
     return palette_finalize_by_k(pk.palette_sums_from_fixed(acc), assign,
                                  d_total, octree), s_bar
 
@@ -296,44 +307,51 @@ def spatial_report_body(rgb_local: torch.Tensor, down_local: torch.Tensor,
     With ``defer_palette`` the palette is not computed: returns (the
     report with zeros for the palette and mean saturation,
     DeferredPalette), and the caller runs ``sharded_palette``."""
-    rank = dist.get_rank(group)
-    boxes = np.asarray(boxes, np.int64)
-    boxes_valid = np.asarray(boxes_valid, bool)
-    rate = cfg.downsample_rate
-    d_h = height // rate if rate > 1 else height
-    d_total = d_h * (width // rate if rate > 1 else width)
-    row_offset = rank * rgb_local.shape[1]
-    stats = rgb_stats(rgb_local, row_offset, height, width, group)
+    with span("photohive.pipeline"):
+        rank = dist.get_rank(group)
+        boxes = np.asarray(boxes, np.int64)
+        boxes_valid = np.asarray(boxes_valid, bool)
+        rate = cfg.downsample_rate
+        d_h = height // rate if rate > 1 else height
+        d_total = d_h * (width // rate if rate > 1 else width)
+        row_offset = rank * rgb_local.shape[1]
+        with span("photohive.stage.stats"):
+            stats = rgb_stats(rgb_local, row_offset, height, width, group)
+            pgm = rgb_to_pgm(rgb_local[0], rgb_local[1], rgb_local[2])
 
-    deferred = DeferredPalette(*masked_hsv(down_local, rank, d_h))
-    if defer_palette:
-        c = cfg.num_cells
-        dev = rgb_local.device
-        s_bar = torch.zeros((1,), dtype=torch.float32, device=dev)
-        palette = PaletteResult(
-            hsv=torch.zeros((1, c, 3), device=dev),
-            percentages=torch.zeros((1, c), device=dev),
-            n_valid=torch.zeros((1,), dtype=torch.int32, device=dev),
-            parent_ids=torch.zeros((1, c), dtype=torch.int32, device=dev))
-    else:
-        palette, s_bar = sharded_palette(*deferred, d_total, cfg, octree,
-                                         group, variant)
+        with span("photohive.stage.palette"):
+            deferred = DeferredPalette(*masked_hsv(down_local, rank, d_h))
+            if defer_palette:
+                c = cfg.num_cells
+                dev = rgb_local.device
+                s_bar = torch.zeros((1,), dtype=torch.float32, device=dev)
+                palette = PaletteResult(
+                    hsv=torch.zeros((1, c, 3), device=dev),
+                    percentages=torch.zeros((1, c), device=dev),
+                    n_valid=torch.zeros((1,), dtype=torch.int32, device=dev),
+                    parent_ids=torch.zeros((1, c), dtype=torch.int32,
+                                           device=dev))
+            else:
+                palette, s_bar = sharded_palette(*deferred, d_total, cfg,
+                                                 octree, group, variant)
 
-    pgm = rgb_to_pgm(rgb_local[0], rgb_local[1], rgb_local[2])
-    sharp = _sharded_sharpness(pgm, boxes, boxes_valid, row_offset, group,
-                               any_tiny, any_valid)
+        with span("photohive.stage.sharpness"):
+            sharp = _sharded_sharpness(pgm, boxes, boxes_valid, row_offset,
+                                       group, any_tiny, any_valid)
 
-    dc = blur_dc(stats)
-    bins = _sharded_blur_bins(pgm, dc, flat_ids, bin_counts, wc, height,
-                              width, cfg, group)
-    angles, mags = vectorize_blur_profile(bins[None], cfg)
-    data = ReportData(
-        rgb_stats=stats, average_saturation=s_bar[0],
-        palette_hsv=palette.hsv[0], palette_pct=palette.percentages[0],
-        palette_n=palette.n_valid[0], palette_ids=palette.parent_ids[0],
-        sharpness=sharp, blur_bins=bins,
-        blur_vector_angles=angles[0], blur_vector_mags=mags[0])
-    return (data, deferred) if defer_palette else data
+        with span("photohive.stage.blur"):
+            dc = blur_dc(stats)
+            bins = _sharded_blur_bins(pgm, dc, flat_ids, bin_counts, wc,
+                                      height, width, cfg, group)
+        with span("photohive.stage.vectors"):
+            angles, mags = vectorize_blur_profile(bins[None], cfg)
+        data = ReportData(
+            rgb_stats=stats, average_saturation=s_bar[0],
+            palette_hsv=palette.hsv[0], palette_pct=palette.percentages[0],
+            palette_n=palette.n_valid[0], palette_ids=palette.parent_ids[0],
+            sharpness=sharp, blur_bins=bins,
+            blur_vector_angles=angles[0], blur_vector_mags=mags[0])
+        return (data, deferred) if defer_palette else data
 
 
 class _RowShard:
@@ -438,9 +456,10 @@ def build_dp_spatial_report(mesh, batch: int, height: int, width: int,
         reports, hsv = zip(*(shard.body(rgb[first + i], boxes[i], valid[i],
                                         variant, **route)
                              for i in range(per)))
-        palette, s_bar = sharded_palette(
-            *(torch.cat(x) for x in zip(*hsv)), shard.d_total, cfg,
-            shard.octree, mesh.spatial_group, variant)
+        with span("photohive.pipeline"), span("photohive.stage.palette"):
+            palette, s_bar = sharded_palette(
+                *(torch.cat(x) for x in zip(*hsv)), shard.d_total, cfg,
+                shard.octree, mesh.spatial_group, variant)
         local = ReportData(*(torch.stack(x) for x in zip(*reports)))._replace(
             average_saturation=s_bar, palette_hsv=palette.hsv,
             palette_pct=palette.percentages, palette_n=palette.n_valid,

@@ -13,6 +13,7 @@ from types import SimpleNamespace
 import numpy as np
 
 from .models.pipeline import ReportData
+from .utils.profiling import span
 
 MAX_COLOR_ENTRIES = 100
 MAX_VECTOR_ENTRIES = 10
@@ -51,7 +52,11 @@ class Report:
 
     def __init__(self, data: ReportData, height: int, width: int,
                  num_boxes: int = 0, config=None):
-        data = _to_numpy(data)
+        with span("photohive.entry.report"):
+            self._fill(_to_numpy(data), height, width, num_boxes, config)
+
+    def _fill(self, data: ReportData, height: int, width: int,
+              num_boxes: int, config) -> None:
         self.config = config
         stats = data.rgb_stats
         self.rgb_stats = SimpleNamespace(
@@ -176,7 +181,8 @@ class Report:
 
     def to_json(self) -> str:
         """Fixed-width flat schema (reference core.py:388-436)."""
-        return json.dumps(self.to_dict(), indent=4)
+        with span("photohive.to_json"):
+            return json.dumps(self.to_dict(), indent=4)
 
     def to_dict(self) -> dict:
         """The 439-key schema as a plain dict (what to_json serializes).
@@ -214,5 +220,6 @@ class Report:
 
 
 def _to_numpy(data: ReportData) -> ReportData:
-    return ReportData(*(x.detach().cpu().numpy() if hasattr(x, "detach")
-                        else np.asarray(x) for x in data))
+    with span("photohive.d2h"):
+        return ReportData(*(x.detach().cpu().numpy() if hasattr(x, "detach")
+                            else np.asarray(x) for x in data))

@@ -5,6 +5,16 @@ The reference wraps every pipeline stage in printf wall-clock timers
 (START_TIMING/END_TIMING, src/utilities.h:10-18, used throughout
 src/interface.c:38-92).  Here:
 
+  * ``span``: a named range inside the program (``SPANS`` lists every
+    name: the entry point, the corpus layer's staging, the pipeline and
+    its stages, the copies to and from the device, the collectives).
+    Under ``torch.profiler`` it is ``record_function``, a
+    ``user_annotation`` range on the same timeline as the device's kernels
+    and copies, so a trace charges each interval the device sat idle to
+    the span the host was in.  With the profiler off, and while
+    ``torch.export`` or ``torch.compile`` traces, it returns one shared
+    no-op context after reading one flag: it costs the program nothing
+    else and leaves an exported graph as it was;
   * ``stage_timings``: each stage of the report run on its own, warm, and
     timed with CUDA events on the card (``perf_counter`` on the CPU),
     under the reference transcript's labels (README.md:63-75).  A stage's
@@ -13,7 +23,12 @@ src/interface.c:38-92).  Here:
   * ``trace``: a ``torch.profiler`` trace of a block (CPU and CUDA
     activities) written as a Chrome trace.  The kernels appear in it under
     their operator names (``photohive::margin_sort``, ...,
-    ops/library.py).
+    ops/library.py), inside the spans.
+
+Span names start with ``photohive.``, never with ``photohive::``: a kernel
+belongs to the outermost ``photohive::`` range that launched it, and the
+spans sit outside the operators.  A span never holds a ``yield``, so a
+generator's consumer is never charged to the program.
 
     python -m photohive_dsp_tpu_torch.utils.profiling [H W B [device]]
 """
@@ -27,8 +42,40 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..config import MAX_CROP_BOXES, ReportConfig
+
+# Every span the program opens, by layer.
+SPANS = (
+    # entry: get_report and the report's JSON
+    "photohive.get_report", "photohive.entry.planar",
+    "photohive.entry.report", "photohive.to_json",
+    # corpus: run_corpus's staging around each batch
+    "photohive.corpus.stack", "photohive.corpus.split",
+    # copies: a frame to the device; a device read the host waits for
+    "photohive.h2d", "photohive.d2h",
+    # pipeline: full_report_batched, the row-sharded body, their stages
+    "photohive.pipeline", "photohive.stage.decode",
+    "photohive.stage.palette", "photohive.stage.stats",
+    "photohive.stage.sharpness", "photohive.stage.blur",
+    "photohive.stage.vectors",
+    # parallel: each torch.distributed call
+    "photohive.collective.all_gather", "photohive.collective.all_to_all",
+    "photohive.collective.all_reduce",
+)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The context ``with span(name):`` opens: ``record_function(name)``
+    while a profiler records (the autograd profiler's module flag) and
+    nothing traces the program, else one shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled \
+            or torch.compiler.is_compiling():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def _sync(device: torch.device) -> None:

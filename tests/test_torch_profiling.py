@@ -1,7 +1,8 @@
 """photohive_dsp_tpu_torch/utils/profiling.py on the CPU, at a tiny shape:
 ``stage_timings`` returns the JAX package's stage names
 (photohive_dsp_tpu/utils/profiling.py:83-111) with positive times, and
-``trace`` writes a Chrome trace in which the kernels' operators appear."""
+``trace`` writes a Chrome trace in which the kernels' operators and the
+program's ``photohive.`` spans appear."""
 
 import json
 
@@ -30,4 +31,10 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     names = {e.get("name") for e in events}
     assert {"photohive::cell_counts_s", "photohive::margin_sort",
             "photohive::fft_rows", "photohive::polar_lognorm"} <= names
+    assert {"photohive.get_report", "photohive.entry.planar",
+            "photohive.h2d", "photohive.pipeline", "photohive.stage.palette",
+            "photohive.stage.blur", "photohive.d2h",
+            "photohive.entry.report"} <= names
+    assert {n for n in names if n and n.startswith("photohive.")} <= \
+        set(profiling.SPANS)
     assert any(e.key == "photohive::fft_cols" for e in prof.key_averages())

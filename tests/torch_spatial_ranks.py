@@ -6,6 +6,7 @@ ranks start fast."""
 
 from __future__ import annotations
 
+import json
 import multiprocessing
 import time
 import uuid
@@ -17,6 +18,7 @@ import torch.distributed as dist
 
 from photohive_dsp_tpu_torch.config import ReportConfig
 from photohive_dsp_tpu_torch.parallel import mesh, sharding, spatial
+from photohive_dsp_tpu_torch.utils import profiling
 
 # Each rank's collectives give up after this long; the parent kills ranks
 # still alive after RANKS_TIMEOUT_S, so a hung collective fails one test.
@@ -122,6 +124,33 @@ def mesh_main_2(rank: int, world: int, rendezvous: str, out: str,
                                 device="cpu")
         np.savez(out, masked=len(masked), n_host=n_host, n_mesh=n_mesh,
                  **_arrays(dps=dps, thin=thin, **corpus))
+    finally:
+        dist.destroy_process_group()
+
+
+def traced_mesh_main(rank: int, world: int, rendezvous: str, out: str,
+                     cfg: ReportConfig, rgb, boxes, valid,
+                     trace_dir: str) -> None:
+    """build_dp_spatial_report of (rgb, boxes, valid) on a data=1 x
+    spatial=2 mesh under ``profiling.trace``; saves the program's spans of
+    the main thread: their names ("names") and [start, end] in us
+    ("times")."""
+    _join(rank, world, rendezvous)
+    try:
+        m = mesh.make_mesh(data=1, spatial=2,
+                           timeout_s=COLLECTIVE_TIMEOUT_S)
+        b, _, h, w = rgb.shape
+        fn = spatial.build_dp_spatial_report(m, b, h, w, cfg, "cpu")
+        log_dir = f"{trace_dir}/rank{rank}"
+        with profiling.trace(log_dir):
+            fn(rgb, boxes, valid)
+        with open(f"{log_dir}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+        spans = [e for e in events if e.get("cat") == "user_annotation"
+                 and e["name"].startswith("photohive.")]
+        np.savez(out, names=np.array([e["name"] for e in spans]),
+                 times=np.array([[e["ts"], e["ts"] + e["dur"]]
+                                 for e in spans], np.float64))
     finally:
         dist.destroy_process_group()
 
