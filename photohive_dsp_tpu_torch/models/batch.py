@@ -5,11 +5,14 @@ The reference processes one image per call (src/interface.c:20); the
 throughput comes from running same-shape images as one batch through
 ``full_report_batched``.  Mixed-resolution corpora are grouped into shape
 buckets, and a bucket's partial batch is padded up to the batch size with
-copies of its last image, whose reports are dropped.  PyTorch runs eagerly,
-so there is no compiled program to cache: what is built once per
-(H, W, config, device) is the tables (``pipeline.cached_tables``) and the
-FFT plan (``FftPlan.for_shape``).  The palette route follows
-``PHOTOHIVE_PALETTE_KERNEL``, read at each batch.
+copies of its last image, whose reports are dropped.  ``run_corpus``
+stages each batch in a host buffer that is page-locked on CUDA and reused
+from batch to batch, so its copy to the card is an asynchronous DMA.
+PyTorch runs eagerly, so there is no compiled program to cache: what is
+built once per (H, W, config, device) is the tables
+(``pipeline.cached_tables``) and the FFT plan (``FftPlan.for_shape``).
+The palette route follows ``PHOTOHIVE_PALETTE_KERNEL``, read at each
+batch.
 
 With a mesh (``parallel.mesh.make_mesh``: process groups, one process per
 rank, every rank running the same calls on the same inputs) a batch is
@@ -266,6 +269,30 @@ def bucket_by_shape(items: Iterable[Tuple[object, np.ndarray]])\
     return dict(buckets)
 
 
+def _stage(group, size: int, device: torch.device) -> torch.Tensor:
+    """``group``'s images, one a slot, in a (size, ...) host batch whose
+    tail slots repeat the last image: uint8 for uint8 images, float32 for
+    float ones.  For a CUDA ``device`` the batch is page-locked, from the
+    caching host allocator, so its copy to the card is a DMA that
+    ``BatchRunner._run`` need not wait for; after the first batch of a
+    size the allocator hands back the same block, with no allocation,
+    page fault or zero fill.
+
+    The block is handed out again only once the event that the
+    non-blocking copy in ``_run`` records on it has completed: that event
+    guards the reuse.  (The mesh's copies, ``sharding._data_parallel`` and
+    ``spatial.own_rows``, block until done; the report read-back in
+    ``run_corpus`` waits for the copy too, but the reuse does not rest on
+    it.)"""
+    frames = [torch.as_tensor(img) for _, img in group]
+    frames += frames[-1:] * (size - len(frames))
+    dtype = torch.uint8 if frames[0].dtype == torch.uint8 else torch.float32
+    buf = torch.empty((size, *frames[0].shape), dtype=dtype,
+                      pin_memory=device.type == "cuda")
+    # One stack into the slots: the copy runs on all intra-op threads.
+    return torch.stack(frames, out=buf)
+
+
 def run_corpus(images: Iterable[Tuple[object, np.ndarray]],
                cfg: ReportConfig, mesh=None, batch_size: int = 32,
                spatial_route_mp: float = SPATIAL_ROUTE_MP, device="cuda")\
@@ -275,7 +302,10 @@ def run_corpus(images: Iterable[Tuple[object, np.ndarray]],
     Images, (H, W, 3) uint8 or (3, H, W) float, accumulate into per-shape
     buckets; a bucket runs as soon as it holds ``batch_size`` images, and
     the remainders at the end of the stream, padded with copies of their
-    last image.  Memory stays O(number of shapes x batch_size).  Yields
+    last image.  Memory stays O(number of shapes x batch_size).  A batch
+    is copied frame by frame into its slots of one host buffer
+    (``_stage``), page-locked on CUDA and reused by the next batch of the
+    same size, and sent to the device from there.  Yields
     (key, per-image ReportData) for the real images only, as CPU tensors:
     each batch's reports are copied to the host once.  With a ``mesh``
     every rank streams the same images and gets every report; images of
@@ -296,13 +326,9 @@ def run_corpus(images: Iterable[Tuple[object, np.ndarray]],
 
     def flush(group, size):
         with span("photohive.corpus.stack"):
-            arr = np.stack([img for _, img in group])
-            if len(group) < size:
-                arr = _pad_tail(arr, size - len(group))
-        if arr.dtype == np.uint8:
-            out = runner.run_u8(arr)
-        else:
-            out = runner.run(arr.astype(np.float32))
+            staged = _stage(group, size, runner.device)
+        out = runner.run_u8(staged) if staged.dtype == torch.uint8 \
+            else runner.run(staged)
         with span("photohive.d2h"):
             host = ReportData(*(x.cpu() for x in out))
         # Split before yielding: a span must not hold the consumer's time.

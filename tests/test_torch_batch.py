@@ -1,8 +1,9 @@
 """The port's batch layer (models/batch.py) on the CPU: BatchRunner against
 the JAX package's BatchRunner at 360x480 with a crop box, at the port's
 acceptance bars (tests/test_torch_pipeline.assert_match); run_corpus over
-two shapes with padded tails against the port's own get_report; the
-prefetching stream against the sequential one; warmup; the layout checks."""
+two shapes with padded tails against the port's own get_report, and over
+three against BatchRunner on the same frames stacked; the prefetching stream
+against the sequential one; warmup; the layout checks."""
 
 import threading
 import time
@@ -76,6 +77,48 @@ def test_run_corpus_pads_tails_and_matches_get_report():
         got = pt.Report(data, h, w, config=cfg)
         assert_match(report_fields(got),
                      report_fields(pt.get_report(img, device="cpu")))
+
+
+STAGE_SHAPES = [(H, W), (352, 400), (240, 320)]
+
+
+@pytest.mark.parametrize("layout", ["uint8", "float32"])
+def test_run_corpus_staging_matches_stacked_batches(layout):
+    """run_corpus, which copies each frame into its slot of a staging
+    buffer, against BatchRunner on np.stack of the same frames with the
+    tail padded by the last frame: bit for bit, over three shapes
+    interleaved and a short tail bucket.  The whole stream is collected
+    before any report is compared, and each report must still equal the
+    copy taken as it was yielded: none aliases the staging buffer."""
+    rng = np.random.default_rng(14)
+    items = []
+    for i in range(5):           # the last shape: a tail of one
+        h, w = STAGE_SHAPES[i % 3]
+        items.append((i, rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                      if layout == "uint8" else
+                      rng.random((3, h, w), dtype=np.float32)))
+    cfg = pt.ReportConfig()
+    out = [(key, data, [t.clone() for t in data]) for key, data in
+           tbatch.run_corpus(iter(items), cfg, batch_size=2, device="cpu")]
+    assert sorted(k for k, _, _ in out) == list(range(5))
+
+    def same(a, b):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+    runner = tbatch.BatchRunner(cfg, device="cpu")
+    entry = runner.run_u8 if layout == "uint8" else runner.run
+    got = {key: (data, copy) for key, data, copy in out}
+    for shape in STAGE_SHAPES:
+        keys = [k for k, img in items if tbatch.image_hw(img) == shape]
+        for first in range(0, len(keys), 2):
+            batch = keys[first:first + 2]
+            frames = [img for k, img in items if k in batch]
+            want = entry(np.stack(frames + frames[-1:] * (2 - len(frames))))
+            for j, key in enumerate(batch):
+                data, copy = got[key]
+                for a, c, w in zip(data, copy, want):
+                    same(a, c)
+                    same(a, w[j])
 
 
 def test_run_stream_u8_prefetch_matches_sequential():
