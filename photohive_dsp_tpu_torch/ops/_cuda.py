@@ -21,7 +21,10 @@ kernels count their uint8 launches (K1, K3, K4) and their float32 launches
 (``*_f32``: K11, K12, K13) apart, by the input's dtype and not by the
 route: the ``candidate`` route launches only float32, but the ``bf16``
 route does too when its frames are float32 (``BatchRunner.run``) or
-decimated (``downsample_rate`` above 1).
+decimated (``downsample_rate`` above 1).  ``masked_sharpness`` counts
+images, not launches: those the masked sharpness route takes, whose
+operator (ops/library.py) runs plain PyTorch on the CPU and the card
+alike.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ LAUNCHES = {"cell_counts_s": 0, "margin_sort": 0, "palette_sums_q1": 0,
             "palette_sums_flat_qfull": 0, "cell_counts_s_f32": 0,
             "palette_sums_q1_f32": 0, "palette_sums_q8_f32": 0,
             "palette_sums_qfull_f32": 0, "palette_sums_cwide": 0,
-            "cell_counts_ids": 0}
+            "cell_counts_ids": 0, "masked_sharpness": 0}
 
 _lib = None
 

@@ -16,14 +16,15 @@ One operator for each C entry point of the kernel library (ops/_cuda.py):
     fft_cols            ph_fft_cols            K6b
     polar_lognorm       ph_polar_lognorm       K7+K8
 
-Each operator has three implementations: for CPU tensors the kernel's plain
-version; for CUDA tensors the kernel's launch, the only place the package
-calls ``_cuda.launch``, which counts it in ``_cuda.LAUNCHES`` (there is no
-fallback: a launch that fails raises); and a fake one that gives the
-outputs' shapes and dtypes alone, a symbolic batch included.  So
-``torch.export``, ``torch.compile``, CUDA-graph capture and
-``TorchDispatchMode``s see each kernel as one operator, and an exported
-program finds it by name in any process that has imported this package.
+Each of these operators has three implementations: for CPU tensors the
+kernel's plain version; for CUDA tensors the kernel's launch, the only
+place the package calls ``_cuda.launch``, which counts it in
+``_cuda.LAUNCHES`` (there is no fallback: a launch that fails raises);
+and a fake one that gives the outputs' shapes and dtypes alone, a
+symbolic batch included.  So ``torch.export``, ``torch.compile``,
+CUDA-graph capture and ``TorchDispatchMode``s see each kernel as one
+operator, and an exported program finds it by name in any process that
+has imported this package.
 The wrappers in the kernel modules check their inputs and call these
 operators; they are the package's interface to the kernels.
 
@@ -37,6 +38,14 @@ launch derives from those, the cell-id thresholds
 is XLA's ``x * f32(1/L)``, like ``div_const``), K2's
 bucket, K6b's tile and K5's scratch, tickets and 16-byte row loads, stays
 inside the CUDA implementations, out of any traced graph.
+
+``masked_sharpness`` is the masked sharpness route, which no kernel
+implements yet: plain PyTorch (``ops/sharpness._masked_sharpness``) for
+CPU tensors; for CUDA tensors the same operations replayed from a CUDA
+graph (``ops/sharpness.masked_sharpness_graphed``); and a fake.  As an
+operator it is one node of an exported graph and one range of a trace,
+which charges the device time of its PyTorch kernels to it; its counter
+in ``_cuda.LAUNCHES`` counts the images it takes, on either device.
 
 ``branch`` is the conditional with which the routes choose between
 kernels (the palette tier, the sharpness route).
@@ -344,6 +353,31 @@ def _(pgm, halo, boxes, row_offset):
 def _(pgm, halo, boxes, row_offset):
     return pgm.new_empty((pgm.shape[0], MAX_CROP_BOXES, 2),
                          dtype=torch.float64)
+
+
+# ----------------------------------------- the masked sharpness route ---
+
+@torch.library.custom_op("photohive::masked_sharpness", mutates_args=(),
+                         device_types="cpu")
+def masked_sharpness(pgm: Tensor, boxes: Tensor, valid: Tensor) -> Tensor:
+    # Imported here: ops/sharpness.py imports this module.
+    from .sharpness import _masked_sharpness
+
+    _cuda.LAUNCHES["masked_sharpness"] += pgm.shape[0]
+    return _masked_sharpness(pgm, boxes, valid)
+
+
+@masked_sharpness.register_kernel("cuda")
+def _(pgm, boxes, valid):
+    from .sharpness import masked_sharpness_graphed
+
+    _cuda.LAUNCHES["masked_sharpness"] += pgm.shape[0]
+    return masked_sharpness_graphed(pgm, boxes, valid)
+
+
+@masked_sharpness.register_fake
+def _(pgm, boxes, valid):
+    return pgm.new_empty((pgm.shape[0], boxes.shape[1]))
 
 
 # -------------------------------------------------------------- K6a/b ---

@@ -8,24 +8,33 @@ variance(response)/mean(response).
 The routes of the JAX package's ``variance_sharpness_batched``, picked by
 graph conditionals (``library.branch``, ``torch.cond``) on the boxes alone,
 as its ``lax.cond``s do: no work at all when no box is valid; the masked
-crop-then-filter form, plain PyTorch, when any valid box is thinner than
-TINY_BOX_PX (the masked route); otherwise the crop-box sums of K5
-(ops/sharpness_kernels.py, the JAX package's Pallas route) and
-``finish_sharpness``.
+crop-then-filter form, plain PyTorch (``_masked_sharpness``, replayed
+from a CUDA graph on the card) behind the operator
+``photohive::masked_sharpness`` (ops/library.py), when any valid box is
+thinner than TINY_BOX_PX (the masked route); otherwise the
+crop-box sums of K5 (ops/sharpness_kernels.py, the JAX package's Pallas
+route) and ``finish_sharpness``.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
+
 import torch
 
+from ..utils.profiling import span
 from .filtering import laplacian_3x3
-from .library import branch
+from .library import branch, masked_sharpness
 from .sharpness_kernels import box_tensor, sharpness_sums
 
 # Boxes under this many px in either dimension take the masked route: the
 # kernel route's s2/n - mean^2 cancels terms ~1e3 larger than a tiny crop's
 # variance, leaving ~1e-6 absolute f32 cancellation noise.
 TINY_BOX_PX = 4
+# CUDA graphs of the masked route kept at once, by the inputs' shapes,
+# dtypes and device; the least recently used is dropped first.
+MASKED_GRAPHS = 4
 
 
 def _ring_weight_map(ys, xs, box):
@@ -63,6 +72,65 @@ def _masked_sharpness(pgm, boxes, boxes_valid):
     return torch.stack(out, dim=1)
 
 
+class _MaskedGraph:
+    """``_masked_sharpness`` captured in one CUDA graph at fixed shapes: the
+    same kernels in the same order as the eager call, so the same bits,
+    launched at once in place of about fifty launches a box slot.  Each
+    call copies its inputs into the graph's own tensors and clones the
+    output; ``done`` makes the next call's copies wait for this call's
+    replay, on whatever stream either runs."""
+
+    def __init__(self, pgm, boxes, valid):
+        with torch.inference_mode(False):
+            self.args = (pgm.clone(), boxes.clone(), valid.clone())
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.out = _masked_sharpness(*self.args)
+        self.done = torch.cuda.Event()
+
+    def __call__(self, pgm, boxes, valid):
+        stream = torch.cuda.current_stream()
+        stream.wait_event(self.done)
+        for dst, src in zip(self.args, (pgm, boxes, valid)):
+            dst.copy_(src)
+        self.graph.replay()
+        out = self.out.clone()
+        self.done.record(stream)
+        return out
+
+
+_graphs: collections.OrderedDict = collections.OrderedDict()
+_graphs_lock = threading.Lock()
+
+
+def masked_sharpness_graphed(pgm, boxes, boxes_valid):
+    """``_masked_sharpness`` on CUDA tensors: eager at the first call of a
+    shape, replayed from a CUDA graph captured at its second call and
+    after, so a shape seen once holds no graph.  Eager inside another
+    graph's capture (which then holds the kernels) and on inputs that are
+    not contiguous."""
+    args = (pgm, boxes, boxes_valid)
+    if torch.cuda.is_current_stream_capturing() or \
+            not all(t.is_contiguous() for t in args):
+        return _masked_sharpness(*args)
+    key = tuple((t.shape, t.dtype) for t in args) + (pgm.device,)
+    with _graphs_lock, torch.cuda.device(pgm.device):
+        if key not in _graphs:
+            _graphs[key] = None
+            out = _masked_sharpness(*args)
+        else:
+            _graphs.move_to_end(key)
+            if _graphs[key] is None:
+                _graphs[key] = _MaskedGraph(*args)
+            out = _graphs[key](*args)
+        while len(_graphs) > MASKED_GRAPHS:
+            dropped = _graphs.popitem(last=False)[1]
+            if dropped is not None:     # its memory may be reused at once
+                dropped.done.synchronize()
+        return out
+
+
 def finish_sharpness(s1, s2, boxes, boxes_valid) -> torch.Tensor:
     """K5's sums -> (B, K) float32 variance / mean, zero in invalid slots:
     mean = s1/n and var = s2/n - mean^2 in float32, as the JAX package
@@ -98,8 +166,9 @@ def variance_sharpness_batched(pgm: torch.Tensor, boxes,
         return pgm.new_zeros(boxes_valid.shape)
 
     def masked(pgm, boxes, boxes_valid):
-        return _masked_sharpness(pgm, box_tensor(boxes, boxes_valid, dev),
-                                 boxes_valid.to(dev))
+        bt, valid = box_tensor(boxes, boxes_valid, dev), boxes_valid.to(dev)
+        with span("photohive.stage.sharpness.masked"):
+            return masked_sharpness(pgm, bt, valid)
 
     def kernel(pgm, boxes, boxes_valid):
         bt = box_tensor(boxes, boxes_valid, dev)

@@ -6,8 +6,9 @@ The reference wraps every pipeline stage in printf wall-clock timers
 src/interface.c:38-92).  Here:
 
   * ``span``: a named range inside the program (``SPANS`` lists every
-    name: the entry point, the corpus layer's staging, the pipeline and
-    its stages, the copies to and from the device, the collectives).
+    name: the entry point, the corpus layer's staging, the pipeline, its
+    stages and the masked sharpness route, the copies to and from the
+    device, the collectives).
     Under ``torch.profiler`` it is ``record_function``, a
     ``user_annotation`` range on the same timeline as the device's kernels
     and copies, so a trace charges each interval the device sat idle to
@@ -60,6 +61,8 @@ SPANS = (
     "photohive.stage.palette", "photohive.stage.stats",
     "photohive.stage.sharpness", "photohive.stage.blur",
     "photohive.stage.vectors",
+    # the masked sharpness route, inside photohive.stage.sharpness
+    "photohive.stage.sharpness.masked",
     # parallel: each torch.distributed call
     "photohive.collective.all_gather", "photohive.collective.all_to_all",
     "photohive.collective.all_reduce",

@@ -53,6 +53,7 @@ def op_cases(device) -> dict:
     boxes[:, 0] = (2, 20, 3, 37)
     boxes[0, 1] = (0, 24, 0, 40)
     boxes[1, 2] = (5, 7, 30, 33)
+    valid = (boxes != 0).any(axis=-1)
     plan = fft_plan.FftPlan.for_shape(6, 10, dev)
     spec = OPS.fft_rows.default(t(rng.random((2, 6, 10), dtype=np.float32)),
                                 list(plan.rows.radices), plan.rows.twiddles,
@@ -81,6 +82,8 @@ def op_cases(device) -> dict:
         "sharpness_sums": (OPS.sharpness_sums, (pgm, None, t(boxes), 0)),
         "sharpness_sums halo": (OPS.sharpness_sums,
                                 (pgm, halo, t(boxes), 3)),
+        "masked_sharpness": (OPS.masked_sharpness, (pgm, t(boxes),
+                                                    t(valid))),
         "fft_rows": (OPS.fft_rows, (spec.new_tensor(
             rng.random((2, 6, 10), dtype=np.float32)), *rows)),
         "fft_cols": (OPS.fft_cols, (spec, *cols)),
@@ -101,13 +104,14 @@ def test_opcheck_cpu(name):
 
 def test_every_entry_point_has_an_operator():
     """One operator for each C entry point of the kernel library but the
-    launch-floor probe, and the cases above reach each of them."""
+    launch-floor probe, and one for the masked sharpness route, which has
+    none; the cases above reach each of them."""
     from photohive_dsp_tpu_torch.ops import _cuda
 
     entry = {n[3:] for n in _cuda._SIGNATURES} - {"empty_kernel"}
     ops = {n for n in dir(OPS) if isinstance(getattr(OPS, n),
                                              torch._ops.OpOverloadPacket)}
-    assert ops == entry
+    assert ops == entry | {"masked_sharpness"}
     assert {op._qualified_op_name.split("::")[1] for op, _ in
             op_cases("cpu").values()} == ops
 
