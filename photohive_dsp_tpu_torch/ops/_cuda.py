@@ -24,7 +24,10 @@ route does too when its frames are float32 (``BatchRunner.run``) or
 decimated (``downsample_rate`` above 1).  ``masked_sharpness`` counts
 images, not launches: those the masked sharpness route takes, whose
 operator (ops/library.py) runs plain PyTorch on the CPU and the card
-alike.
+alike.  ``entry_hwc`` counts frames too: the uint8 frames ``get_report``
+sends to the device as (H, W, C) from a staging block and makes planar
+there (one copy kernel on the card), on either device; float frames,
+made planar on the host, are not counted.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ LAUNCHES = {"cell_counts_s": 0, "margin_sort": 0, "palette_sums_q1": 0,
             "palette_sums_flat_qfull": 0, "cell_counts_s_f32": 0,
             "palette_sums_q1_f32": 0, "palette_sums_q8_f32": 0,
             "palette_sums_qfull_f32": 0, "palette_sums_cwide": 0,
-            "cell_counts_ids": 0, "masked_sharpness": 0}
+            "cell_counts_ids": 0, "masked_sharpness": 0, "entry_hwc": 0}
 
 _lib = None
 

@@ -1,10 +1,10 @@
 """The CUDA kernels (K1-K15) against their plain PyTorch versions on an
 NVIDIA GPU, the row-sharded report at world size 1 (NCCL) against the
 single-device path, the data-parallel and dp x spatial steps at world
-size 1, the single-image full_report on float32 frames, BatchRunner on the
-card against the CPU path, each kernel's registered operator under
-torch.library.opcheck, and a serving artifact exported for the card
-against the live path.  Every test here
+size 1, the single-image full_report on float32 frames, get_report's
+reused staging block, BatchRunner on the card against the CPU path, each
+kernel's registered operator under torch.library.opcheck, and a serving
+artifact exported for the card against the live path.  Every test here
 needs the card and nvcc and skips without them; this file imports no JAX,
 so the machine with the card runs it with
 
@@ -515,6 +515,50 @@ def test_cuda_cell_id_histogram_matches_plain(cuda_device):
     ids = torch.where(real, ids, C).contiguous()
     k9, _ = tpk.counts_s_from_fixed(tpk.cell_counts_from_hsv(*hsv, TCFG))
     assert torch.equal(tpk.cell_counts_batched(ids, C), k9)
+
+
+@pytest.mark.cuda
+def test_cuda_get_report_reuses_its_staging_block(cuda_device):
+    """Three different uint8 frames (RGB, RGBA, a flipped RGB frame)
+    through get_report in a row, each staged in the pinned block the
+    caching host allocator hands back and made planar on the card: each
+    report equals full_report's on its own host planar frame sent by a
+    pageable copy, bit for bit, and its own CPU report at the port's bars,
+    so no frame's copy read a block the next frame had refilled."""
+    from tests.util import structured_image
+
+    h, w = 360, 512
+    u8 = [np.ascontiguousarray(np.moveaxis(np.round(x * 255), 0, -1)
+                               ).astype(np.uint8)
+          for x in (noise_rgb(1, h, w, seed=8)[0], wheel_rgb(1, h, w)[0],
+                    structured_image(h, w, seed=3))]
+    frames = [u8[0], np.dstack([u8[1], np.full((h, w), 7, np.uint8)]),
+              u8[2][::-1]]
+    boxes = pt.set_bounding_boxes([dict(top=10, bottom=300, left=20,
+                                        right=480)])
+    cfg = ReportConfig()
+    _cuda.reset_launch_counts()
+    reps = [pt.get_report(f, boxes, config=cfg) for f in frames]
+    assert _cuda.LAUNCHES["entry_hwc"] == 3
+    tables = pt.cached_tables(h, w, cfg, cuda_device)
+    for f, rep in zip(frames, reps):
+        planar = np.ascontiguousarray(np.moveaxis(f[:, :, :3], -1, 0))
+        old = pt.full_report(torch.from_numpy(planar).to(cuda_device),
+                             *boxes, tables, cfg)
+        assert rep.to_json() == pt.Report(old, h, w, 1, cfg).to_json()
+        ref = pt.get_report(f, boxes, config=cfg, device="cpu")
+        assert rep.color_palette.cell_ids == ref.color_palette.cell_ids
+        assert rep.color_palette.quantities == ref.color_palette.quantities
+        assert np.abs(np.subtract(rep.color_palette.hsv,
+                                  ref.color_palette.hsv)).max() < 5e-3
+        assert np.isclose(rep.average_saturation, ref.average_saturation,
+                          rtol=1e-6, atol=0)
+        assert np.allclose(rep.sharpnesses, ref.sharpnesses, rtol=1e-4,
+                           atol=0)
+        assert [(v.angle, v.magnitude) for v in rep.blur_vectors] == \
+            [(v.angle, v.magnitude) for v in ref.blur_vectors]
+        assert _snr_db(torch.tensor(ref.blur_profile.bins),
+                       torch.tensor(rep.blur_profile.bins)) >= 60
 
 
 @pytest.mark.cuda

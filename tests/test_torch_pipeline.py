@@ -15,6 +15,7 @@ import photohive_dsp_tpu as ph
 from photohive_dsp_tpu.models import pipeline as jpipe
 
 import photohive_dsp_tpu_torch as pt
+from photohive_dsp_tpu_torch.ops import _cuda
 
 from .util import directional_blur_image, snr_db, structured_image
 
@@ -178,3 +179,44 @@ def test_cuda_requested_without_cuda_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.get_report(IMAGES["noise"])
+
+
+def _frame(layout: str) -> np.ndarray:
+    rgb = IMAGES["structured"]
+    if layout == "rgba":
+        return np.dstack([rgb, np.full((H, W), 255, np.uint8)])
+    if layout == "readonly":
+        rgb = rgb.copy()
+        rgb.setflags(write=False)
+    return rgb[::-1] if layout == "flipped" else rgb
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "rgba", "flipped",
+                                    "readonly"])
+def test_get_report_hwc_staging_is_bit_identical(layout):
+    """get_report stages a uint8 frame as it comes (an RGBA frame, a
+    flipped frame's negative strides, a read-only array as a PIL image
+    gives) and makes it planar on the device: every field equals
+    full_report's on the host planar array."""
+    frame = _frame(layout)
+    boxes, valid = pt.set_bounding_boxes(THIN)
+    cfg = pt.ReportConfig()
+    planar = np.ascontiguousarray(np.moveaxis(frame[:, :, :3], -1, 0))
+    want = pt.full_report(torch.from_numpy(planar), boxes, valid,
+                          pt.cached_tables(H, W, cfg, torch.device("cpu")),
+                          cfg)
+    got = pt.get_report(frame, (boxes, valid), config=cfg, device="cpu")
+    want_rep = pt.Report(want, H, W, num_boxes=len(THIN), config=cfg)
+    for k, v in report_fields(want_rep).items():
+        assert np.array_equal(report_fields(got)[k], v), k
+    assert got.to_json() == want_rep.to_json()
+
+
+def test_entry_hwc_counts_uint8_frames_only():
+    before = _cuda.LAUNCHES["entry_hwc"]
+    pt.get_report(_frame("rgba"), device="cpu")
+    assert _cuda.LAUNCHES["entry_hwc"] == before + 1
+    pt.get_report(IMAGES["noise"].astype(np.float32) / 255, device="cpu")
+    assert pt.get_report(np.zeros((300, 512, 3), np.uint8),
+                         device="cpu") is None
+    assert _cuda.LAUNCHES["entry_hwc"] == before + 1
