@@ -25,12 +25,12 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from .config import MAX_CROP_BOXES, ReportConfig, check_image_dims
 from .models.pipeline import (ReportData, ReportTables, cached_tables,
                               full_report, full_report_batched,
                               jitted_full_report, resolve_device)
+from .models.staging import device_batch, host_batch
 from .ops import _cuda
 from .ops.colorspace import crop_image, crop_pgm
 from .report import Report
@@ -73,28 +73,6 @@ def _image_array(image) -> np.ndarray:
     return arr
 
 
-def _stage_u8(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A uint8 frame copied once into an (H, W, C) host tensor: the whole
-    frame where it is C-contiguous (an RGBA frame's alpha goes too, and is
-    dropped on the device), else its RGB view.  For a CUDA ``device`` the
-    tensor is page-locked, from the caching host allocator, so its copy to
-    the card is a DMA the host need not wait for; the allocator hands the
-    same block back request after request, once the event that the
-    non-blocking copy in ``get_report`` records on it has completed: that
-    event guards the reuse.
-
-    ``np.copyto`` fills it on the calling thread, from any strides, a
-    read-only array (a PIL image's) included.  ``Tensor.copy_`` splits
-    the fill over all intra-op threads: on a quiet 8-core H100 host 0.3 ms
-    against 0.9-1.4 ms for a 1080p frame, but with other load on the
-    cores it waits for its slowest thread (p95 7-8 ms against 1.6-2.0)."""
-    src = arr if arr.flags.c_contiguous else arr[:, :, :3]
-    host = torch.empty(src.shape, dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    np.copyto(host.numpy(), src)
-    return host
-
-
 def get_report(image, salient_characters=None, *,
                config: Optional[ReportConfig] = None, device="cuda",
                **knobs) -> Optional[Report]:
@@ -115,12 +93,11 @@ def get_report(image, salient_characters=None, *,
         with span("photohive.entry.planar"):
             arr = _image_array(image)
             u8 = arr.dtype == np.uint8
-            # uint8 frames travel as uint8 (4x fewer bytes than float32)
-            # and are made planar on the device, not by a strided host
-            # transpose; the pipeline decodes them exactly.
-            host = _stage_u8(arr, dev) if u8 else torch.from_numpy(
-                np.ascontiguousarray(np.moveaxis(
-                    arr[:, :, :3].astype(np.float32), -1, 0)))
+            # A C-contiguous uint8 frame is staged whole (RGBA too: one block
+            # copy, not a 16-18 ms strided RGB view); the card drops alpha.
+            frame = (arr if arr.flags.c_contiguous else arr[:, :, :3]) if u8 \
+                else np.moveaxis(arr[:, :, :3], -1, 0)
+            host = host_batch([frame], 1, dev)
             if salient_characters is None:
                 box_arr = np.zeros((MAX_CROP_BOXES, 4), np.int32)
                 valid = np.zeros((MAX_CROP_BOXES,), bool)
@@ -133,11 +110,9 @@ def get_report(image, salient_characters=None, *,
             return None
 
         tables = cached_tables(height, width, cfg, dev)
-        with span("photohive.h2d"):
-            rgb = host.to(dev, non_blocking=True)
-            if u8:
-                _cuda.LAUNCHES["entry_hwc"] += 1
-                rgb = rgb[:, :, :3].permute(2, 0, 1).contiguous()
-        data = full_report(rgb, box_arr, valid, tables, cfg)
+        if u8:
+            _cuda.LAUNCHES["entry_hwc"] += 1
+        data = full_report(device_batch(host, dev)[0], box_arr, valid,
+                           tables, cfg)
         return Report(data, height, width, num_boxes=int(valid.sum()),
                       config=cfg)

@@ -5,14 +5,14 @@ The reference processes one image per call (src/interface.c:20); the
 throughput comes from running same-shape images as one batch through
 ``full_report_batched``.  Mixed-resolution corpora are grouped into shape
 buckets, and a bucket's partial batch is padded up to the batch size with
-copies of its last image, whose reports are dropped.  ``run_corpus``
-stages each batch in a host buffer that is page-locked on CUDA and reused
-from batch to batch, so its copy to the card is an asynchronous DMA.
-PyTorch runs eagerly, so there is no compiled program to cache: what is
-built once per (H, W, config, device) is the tables
-(``pipeline.cached_tables``) and the FFT plan (``FftPlan.for_shape``).
-The palette route follows ``PHOTOHIVE_PALETTE_KERNEL``, read at each
-batch.
+copies of its last image, whose reports are dropped.  A batch of host
+frames is staged by ``staging.host_batch`` and sent by
+``staging.device_batch``, or on the row-sharded route by each rank's copy
+of its own rows (``parallel.spatial``).  PyTorch runs eagerly, so there is
+no compiled program to cache: what is built once per (H, W, config,
+device) is the tables (``pipeline.cached_tables``) and the FFT plan
+(``FftPlan.for_shape``).  The palette route follows
+``PHOTOHIVE_PALETTE_KERNEL``, read at each batch.
 
 With a mesh (``parallel.mesh.make_mesh``: process groups, one process per
 rank, every rank running the same calls on the same inputs) a batch is
@@ -38,13 +38,12 @@ from ..ops.fft_plan import FftPlan, fft_kernel_eligible
 from ..utils.profiling import span
 from .pipeline import (ReportData, cached_tables, full_report_batched,
                        resolve_device)
+from .staging import device_batch, host_batch
 
 
-def _pad_tail(x, pad: int):
-    """Append ``pad`` copies of the last batch row (numpy or a tensor)."""
-    if isinstance(x, torch.Tensor):
-        return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
-    return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+def _pad_tail(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Append ``pad`` copies of the last batch row."""
+    return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
 
 
 # Images at or above this many megapixels route to the row-sharded path
@@ -112,27 +111,24 @@ class BatchRunner:
 
     def _norm_boxes(self, b, boxes, boxes_valid):
         if boxes is None:
-            return (np.zeros((b, MAX_CROP_BOXES, 4), np.int32),
-                    np.zeros((b, MAX_CROP_BOXES), bool))
+            return (torch.zeros((b, MAX_CROP_BOXES, 4), dtype=torch.int32),
+                    torch.zeros((b, MAX_CROP_BOXES), dtype=torch.bool))
         if boxes_valid is None:
             raise ValueError("boxes_valid must accompany boxes "
                              "(use set_bounding_boxes to build both)")
-        return np.asarray(boxes), np.asarray(boxes_valid)
+        return torch.as_tensor(boxes), torch.as_tensor(boxes_valid)
 
-    def _run(self, x: torch.Tensor, boxes, boxes_valid, u8: bool)\
-            -> ReportData:
+    def _run(self, x: torch.Tensor, boxes, boxes_valid) -> ReportData:
         """x: the whole batch, (B, H, W, 3) uint8 or (B, 3, H, W) float32,
         on the host or the device."""
         b = x.shape[0]
+        u8 = x.dtype == torch.uint8
         h, w = x.shape[1:3] if u8 else x.shape[2:]
         boxes, boxes_valid = self._norm_boxes(b, boxes, boxes_valid)
         if self.mesh is None:
-            with span("photohive.h2d"):
-                x = x.to(self.device, non_blocking=True)
-            x = x.permute(0, 3, 1, 2) if u8 else x
             tables = cached_tables(h, w, self.cfg, self.device)
-            return full_report_batched(x.contiguous(), boxes, boxes_valid,
-                                       tables, self.cfg)
+            return full_report_batched(device_batch(x, self.device), boxes,
+                                       boxes_valid, tables, self.cfg)
         pad = (-b) % self.quantum(h, w)
         if pad:
             x, boxes, boxes_valid = (_pad_tail(t, pad)
@@ -142,41 +138,42 @@ class BatchRunner:
                                     self.device)(
                 x if u8 else x.permute(0, 2, 3, 1), boxes, boxes_valid)
         else:
-            from ..parallel.sharding import (data_parallel_report,
-                                             data_parallel_report_u8)
-            make = data_parallel_report_u8 if u8 else data_parallel_report
-            fn, tables = make(h, w, self.cfg, self._flat_mesh, self.device)
+            from ..parallel.sharding import data_parallel_report
+            fn, tables = data_parallel_report(h, w, self.cfg,
+                                              self._flat_mesh, self.device)
             out = fn(x, boxes, boxes_valid, tables)
         return ReportData(*(t[:b] for t in out)) if pad else out
 
     def run_u8(self, images_u8, boxes=None, boxes_valid=None) -> ReportData:
-        """images_u8: (B, H, W, 3) uint8, numpy or a tensor; it travels to
-        the device as uint8 and is made planar there."""
-        x = torch.as_tensor(images_u8)
+        """images_u8: (B, H, W, 3) uint8, a tensor or host frames of any
+        strides (staged by ``host_batch``); it travels to the device as
+        uint8 and is made planar there."""
+        x = images_u8 if isinstance(images_u8, torch.Tensor) \
+            else host_batch(images_u8, len(images_u8), self.device)
         if x.dtype != torch.uint8 or x.dim() != 4 or x.shape[-1] != 3:
             raise ValueError(f"expected (B, H, W, 3) uint8, got "
                              f"{tuple(x.shape)} {x.dtype}")
-        return self._run(x, boxes, boxes_valid, u8=True)
+        return self._run(x, boxes, boxes_valid)
 
     def run(self, images, boxes: Optional[np.ndarray] = None,
             boxes_valid: Optional[np.ndarray] = None) -> ReportData:
         """images: (B, 3, H, W) float32 in [0, 1]; returns batched
         ReportData (B, ...) on the device."""
         return self._run(torch.as_tensor(images, dtype=torch.float32),
-                         boxes, boxes_valid, u8=False)
+                         boxes, boxes_valid)
 
     def _staged(self, batches):
         """(images_u8, boxes, valid) batches with the images copied to the
-        device ahead of use: from pinned host memory on a side stream on
+        device ahead of use: from a ``host_batch`` on a side stream on
         CUDA, each with an event the compute stream waits on."""
         if self.device.type != "cuda":
             for images_u8, boxes, valid in batches:
-                yield torch.as_tensor(images_u8), boxes, valid, None
+                yield images_u8, boxes, valid, None
             return
         side = torch.cuda.Stream(self.device)
         for images_u8, boxes, valid in batches:
             with span("photohive.h2d"):
-                host = torch.as_tensor(images_u8).pin_memory()
+                host = host_batch(images_u8, len(images_u8), self.device)
                 with torch.cuda.stream(side):
                     x = host.to(self.device, non_blocking=True)
                     ready = torch.cuda.Event()
@@ -269,30 +266,6 @@ def bucket_by_shape(items: Iterable[Tuple[object, np.ndarray]])\
     return dict(buckets)
 
 
-def _stage(group, size: int, device: torch.device) -> torch.Tensor:
-    """``group``'s images, one a slot, in a (size, ...) host batch whose
-    tail slots repeat the last image: uint8 for uint8 images, float32 for
-    float ones.  For a CUDA ``device`` the batch is page-locked, from the
-    caching host allocator, so its copy to the card is a DMA that
-    ``BatchRunner._run`` need not wait for; after the first batch of a
-    size the allocator hands back the same block, with no allocation,
-    page fault or zero fill.
-
-    The block is handed out again only once the event that the
-    non-blocking copy in ``_run`` records on it has completed: that event
-    guards the reuse.  (The mesh's copies, ``sharding._data_parallel`` and
-    ``spatial.own_rows``, block until done; the report read-back in
-    ``run_corpus`` waits for the copy too, but the reuse does not rest on
-    it.)"""
-    frames = [torch.as_tensor(img) for _, img in group]
-    frames += frames[-1:] * (size - len(frames))
-    dtype = torch.uint8 if frames[0].dtype == torch.uint8 else torch.float32
-    buf = torch.empty((size, *frames[0].shape), dtype=dtype,
-                      pin_memory=device.type == "cuda")
-    # One stack into the slots: the copy runs on all intra-op threads.
-    return torch.stack(frames, out=buf)
-
-
 def run_corpus(images: Iterable[Tuple[object, np.ndarray]],
                cfg: ReportConfig, mesh=None, batch_size: int = 32,
                spatial_route_mp: float = SPATIAL_ROUTE_MP, device="cuda")\
@@ -303,9 +276,7 @@ def run_corpus(images: Iterable[Tuple[object, np.ndarray]],
     buckets; a bucket runs as soon as it holds ``batch_size`` images, and
     the remainders at the end of the stream, padded with copies of their
     last image.  Memory stays O(number of shapes x batch_size).  A batch
-    is copied frame by frame into its slots of one host buffer
-    (``_stage``), page-locked on CUDA and reused by the next batch of the
-    same size, and sent to the device from there.  Yields
+    is staged by ``staging.host_batch`` and sent from there.  Yields
     (key, per-image ReportData) for the real images only, as CPU tensors:
     each batch's reports are copied to the host once.  With a ``mesh``
     every rank streams the same images and gets every report; images of
@@ -326,7 +297,8 @@ def run_corpus(images: Iterable[Tuple[object, np.ndarray]],
 
     def flush(group, size):
         with span("photohive.corpus.stack"):
-            staged = _stage(group, size, runner.device)
+            staged = host_batch([img for _, img in group], size,
+                                runner.device)
         out = runner.run_u8(staged) if staged.dtype == torch.uint8 \
             else runner.run(staged)
         with span("photohive.d2h"):

@@ -20,6 +20,7 @@ import torch.distributed as dist
 from ..config import ReportConfig
 from ..models.pipeline import (ReportData, cached_tables, full_report_batched,
                                resolve_device)
+from ..models.staging import device_batch
 from ..utils.profiling import span
 from .mesh import Mesh
 
@@ -57,8 +58,18 @@ def _local_slice(mesh: Mesh, b: int) -> slice:
     return slice(mesh.data_index * per, (mesh.data_index + 1) * per)
 
 
-def _data_parallel(height: int, width: int, cfg: ReportConfig, mesh: Mesh,
-                   device, planar_of):
+def data_parallel_report(height: int, width: int, cfg: ReportConfig,
+                         mesh: Mesh, device="cuda"):
+    """The batch report with the batch split over ``mesh``'s data axis
+    (replicated over its spatial axis, as the JAX package's
+    ``P(DATA_AXIS)`` is).  Returns (fn, tables); fn(batch (B, 3, H, W)
+    float32 in [0, 1] or (B, H, W, 3) uint8, boxes (B, 10, 4), valid
+    (B, 10), tables) -> ReportData (B, ...) on ``device``, the same on
+    every rank; uint8 travels as it is and is made planar there.  Every rank
+    is handed the whole batch (host arrays, or tensors on any device) and
+    moves only its slice to ``device`` (``staging.device_batch``).  B must
+    be a multiple of the data axis.  The palette variant is read at each
+    call, as ``full_report_batched`` reads it."""
     cfg.validate()
     dev = resolve_device(device)
     tables = cached_tables(height, width, cfg, dev)
@@ -66,10 +77,8 @@ def _data_parallel(height: int, width: int, cfg: ReportConfig, mesh: Mesh,
     def fn(batch, boxes, valid, tables) -> ReportData:
         batch = torch.as_tensor(batch)
         rows = _local_slice(mesh, batch.shape[0])
-        with span("photohive.h2d"):
-            x = batch[rows].to(dev)
-        x = planar_of(x)
-        local = full_report_batched(x, torch.as_tensor(boxes)[rows].cpu(),
+        local = full_report_batched(device_batch(batch[rows], dev),
+                                    torch.as_tensor(boxes)[rows].cpu(),
                                     torch.as_tensor(valid)[rows].cpu(),
                                     tables, cfg)
         return gather_reports(local, mesh.data_group)
@@ -77,28 +86,8 @@ def _data_parallel(height: int, width: int, cfg: ReportConfig, mesh: Mesh,
     return fn, tables
 
 
-def data_parallel_report(height: int, width: int, cfg: ReportConfig,
-                         mesh: Mesh, device="cuda"):
-    """The batch report with the batch split over ``mesh``'s data axis
-    (replicated over its spatial axis, as the JAX package's
-    ``P(DATA_AXIS)`` is).  Returns (fn, tables); fn(batch (B, 3, H, W)
-    float32 in [0, 1], boxes (B, 10, 4), valid (B, 10), tables) ->
-    ReportData (B, ...) on ``device``, the same on every rank.  Every rank
-    is handed the whole batch (host arrays, or tensors on any device) and
-    moves only its slice to ``device``.  B must be a multiple of the data
-    axis.  The palette variant is read at each call, as
-    ``full_report_batched`` reads it."""
-    return _data_parallel(height, width, cfg, mesh, device,
-                          lambda x: x.float().contiguous())
-
-
-def data_parallel_report_u8(height: int, width: int, cfg: ReportConfig,
-                            mesh: Mesh, device="cuda"):
-    """uint8 variant: fn(u8 (B, H, W, 3), boxes, valid, tables) ->
-    ReportData.  The slice travels to the device as uint8 and is made
-    planar there, as ``BatchRunner.run_u8`` does."""
-    return _data_parallel(height, width, cfg, mesh, device,
-                          lambda x: x.permute(0, 3, 1, 2).contiguous())
+# The JAX package's uint8 entry point: the batch's dtype picks the layout.
+data_parallel_report_u8 = data_parallel_report
 
 
 def flat_data_mesh(mesh: Mesh) -> Mesh:

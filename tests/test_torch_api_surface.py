@@ -5,6 +5,8 @@ defined in the port's module of the same path, or the allowlist below names
 the port name that takes its place, or ROADMAP.md's "Not to port" list
 gives the reason it is not ported."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import ast
 import re
 from pathlib import Path

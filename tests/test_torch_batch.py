@@ -2,8 +2,11 @@
 the JAX package's BatchRunner at 360x480 with a crop box, at the port's
 acceptance bars (tests/test_torch_pipeline.assert_match); run_corpus over
 two shapes with padded tails against the port's own get_report, and over
-three against BatchRunner on the same frames stacked; the prefetching stream
-against the sequential one; warmup; the layout checks."""
+three against BatchRunner on the same frames stacked; flipped frames
+against their copies; the prefetching stream against the sequential one;
+warmup; the layout checks."""
+
+from . import torch_threads  # noqa: F401 (this worker's cores)
 
 import threading
 import time
@@ -119,6 +122,38 @@ def test_run_corpus_staging_matches_stacked_batches(layout):
                 for a, c, w in zip(data, copy, want):
                     same(a, c)
                     same(a, w[j])
+
+
+FLIPS = {"channels": lambda x: x[..., ::-1],
+         "rows": lambda x: np.flip(x, axis=-3)}
+
+
+@pytest.mark.parametrize("flip", list(FLIPS))
+@pytest.mark.parametrize("entry", ["run_corpus", "run_u8"])
+def test_flipped_frames_equal_their_copies(entry, flip):
+    """Frames with negative strides (a BGR to RGB flip, np.flipud), which
+    torch cannot view, through run_corpus (three frames: a batch and a
+    padded tail) and BatchRunner.run_u8, as the JAX package takes them:
+    every report equals the same call's on .copy()s of them, bit for
+    bit."""
+    frames = FLIPS[flip](np.random.default_rng(15).integers(
+        0, 256, (3, 240, 320, 3), dtype=np.uint8))
+    assert min(frames.strides) < 0
+    cfg = pt.ReportConfig()
+
+    def reports(imgs):
+        if entry == "run_u8":
+            return [tbatch.BatchRunner(cfg, device="cpu").run_u8(imgs)]
+        return [data for _, data in tbatch.run_corpus(
+            enumerate(imgs), cfg, batch_size=2, device="cpu")]
+
+    want = reports(frames.copy() if entry == "run_u8"
+                   else [f.copy() for f in frames])
+    got = reports(frames if entry == "run_u8" else list(frames))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
 
 
 def test_run_stream_u8_prefetch_matches_sequential():

@@ -4,6 +4,8 @@ and against ``pallas_fft.magnitude2_scrambled`` in interpret mode, the
 polar kernel's plain version (K7+K8) against ``polar_bin_sums_local``, and
 ``blur_bins_lognorm`` against ``blur_bins_scrambled_lognorm``."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 from pathlib import Path
 
 import numpy as np

@@ -13,6 +13,8 @@ triples; and the blur DC term bit for bit.  The kernels are held to the
 same plain versions on the card by chip_smoke.py, on every triple at
 these grids."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import functools
 
 import numpy as np

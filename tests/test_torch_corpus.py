@@ -7,6 +7,8 @@ image's JSONL report against the JAX package's process_corpus report."""
 
 from __future__ import annotations
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import itertools
 import json
 import os

@@ -12,6 +12,8 @@ so the machine with the card runs it with
 
 The image generators are shared with tests/test_torch_palette.py."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

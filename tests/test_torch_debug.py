@@ -4,6 +4,8 @@ valid report and catch a misrouted pixel.  And ``nan_checks``: it stops at
 the operator that makes a NaN, a kernel's registered operator included,
 also inside an exported program's ``cond``, and is silent when off."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

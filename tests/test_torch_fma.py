@@ -15,6 +15,8 @@ saliency at four configs and a constructed order it decides; and
 ``get_report`` on frames where the unfused forms move a pixel (360x512
 noise, seed 11, default grid: one pixel; seed 1 at 12x3x2)."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import functools
 
 import numpy as np

@@ -11,6 +11,8 @@ indices take the guess-and-correct route).  The cell id is XLA's
 bit.  The kernels themselves run on the card only: chip_smoke.py holds
 them to the plain versions on the same triples."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,8 @@ boxes (one set with a thin box), at the port's acceptance bars; full_report
 against full_report_batched at B=1 bit for bit; empty_boxes and the public
 names."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,8 @@ On such frames the port's exact fixed-point sums keep it at the golden's
 bars, where jitted JAX, which adds its palette sums and statistics in
 float32, is not held here (ROADMAP Queue 3)."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import warnings
 
 import numpy as np

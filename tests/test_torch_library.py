@@ -5,6 +5,8 @@ the real one, a symbolic batch through AOT dispatch.  On the card,
 tests/test_torch_cuda.py runs the same checks on the CUDA implementations.
 The inputs come from ``op_cases``, which builds them on any device."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,8 @@ scatter, at C on both sides of each bucket's edge and on data that reach
 the comparator's edges.  The kernel itself runs only on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 3)."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

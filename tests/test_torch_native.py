@@ -1,6 +1,8 @@
 """The port's native C++ runtime (photohive_dsp_tpu_torch/runtime): txt
 fixture IO and planarization, the cases of tests/test_native.py."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 

@@ -1,6 +1,8 @@
 """The PyTorch port's elementwise, stencil, FFT, blur and sharpness ops
 against the JAX package's, on the same numpy inputs."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import subprocess
 import sys
 from pathlib import Path

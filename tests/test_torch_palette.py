@@ -8,6 +8,8 @@ and percentages exactly equal, palette HSV < 5e-3, sums < 0.5 absolute
 The CUDA kernels are held against these plain versions on the card by
 tests/test_torch_cuda.py."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

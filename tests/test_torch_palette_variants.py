@@ -8,6 +8,8 @@ report under all three variants.  Tolerances are the JAX package's own
 (tests/test_pallas_interpret.py): counts and ids exact, sums < 0.5
 absolute, palette HSV < 5e-3; mean saturation within 1e-6 relative."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,8 @@ print_full_report's layout (src/utilities.c:229-256)."""
 
 from __future__ import annotations
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

@@ -2,6 +2,8 @@
 get_report and full_report_batched at a tile-aligned 360x512, with and
 without crop boxes (one of them thin), at the port's acceptance bars."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import json
 
 import numpy as np

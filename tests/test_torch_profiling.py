@@ -4,6 +4,8 @@
 ``trace`` writes a Chrome trace in which the kernels' operators and the
 program's ``photohive.`` spans appear."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import json
 
 import numpy as np

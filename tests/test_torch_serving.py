@@ -6,6 +6,8 @@ palette tier and sharpness route inside one artifact, and the cwide
 variant.  The contracts of tests/test_serving.py:22,73,80; its mesh
 artifact (:103) waits for the port's data-parallel layer."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

@@ -3,6 +3,8 @@ box under TINY_BOX_PX, on the CPU: its masked sharpness branch is the one
 operator ``photohive::masked_sharpness``, and its report equals the live
 ``full_report_batched``'s bit for bit."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import io
 
 import numpy as np

@@ -20,6 +20,8 @@ and the ``mesh`` parameters of ``models/batch.py``, ``utils/io.py`` and
   ``build_spatial_report`` image by image, bit for bit.
 """
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import json
 import os
 import subprocess

@@ -3,6 +3,8 @@ the JAX package's Pallas kernel ``pallas_sharpness.sharpness_sums`` in
 interpret mode, and the finished sharpness against the JAX package's
 ``variance_sharpness_batched``, on the same numpy inputs."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

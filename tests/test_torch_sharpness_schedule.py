@@ -12,6 +12,8 @@ be visited exactly once, and the sums must equal ``sharpness_sums_plain``
 within 1e-5 relative.  The kernel itself runs only on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,8 @@ palette kernels against the JAX package on the CPU.
   spawned processes (tests/torch_spatial_ranks) with a time limit each.
 """
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 from types import SimpleNamespace
 
 import numpy as np

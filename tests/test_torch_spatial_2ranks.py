@@ -4,6 +4,8 @@ palette, its counts and mean saturation are equal bit for bit (the ranks
 add the kernels' fixed-point accumulators before converting them), the
 rest meets tests/test_sharding.py's bars."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 from types import SimpleNamespace
 
 import numpy as np

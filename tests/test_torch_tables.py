@@ -1,6 +1,8 @@
 """The PyTorch port's config and host tables against the JAX package's:
 same knobs and checks, bit-equal geometry, and ReportTables.from_numpy."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import numpy as np
 import pytest
 import torch

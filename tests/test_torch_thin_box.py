@@ -5,6 +5,8 @@ route taken only through its operator ``photohive::masked_sharpness``,
 which counts its images, equals ``_masked_sharpness`` bit for bit (on the
 card too, where it replays a CUDA graph), and runs inside its span."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import json
 
 import numpy as np

@@ -5,6 +5,8 @@ the catalogue says, ``run_corpus`` charges its consumer's time to no span,
 the exported serving graph holds no profiler op, and two gloo ranks open
 the collective spans."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 import io
 import json
 import re

@@ -5,6 +5,8 @@ the port's ReportData), and the images must be pixel-equal (the
 frequency-response plot: the same size and mode).  Host-side, no display
 needed."""
 
+from . import torch_threads  # noqa: F401 (this worker's cores)
+
 from types import SimpleNamespace
 
 import numpy as np
