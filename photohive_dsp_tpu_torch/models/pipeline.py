@@ -12,6 +12,9 @@ Mirrors the reference orchestrator get_full_report_data
   fft_plan.fft_kernel_eligible, else torch rfft2 + normalisation + gather)
   -> blur vectors.
 
+``full_report`` (one image) replays the same stages from CUDA graphs on
+the card (``models/replay.py``); ``full_report_batched`` runs them eagerly.
+
 Behavioural subtleties honoured (SURVEY.md §3.1): palette and saturation
 run on the *downsampled* image, the rest on the full-resolution original;
 sharpness comes before DC removal; the DC removed is (Br+Bg+Bb)/3.
@@ -106,6 +109,40 @@ def cached_tables(height: int, width: int, cfg: ReportConfig,
     return ReportTables.build(height, width, cfg, device)
 
 
+def decode(rgb: torch.Tensor, cfg: ReportConfig, variant: str):
+    """(float32 planes in [0, 1], the palette's input) of a (B, 3, H, W)
+    batch.  On the bf16 route uint8 frames feed the palette kernels
+    directly when no decimation is configured (in-kernel x/255,
+    bit-identical to the float planes); the candidate and cwide routes
+    take the float planes."""
+    pal_in = rgb
+    if rgb.dtype == torch.uint8:
+        rgb = u8_to_unit_f32(rgb)
+    if variant != "bf16" or pal_in.dtype != torch.uint8 \
+            or cfg.downsample_rate != 1:
+        pal_in = downsample_rgb(rgb, cfg.downsample_rate)
+    return rgb, pal_in
+
+
+def luma_and_stats(rgb: torch.Tensor):
+    """(B, H, W) luma and (B, 6) RGB statistics of float32 planes."""
+    return rgb_to_pgm(rgb[:, 0], rgb[:, 1], rgb[:, 2]), rgb_statistics(rgb)
+
+
+def blur_bins(pgm: torch.Tensor, stats: torch.Tensor, tables: ReportTables,
+              cfg: ReportConfig) -> torch.Tensor:
+    """(B, A, R) blur bins of the luma less its DC term: the FFT and polar
+    kernels on shapes inside their gate, else torch's FFT and a gather."""
+    pgm_dc = pgm - blur_dc(stats)[:, None, None]
+    h, w = pgm_dc.shape[1:]
+    if fft_kernel_eligible(h, w):
+        plan = FftPlan.for_shape(h, w, pgm_dc.device)
+        return blur_bins_lognorm(pgm_dc, plan, tables.polar,
+                                 cfg.angle_partitions, cfg.radius_partitions)
+    return blur_profile_bins(magnitude_fft_normalized(pgm_dc), tables.polar,
+                             cfg.angle_partitions, cfg.radius_partitions)
+
+
 def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
                         tables: ReportTables,
                         cfg: ReportConfig) -> ReportData:
@@ -126,17 +163,8 @@ def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
     (``serving.export_report``)."""
     with span("photohive.pipeline"):
         variant = palette_kernel_variant()
-        # On the bf16 route uint8 frames feed the palette kernels directly
-        # when no decimation is configured (in-kernel x/255, bit-identical
-        # to the float planes); the candidate and cwide routes take the
-        # float planes.
         with span("photohive.stage.decode"):
-            pal_in = rgb
-            if rgb.dtype == torch.uint8:
-                rgb = u8_to_unit_f32(rgb)
-            if variant != "bf16" or pal_in.dtype != torch.uint8 \
-                    or cfg.downsample_rate != 1:
-                pal_in = downsample_rgb(rgb, cfg.downsample_rate)
+            rgb, pal_in = decode(rgb, cfg, variant)
         with span("photohive.stage.palette"):
             if variant == "cwide":
                 # Flat HSV planes (12 B a pixel), K9 and K14.
@@ -151,24 +179,11 @@ def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,
                 s_bar = div_const(s_sum, pal_in.shape[2] * pal_in.shape[3])
 
         with span("photohive.stage.stats"):
-            pgm = rgb_to_pgm(rgb[:, 0], rgb[:, 1], rgb[:, 2])
-            stats = rgb_statistics(rgb)
+            pgm, stats = luma_and_stats(rgb)
         with span("photohive.stage.sharpness"):
             sharp = variance_sharpness_batched(pgm, boxes, boxes_valid)
-
         with span("photohive.stage.blur"):
-            dc = blur_dc(stats)
-            pgm_dc = pgm - dc[:, None, None]
-            h, w = pgm_dc.shape[1:]
-            if fft_kernel_eligible(h, w):
-                plan = FftPlan.for_shape(h, w, pgm_dc.device)
-                bins = blur_bins_lognorm(pgm_dc, plan, tables.polar,
-                                         cfg.angle_partitions,
-                                         cfg.radius_partitions)
-            else:
-                bins = blur_profile_bins(magnitude_fft_normalized(pgm_dc),
-                                         tables.polar, cfg.angle_partitions,
-                                         cfg.radius_partitions)
+            bins = blur_bins(pgm, stats, tables, cfg)
         with span("photohive.stage.vectors"):
             angles, mags = vectorize_blur_profile(bins, cfg)
 
@@ -189,7 +204,15 @@ def full_report(rgb: torch.Tensor, boxes, boxes_valid, tables: ReportTables,
                  tables live on.
     boxes:       (MAX_CROP_BOXES, 4) int [top, bottom, left, right), a host
                  array or a CPU tensor.
-    boxes_valid: (MAX_CROP_BOXES,) bool, a host array or a CPU tensor."""
+    boxes_valid: (MAX_CROP_BOXES,) bool, a host array or a CPU tensor.
+
+    On the card the same work replays from CUDA graphs (``models/replay``)
+    where ``replay.replayable`` allows: the same kernels, the same bits."""
+    # Imported here: models/replay.py imports this module.
+    from . import replay
+
+    if replay.replayable(rgb):
+        return replay.full_report(rgb, boxes, boxes_valid, tables, cfg)
     data = full_report_batched(rgb[None], torch.as_tensor(boxes)[None],
                                torch.as_tensor(boxes_valid)[None], tables,
                                cfg)

@@ -27,7 +27,10 @@ operator (ops/library.py) runs plain PyTorch on the CPU and the card
 alike.  ``entry_hwc`` counts frames too: the uint8 frames ``get_report``
 sends to the device as (H, W, C) from a staging block and makes planar
 there (one copy kernel on the card), on either device; float frames,
-made planar on the host, are not counted.
+made planar on the host, are not counted.  The ``report_graph_*`` counters
+count the halves of single-image reports on the card's graph route
+(models/replay.py): graphs captured, graphs replayed, halves run eagerly on
+the way to a graph; a replay adds its graph's kernels to their counters.
 """
 
 from __future__ import annotations
@@ -59,7 +62,9 @@ LAUNCHES = {"cell_counts_s": 0, "margin_sort": 0, "palette_sums_q1": 0,
             "palette_sums_flat_qfull": 0, "cell_counts_s_f32": 0,
             "palette_sums_q1_f32": 0, "palette_sums_q8_f32": 0,
             "palette_sums_qfull_f32": 0, "palette_sums_cwide": 0,
-            "cell_counts_ids": 0, "masked_sharpness": 0, "entry_hwc": 0}
+            "cell_counts_ids": 0, "masked_sharpness": 0, "entry_hwc": 0,
+            "report_graph_captures": 0, "report_graph_replays": 0,
+            "report_graph_eager": 0}
 
 _lib = None
 

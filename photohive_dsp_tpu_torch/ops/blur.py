@@ -25,6 +25,7 @@ Two routes give the bins, both the same from run to run:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -127,6 +128,21 @@ def _angle_table(a: int) -> np.ndarray:
         - np.float32(90)).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _angle_table_on(a: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_angle_table(a), device=device)
+
+
+def angle_table(a: int, device: torch.device) -> torch.Tensor:
+    """``_angle_table(a)`` on ``device``, copied there once per (A,
+    device), so that a report makes no copy for it (and a CUDA graph can
+    hold it).  Made afresh while torch.export or torch.compile traces: a
+    cached tensor would be the tracer's."""
+    if torch.compiler.is_compiling():
+        return torch.as_tensor(_angle_table(a), device=device)
+    return _angle_table_on(a, device)
+
+
 def vectorize_blur_profile(bins: torch.Tensor, cfg: ReportConfig):
     """Extract <=10 blur vectors per image (reference
     src/blur_profile.c:324-416).
@@ -164,7 +180,7 @@ def vectorize_blur_profile(bins: torch.Tensor, cfg: ReportConfig):
                               torch.full_like(rank, r, dtype=torch.int64))
     magnitude = div_const(first_below.to(bins.dtype), r)
 
-    table = torch.as_tensor(_angle_table(a), device=dev)
+    table = angle_table(a, dev)
     live = keep & ~suppressed
     angles_a = torch.where(live, table, torch.zeros_like(table))
     mags_a = torch.where(live, magnitude, torch.zeros_like(magnitude))

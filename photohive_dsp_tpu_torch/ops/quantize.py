@@ -16,7 +16,9 @@ tensors with the batch dimension written out:
      over at most q candidates, q = 8 or the config's q_full), picked per
      batch from the tie structure by nested graph conditionals
      (``library.branch``, ``torch.cond``), as the JAX package's
-     ``lax.switch`` does; on
+     ``lax.switch`` does (``color_palette_batched_from_rgb`` is
+     ``palette_front_from_rgb``, the tier read ``read_tier`` and
+     ``palette_back_from_rgb``, so a caller can run the halves apart); on
      flat HSV pixels (the row-sharded report, the ``cwide`` route) K10 at
      q = 8 or q_full, or K14 over each cell's allowed parents,
      ``palette_sums_by_k_auto``.
@@ -213,20 +215,30 @@ def palette_finalize_by_k(per_slot: torch.Tensor, assign: ParentAssignment,
         parent_ids=torch.where(live, assign.order, -1).to(torch.int32))
 
 
-def palette_tier(counts: torch.Tensor, assign: ParentAssignment,
-                 cfg: ReportConfig) -> torch.Tensor:
+def tier_width(counts: torch.Tensor, assign: ParentAssignment,
+               cfg: ReportConfig) -> torch.Tensor:
     """Candidate width the batch needs, 1, q_small or q_full, as a 0-dim
-    int64 tensor on the host.  Only cells that hold pixels matter.  The
-    width is computed on the device and copied to the host once: the
-    batch's one device read, from which the palette's route conditionals
-    read their predicates without another."""
+    int64 tensor on the device.  Only cells that hold pixels matter."""
     q_small, q_full = palette_widths(cfg)
     ncand = assign.allowed.sum(dim=-1)
     q_needed = torch.where(counts > 0, ncand, 0).amax()
-    width = torch.where(q_needed <= 1, 1,
-                        torch.where(q_needed <= q_small, q_small, q_full))
+    return torch.where(q_needed <= 1, 1,
+                       torch.where(q_needed <= q_small, q_small, q_full))
+
+
+def read_tier(width: torch.Tensor) -> torch.Tensor:
+    """``tier_width``'s width copied to the host: the batch's one device
+    read, from which the palette's route conditionals read their
+    predicates without another."""
     with span("photohive.d2h"):
         return width.cpu()
+
+
+def palette_tier(counts: torch.Tensor, assign: ParentAssignment,
+                 cfg: ReportConfig) -> torch.Tensor:
+    """Candidate width the batch needs, 1, q_small or q_full, as a 0-dim
+    int64 tensor on the host: ``tier_width``, then ``read_tier``."""
+    return read_tier(tier_width(counts, assign, cfg))
 
 
 PALETTE_KERNEL_VARIANTS = ("bf16", "candidate", "cwide")
@@ -281,25 +293,42 @@ def palette_sums_by_k_auto(h: torch.Tensor, s: torch.Tensor,
                   sums(q_small), sums(q_full), (h, s, v, *assign))
 
 
-def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,
-                                   tables: OctreeTables):
-    """(B, 3, H, W) float32 in [0, 1] or uint8 -> (PaletteResult, (B,) f32
-    sums of the saturation channel).  HSV lives only inside the kernels;
-    K1 also returns mean saturation's numerator.  The ``bf16`` route hands
-    it uint8 frames (K1, K3, K4), the ``candidate`` route the decoded
-    float32 planes (K11, K12, K13)."""
+class PaletteFront(NamedTuple):
+    """The RGB palette up to its tier read (``palette_front_from_rgb``)."""
+
+    pixels: torch.Tensor       # (B, 3, H, W) the pixel pass's input
+    assign: ParentAssignment
+    width: torch.Tensor        # 0-dim int64 on the device (``tier_width``)
+    s_sum: torch.Tensor        # (B,) f32 sums of the saturation channel
+
+
+def palette_front_from_rgb(down: torch.Tensor, cfg: ReportConfig,
+                           tables: OctreeTables) -> PaletteFront:
+    """The half of ``color_palette_batched_from_rgb`` before the tier read:
+    K1, saliency, K2, the parent assignment and the tier's width, left on
+    the device."""
     from . import palette_kernels as pk
-    from .library import branch
     from .margin_sort import margin_sort
 
     _, _, hh, ww = down.shape
-    total_pixels = hh * ww
-    c = cfg.num_cells
     counts, s_sum = pk.cell_counts_s_from_rgb(down, cfg)
     sal = saliency_f32(counts, tables.s_v_f32, cfg)
     order = margin_sort(sal)
-    assign = parent_assignment_from_order(counts, order, total_pixels, cfg,
+    assign = parent_assignment_from_order(counts, order, hh * ww, cfg,
                                           tables)
+    return PaletteFront(down, assign, tier_width(counts, assign, cfg), s_sum)
+
+
+def palette_back_from_rgb(front: PaletteFront, width, cfg: ReportConfig,
+                          tables: OctreeTables) -> PaletteResult:
+    """The half of ``color_palette_batched_from_rgb`` after the tier read:
+    the pixel pass of the tier ``width`` (``front.width`` on the host) and
+    the finish."""
+    from . import palette_kernels as pk
+    from .library import branch
+
+    _, _, hh, ww = front.pixels.shape
+    c = cfg.num_cells
     q_small, q_full = palette_widths(cfg)
 
     def q1(down, *assign):
@@ -316,11 +345,23 @@ def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,
 
     # The JAX package's lax.switch over the tiers, as two nested
     # conditionals on the one width read from the device.
-    width = palette_tier(counts, assign, cfg)
     sums = branch(width == 1, q1, lambda *ops: branch(
         width <= q_small, tie_broken(q_small), tie_broken(q_full), ops),
-        (down, *assign))
-    return palette_finalize_by_k(sums, assign, total_pixels, tables), s_sum
+        (front.pixels, *front.assign))
+    return palette_finalize_by_k(sums, front.assign, hh * ww, tables)
+
+
+def color_palette_batched_from_rgb(down: torch.Tensor, cfg: ReportConfig,
+                                   tables: OctreeTables):
+    """(B, 3, H, W) float32 in [0, 1] or uint8 -> (PaletteResult, (B,) f32
+    sums of the saturation channel).  HSV lives only inside the kernels;
+    K1 also returns mean saturation's numerator.  The ``bf16`` route hands
+    it uint8 frames (K1, K3, K4), the ``candidate`` route the decoded
+    float32 planes (K11, K12, K13).  The two halves around the tier read,
+    ``palette_front_from_rgb`` and ``palette_back_from_rgb``, composed."""
+    front = palette_front_from_rgb(down, cfg, tables)
+    return (palette_back_from_rgb(front, read_tier(front.width), cfg,
+                                  tables), front.s_sum)
 
 
 def color_palette_batched(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor,

@@ -147,6 +147,13 @@ def finish_sharpness(s1, s2, boxes, boxes_valid) -> torch.Tensor:
                        torch.zeros_like(mean))
 
 
+def kernel_sharpness(pgm, boxes: torch.Tensor, boxes_valid) -> torch.Tensor:
+    """The kernel route: K5's sums of ``pgm`` over ``boxes`` (``box_tensor``'s
+    (B, K, 4) int32 on pgm's device) and ``finish_sharpness``."""
+    s1, s2 = sharpness_sums(pgm.contiguous(), boxes)
+    return finish_sharpness(s1, s2, boxes, boxes_valid)
+
+
 def variance_sharpness_batched(pgm: torch.Tensor, boxes,
                                boxes_valid) -> torch.Tensor:
     """Sharpness per crop box: (B, H, W) x (B, K, 4) x (B, K) -> (B, K)
@@ -171,9 +178,8 @@ def variance_sharpness_batched(pgm: torch.Tensor, boxes,
             return masked_sharpness(pgm, bt, valid)
 
     def kernel(pgm, boxes, boxes_valid):
-        bt = box_tensor(boxes, boxes_valid, dev)
-        s1, s2 = sharpness_sums(pgm.contiguous(), bt)
-        return finish_sharpness(s1, s2, bt, boxes_valid)
+        return kernel_sharpness(pgm, box_tensor(boxes, boxes_valid, dev),
+                                boxes_valid)
 
     def some_valid(pgm, boxes, boxes_valid):
         return branch(thin_boxes(boxes, boxes_valid).any(), masked, kernel,

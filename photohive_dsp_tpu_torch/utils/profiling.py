@@ -7,8 +7,8 @@ src/interface.c:38-92).  Here:
 
   * ``span``: a named range inside the program (``SPANS`` lists every
     name: the entry point, the corpus layer's staging, the pipeline, its
-    stages and the masked sharpness route, the copies to and from the
-    device, the collectives).
+    stages, its graph replays and the masked sharpness route, the copies
+    to and from the device, the collectives).
     Under ``torch.profiler`` it is ``record_function``, a
     ``user_annotation`` range on the same timeline as the device's kernels
     and copies, so a trace charges each interval the device sat idle to
@@ -61,6 +61,8 @@ SPANS = (
     "photohive.stage.palette", "photohive.stage.stats",
     "photohive.stage.sharpness", "photohive.stage.blur",
     "photohive.stage.vectors",
+    # a replay of one of full_report's CUDA graphs, inside photohive.pipeline
+    "photohive.pipeline.replay",
     # the masked sharpness route, inside photohive.stage.sharpness
     "photohive.stage.sharpness.masked",
     # parallel: each torch.distributed call
