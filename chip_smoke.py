@@ -32,7 +32,11 @@ Phases, each of which raises on failure:
      1080x1920 B=4, 2160x3840 B=1 and 1092x1001 B=2, the FFT also against
      float64 rfft2 (>= 90 dB), the polar sums, maxima and bin means twice
      (bit-identical), a zero frame, and a 360x100-bin table (the polar
-     kernel's global-atomics branch);
+     kernel's global-atomics branch); and one B=2 batch of 45.4 MP frames
+     in each orientation (8256x5504 and 5504x8256, outside the FFT
+     kernels' gate): full_report_batched's launch counts on it, then K1-K4,
+     K5 and K7+K8 (on cuFFT's |X|^2) against their plain versions on the
+     inputs that path hands them (phase_offgate_frames);
   4. main path against the CPU path (seven get_report calls, the last on
      the near-tie frame, and a B=8 batch), with the kernel launch counts of
      that run (each of its kernels at least once, K5 included), with
@@ -132,6 +136,8 @@ phase fails or no CUDA device is present.  Imports no JAX.
         # tail, a B=8 report and warm get_report of the
         # checkout at DIR against this one's, on the same inputs, in turns
         # parent, this, this, parent
+    python3 chip_smoke.py --offgate           # the device, the build and
+        # phase 3's 45.4 MP off-gate check alone
     python3 chip_smoke.py --kernel-times DIR [KEY ...]  # those times
         # alone, for the checkout at DIR (one JSON line); with keys of
         # kernel_calls (e.g. K5), those kernels alone
@@ -427,6 +433,26 @@ def phase_kernels(images, cfg, tables):
     """The RGB palette kernels (K1-K4 on uint8, K11-K13 on float32) and K2
     against their plain versions on the card; returns per-kernel max abs
     error and the inputs the timing phase reuses."""
+    u8 = torch.as_tensor(np.stack([planar(im) for im in images]),
+                         device=DEVICE)
+    f32 = (u8.float() / 255.0).contiguous()
+    err = {"K2": 0.0}
+    for name, x in (("f32", f32), ("u8", u8)):
+        ids = F32_IDS if name == "f32" else {k: k for k in F32_IDS}
+        e, tabs = check_rgb_palette(x, cfg, tables.octree, ids, name)
+        err.update(e)
+        log(f"  kernels {name}: {', '.join(ids.values())} match their "
+            f"plain versions")
+    check_margin_sort()
+    return err, dict(u8=u8, f32=f32, **tabs)
+
+
+def check_rgb_palette(x, cfg, octree, ids: dict, name: str):
+    """K1 (ids["K1"]) on the (B, 3, H, W) batch ``x``, K2 on the saliency
+    of its counts, and K3 and K4 at q=8 and q_full (ids["K3"], ...) on the
+    tables of its assignment, each against its plain version on the same
+    inputs, bit for bit.  Returns ({kernel: max abs error}, the inputs:
+    slot, off, sal, assign, counts)."""
     from photohive_dsp_tpu_torch.ops import palette_kernels as pk
     from photohive_dsp_tpu_torch.ops import quantize as qz
     from photohive_dsp_tpu_torch.ops.margin_sort import (
@@ -434,52 +460,43 @@ def phase_kernels(images, cfg, tables):
 
     c = cfg.num_cells
     _, q_full = qz.palette_widths(cfg)
-    u8 = torch.as_tensor(np.stack([planar(im) for im in images]),
-                         device=DEVICE)
-    f32 = (u8.float() / 255.0).contiguous()
-    err = {"K2": 0.0}
-    for name, x in (("f32", f32), ("u8", u8)):
-        ids = F32_IDS if name == "f32" else {k: k for k in F32_IDS}
-        counts, s_sum = pk.cell_counts_s_from_rgb(x, cfg)
-        counts0, s_sum0 = pk.cell_counts_s_from_rgb_plain(x, cfg)
-        sync()
-        if not torch.equal(counts, counts0):
-            raise AssertionError(f"{ids['K1']} {name}: counts differ")
-        if not torch.equal(s_sum, s_sum0):
-            raise AssertionError(f"{ids['K1']} {name}: s_sum rel err "
-                                 f"{rel_err(s_sum, s_sum0)}")
-        err[ids["K1"]] = float((s_sum - s_sum0).abs().max())
+    err = {}
+    counts, s_sum = pk.cell_counts_s_from_rgb(x, cfg)
+    counts0, s_sum0 = pk.cell_counts_s_from_rgb_plain(x, cfg)
+    sync()
+    if not torch.equal(counts, counts0):
+        raise AssertionError(f"{ids['K1']} {name}: counts differ")
+    if not torch.equal(s_sum, s_sum0):
+        raise AssertionError(f"{ids['K1']} {name}: s_sum rel err "
+                             f"{rel_err(s_sum, s_sum0)}")
+    err[ids["K1"]] = float((s_sum - s_sum0).abs().max())
 
-        sal = qz.saliency_f32(counts, tables.octree.s_v_f32, cfg)
-        order = margin_sort(sal)
-        if not torch.equal(order, margin_insertion_argsort(sal)):
-            raise AssertionError(f"K2 {name}: order differs at C={c}")
-        assign = qz.parent_assignment_from_order(counts, order, H * W, cfg,
-                                                 tables.octree)
-        slot, off = pk.palette_offset_table(assign, tables.octree, c)
-        runs = [("K3", pk.palette_sums_by_k_rgb_q1,
-                 pk.palette_sums_by_k_rgb_q1_plain, (slot, off))]
-        for key, q in (("K4q8", 8), ("K4qfull", q_full)):
-            runs.append((key, pk.palette_sums_by_k_rgb,
-                         pk.palette_sums_by_k_rgb_plain,
-                         pk.palette_candidate_table(assign, tables.octree,
-                                                    c, q)))
-        for key, kern, plain, tabs in runs:
-            key = ids[key]
-            got = kern(x, *tabs, cfg)
-            want = plain(x, *tabs, cfg)
-            sync()
-            if not torch.equal(got[..., 3], want[..., 3]):
-                raise AssertionError(f"{key} {name}: counts differ")
-            if not torch.equal(got, want):
-                raise AssertionError(f"{key} {name}: sums rel err "
-                                     f"{rel_err(got, want)}")
-            err[key] = float((got - want).abs().max())
-        log(f"  kernels {name}: {', '.join(ids.values())} match their "
-            f"plain versions")
-    check_margin_sort()
-    return err, dict(u8=u8, f32=f32, slot=slot, off=off, sal=sal,
-                     assign=assign, counts=counts)
+    sal = qz.saliency_f32(counts, octree.s_v_f32, cfg)
+    order = margin_sort(sal)
+    if not torch.equal(order, margin_insertion_argsort(sal)):
+        raise AssertionError(f"K2 {name}: order differs at C={c}")
+    assign = qz.parent_assignment_from_order(
+        counts, order, x.shape[2] * x.shape[3], cfg, octree)
+    slot, off = pk.palette_offset_table(assign, octree, c)
+    runs = [("K3", pk.palette_sums_by_k_rgb_q1,
+             pk.palette_sums_by_k_rgb_q1_plain, (slot, off))]
+    for key, q in (("K4q8", 8), ("K4qfull", q_full)):
+        runs.append((key, pk.palette_sums_by_k_rgb,
+                     pk.palette_sums_by_k_rgb_plain,
+                     pk.palette_candidate_table(assign, octree, c, q)))
+    for key, kern, plain, tabs in runs:
+        key = ids[key]
+        got = kern(x, *tabs, cfg)
+        want = plain(x, *tabs, cfg)
+        sync()
+        if not torch.equal(got[..., 3], want[..., 3]):
+            raise AssertionError(f"{key} {name}: counts differ")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{key} {name}: sums rel err "
+                                 f"{rel_err(got, want)}")
+        err[key] = float((got - want).abs().max())
+    return err, dict(slot=slot, off=off, sal=sal, assign=assign,
+                     counts=counts)
 
 
 # K2 beyond tests/test_torch_margin_sort.SORT_CS: the 16- and 32-warp
@@ -1299,6 +1316,108 @@ SPATIAL_COUNTERS = ("margin_sort", "sharpness_sums", "polar_bins",
                     "palette_sums_flat_qfull")
 
 
+# The 45.4 MP frames of the Nikon Z9, Z8 and D850 (FX (L), 8256 x 5504) in
+# both orientations, a batch of 2 each: 8256 = 2^6*3*43 and 5504 = 2^7*43
+# lie outside the FFT kernels' gate, so their blur is the operator
+# photohive::spectrum_bins (cuFFT, then K7+K8).
+OFFGATE_SHAPES = [(5504, 8256), (8256, 5504)]
+OFFGATE_COUNTERS = ("cell_counts_s", "margin_sort", "sharpness_sums",
+                    "polar_bins")
+# The operator on the card (cuFFT) against its CPU version (pocketfft, then
+# K7+K8's plain version), as tests/test_torch_cuda.py holds it: of the
+# largest bin.
+OFFGATE_BINS_TOL = 1e-5
+
+
+def phase_offgate_frames(cfg) -> dict:
+    """Each orientation of OFFGATE_SHAPES, B=2 (a noise frame, the
+    palette's q=8 tier, and a hue wheel, q_full) with main_boxes:
+    full_report_batched on the card with the launch counts reset just
+    before it (K1, K2, a palette-sums tier, K5 and K7+K8; no K6a/K6b);
+    then each kernel of that path against its plain version on the inputs
+    the path's own steps hand it: K1-K4 on the uint8 batch
+    (check_rgb_palette), K5 on its luma and boxes (check_sharpness), K7+K8
+    on cuFFT's |X|^2 of the DC-free luma (check_polar), that |X|^2 against
+    float64 rfft2 (FFT_SNR_DB), the report's bins bit-equal to the
+    operator's on that luma, and the operator against its CPU version
+    within OFFGATE_BINS_TOL of the largest bin.  Returns the launch counts
+    per shape."""
+    import photohive_dsp_tpu_torch as pt
+    from photohive_dsp_tpu_torch.models import pipeline
+    from photohive_dsp_tpu_torch.ops import _cuda
+    from photohive_dsp_tpu_torch.ops import sharpness_kernels as sk
+    from photohive_dsp_tpu_torch.ops.fft import magnitude_fft
+    from photohive_dsp_tpu_torch.ops.fft_plan import fft_kernel_eligible
+    from photohive_dsp_tpu_torch.ops.stats import blur_dc
+
+    a, r = cfg.angle_partitions, cfg.radius_partitions
+    rng = np.random.default_rng(SEED + 43)
+    out = {}
+    for h, w in OFFGATE_SHAPES:
+        label = f"{h}x{w} B=2"
+        if fft_kernel_eligible(h, w):
+            raise AssertionError(f"{label}: inside the FFT kernels' gate")
+        t0 = time.perf_counter()
+        images = [noise_image(rng, h, w), hue_wheel_image(rng, h, w)]
+        u8 = torch.as_tensor(np.stack([planar(im) for im in images]),
+                             device=DEVICE)
+        tables = pt.ReportTables.build(h, w, cfg, DEVICE)
+        if tables.polar.pad_index is not None:
+            raise AssertionError(f"{label}: the report tables gather")
+        bx, vd = pt.set_bounding_boxes(main_boxes(h, w))
+        bx, vd = np.stack([bx] * 2), np.stack([vd] * 2)
+        log(f"  {label}: frames and tables {time.perf_counter() - t0:.1f} s")
+        _cuda.reset_launch_counts()
+        data = pt.full_report_batched(u8, bx, vd, tables, cfg)
+        sync()
+        launches = dict(_cuda.LAUNCHES)
+        check_launches(launches, OFFGATE_COUNTERS, f"{label} path")
+        tiers = [k for k in ("palette_sums_q1", "palette_sums_q8",
+                             "palette_sums_qfull") if launches[k]]
+        if not tiers or launches["fft_rows"] or launches["fft_cols"]:
+            raise AssertionError(f"{label}: launches {launches}")
+        log(f"  {label}: launch counts of full_report_batched: "
+            + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
+
+        err, _ = check_rgb_palette(u8, cfg, tables.octree,
+                                   {k: k for k in F32_IDS}, label)
+        rgb, _ = pipeline.decode(u8, cfg, "bf16")
+        pgm, stats = pipeline.luma_and_stats(rgb)
+        _, rel5 = check_sharpness(pgm.contiguous(),
+                                  sk.box_tensor(bx, vd, DEVICE), label)
+        x = (pgm - blur_dc(stats)[:, None, None]).contiguous()
+        mag2 = magnitude_fft(x)
+        snr = snr_db(torch.fft.rfft2(x.double()).abs().square(), mag2)
+        if not snr >= FFT_SNR_DB:
+            raise AssertionError(f"{label}: cuFFT |X|^2 {snr} dB vs float64")
+        check_polar(mag2.reshape(2, -1), tables.polar.bin_ids,
+                    tables.polar.bin_counts, label)
+        del mag2, rgb
+        args = (tables.polar.bin_ids, tables.polar.bin_counts, a, r)
+        bins = torch.ops.photohive.spectrum_bins(x, *args)
+        sync()
+        if not torch.equal(bins, data.blur_bins):
+            raise AssertionError(f"{label}: the report's bins differ from "
+                                 f"the operator's on its luma")
+        cpu = torch.ops.photohive.spectrum_bins(
+            x.cpu(), *(t.cpu() for t in args[:2]), a, r)
+        gap = float((bins.cpu() - cpu).abs().max())
+        if not gap <= OFFGATE_BINS_TOL * float(cpu.abs().max()):
+            raise AssertionError(f"{label}: operator vs its CPU version, "
+                                 f"max abs gap {gap}")
+        log(f"  {label}: K1, K2, K3, K4 (q=8, q_full) equal plain; K5 "
+            f"bit-identical twice, rel err {rel5:.2e}; cuFFT |X|^2 "
+            f"{snr:.1f} dB vs float64; K7+K8 on it equals plain bit for "
+            f"bit, twice; the report's bins are the operator's; operator "
+            f"vs CPU max abs gap {gap:.2e} (max bin "
+            f"{float(cpu.abs().max()):.4f}); palette max abs err "
+            f"{max(err.values()):.2e}")
+        out[label] = launches
+        del u8, x, data, images
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_launches(launches: dict, counters, path: str) -> None:
     missing = [k for k in counters if launches[k] == 0]
     if missing:
@@ -1980,21 +2099,22 @@ def stage_times(images, cfg, tables):
     (rfft2 + normalisation, then the gather) against the kernels (K6a+K6b,
     then K7+K8 with its max, gain and means), in turns torch, kernels,
     kernels, torch."""
-    from photohive_dsp_tpu_torch.ops.blur import blur_profile_bins, \
-        lognorm_bin_means
+    from photohive_dsp_tpu_torch.ops.blur import PolarTables, \
+        blur_profile_bins, lognorm_bin_means
     from photohive_dsp_tpu_torch.ops.fft import magnitude_fft_normalized
     from photohive_dsp_tpu_torch.ops.fft_kernels import magnitude2
     from photohive_dsp_tpu_torch.ops.fft_plan import FftPlan
 
     a, r = cfg.angle_partitions, cfg.radius_partitions
     plan = FftPlan.for_shape(H, W, DEVICE)
+    gather = PolarTables.for_shape(H, W, cfg, DEVICE, gather=True)
     for b in (1, 8):
         x = luma_dc([images[0]] * b)
         mag = magnitude_fft_normalized(x)
         mag2 = magnitude2(x, plan).reshape(b, -1)
         torch_route = [
             lambda: magnitude_fft_normalized(x),
-            lambda: blur_profile_bins(mag, tables.polar, a, r)]
+            lambda: blur_profile_bins(mag, gather, a, r)]
         kernel_route = [
             lambda: magnitude2(x, plan),
             lambda: lognorm_bin_means(mag2, tables.polar, a, r)]
@@ -3481,6 +3601,12 @@ def main(argv) -> int:
 
     phase_build()
     cfg = ReportConfig()
+    if argv[:1] == ["--offgate"]:
+        log("phase 3: the 45.4 MP off-gate frames' kernels vs plain versions")
+        phase_offgate_frames(cfg)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "offgate": True}), flush=True)
+        return 0
     images = smoke_images()
     tables = ReportTables.build(H, W, cfg, DEVICE)
     log("phase 3: kernels vs plain versions")
@@ -3496,6 +3622,7 @@ def main(argv) -> int:
     phase_palette_sums_edges(cfg)
     phase_near_tie_frame(cfg)
     phase_cell_and_polar_edges(cfg)
+    phase_offgate_frames(cfg)
     log("phase 4: main path")
     main_out = phase_main_path(images, cfg, parent)
     launches = {"main path": main_out[0]}

@@ -9,7 +9,8 @@ Mirrors the reference orchestrator get_full_report_data
   -> rgb2pgm and rgb statistics (full res) -> crop sharpness (pre-DC
   removal) -> DC removal with the RGB brightness mean -> blur bins (FFT
   kernels K6a/K6b + log-gated polar kernel K7+K8 on shapes inside
-  fft_plan.fft_kernel_eligible, else torch rfft2 + normalisation + gather)
+  fft_plan.fft_kernel_eligible, else the operator photohive::spectrum_bins:
+  torch rfft2's |X|^2 into the same polar kernel)
   -> blur vectors.
 
 ``full_report`` (one image) replays the same stages from CUDA graphs on
@@ -29,12 +30,12 @@ import numpy as np
 import torch
 
 from ..config import MAX_CROP_BOXES, ReportConfig
-from ..ops.blur import (PolarTables, blur_bins_lognorm, blur_profile_bins,
+from ..ops.blur import (PolarTables, blur_bins_lognorm,
                         vectorize_blur_profile)
 from ..ops.colorspace import (downsample_rgb, rgb_to_hsv, rgb_to_pgm,
                                u8_to_unit_f32)
-from ..ops.fft import magnitude_fft_normalized
 from ..ops.fft_plan import FftPlan, fft_kernel_eligible
+from ..ops.library import spectrum_bins
 from ..ops.quantize import (OctreeTables, color_palette_batched,
                              color_palette_batched_from_rgb,
                              palette_kernel_variant)
@@ -76,12 +77,11 @@ class ReportTables(NamedTuple):
     def from_numpy(cls, tables, device="cpu") -> "ReportTables":
         """Build from any tables with the JAX package's layout, e.g. its
         ``ReportTables`` (``tables.octree.{centers, s_v_f32, dist_ranks}``,
-        ``tables.polar.{pad_index, bin_counts, bin_ids}``), each leaf taken
-        as a numpy array."""
+        ``tables.polar.{bin_counts, bin_ids}``), each leaf taken as a numpy
+        array; its gather table is left behind, as ``build`` leaves it."""
         oc, po = tables.octree, tables.polar
         return cls(
-            polar=PolarTables.from_numpy(np.asarray(po.pad_index),
-                                         np.asarray(po.bin_counts),
+            polar=PolarTables.from_numpy(None, np.asarray(po.bin_counts),
                                          np.asarray(po.bin_ids), device),
             octree=OctreeTables.from_numpy(np.asarray(oc.centers),
                                            np.asarray(oc.s_v_f32),
@@ -132,15 +132,17 @@ def luma_and_stats(rgb: torch.Tensor):
 def blur_bins(pgm: torch.Tensor, stats: torch.Tensor, tables: ReportTables,
               cfg: ReportConfig) -> torch.Tensor:
     """(B, A, R) blur bins of the luma less its DC term: the FFT and polar
-    kernels on shapes inside their gate, else torch's FFT and a gather."""
+    kernels on shapes inside their gate, else the operator
+    ``photohive::spectrum_bins`` (torch's FFT, then the polar kernel)."""
     pgm_dc = pgm - blur_dc(stats)[:, None, None]
     h, w = pgm_dc.shape[1:]
     if fft_kernel_eligible(h, w):
         plan = FftPlan.for_shape(h, w, pgm_dc.device)
         return blur_bins_lognorm(pgm_dc, plan, tables.polar,
                                  cfg.angle_partitions, cfg.radius_partitions)
-    return blur_profile_bins(magnitude_fft_normalized(pgm_dc), tables.polar,
-                             cfg.angle_partitions, cfg.radius_partitions)
+    return spectrum_bins(pgm_dc, tables.polar.bin_ids,
+                         tables.polar.bin_counts, cfg.angle_partitions,
+                         cfg.radius_partitions)
 
 
 def full_report_batched(rgb: torch.Tensor, boxes, boxes_valid,

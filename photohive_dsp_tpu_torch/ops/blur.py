@@ -9,24 +9,28 @@ reference: src/blur_profile.c
     to <=10 (angle, magnitude) blur vectors.
 
 The bin of every FFT pixel depends only on the image shape (ops/geometry.py).
-Two routes give the bins, both the same from run to run:
+Two routes give the report's bins, both the same from run to run, and both
+end in the polar kernel (K7+K8): the log-gated bin sums (exact fixed
+point) and the per-image max in one pass, the gain and the means in its
+finish, over the int32 ``bin_ids`` in the natural half-spectrum layout:
 
   * ``blur_bins_lognorm`` (shapes inside fft_plan.fft_kernel_eligible):
-    the FFT kernels (K6a, K6b), then the polar kernel (K7+K8): the
-    log-gated bin sums (exact fixed point) and the per-image max in one
-    pass, the gain and the means in its finish; the counterpart of
-    ``pallas_fft.blur_bins_scrambled_lognorm``.  The normalised spectrum
-    never exists.
-  * ``blur_profile_bins`` (all other shapes): a static gather of the
-    normalised spectrum (ops/fft.py) into per-bin padded rows and a row
-    sum, the JAX package's gather route; no scatter and no float atomics
-    (``index_add_`` on CUDA is not deterministic).
+    the FFT kernels (K6a, K6b) write |X|^2; the counterpart of
+    ``pallas_fft.blur_bins_scrambled_lognorm``.
+  * the operator ``photohive::spectrum_bins`` (ops/library.py; all other
+    shapes): ``torch.fft.rfft2`` writes it.
+
+The normalised spectrum never exists.  ``blur_profile_bins`` is the JAX
+package's gather route (a static gather of the normalised spectrum,
+ops/fft.py, into per-bin padded rows, and a row sum), off the report
+path: its padded table ``pad_index`` is built only on request
+(``PolarTables.for_shape(..., gather=True)``).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,7 +47,9 @@ from .stats import div_const
 class PolarTables(NamedTuple):
     """Polar binning constants for one image shape (geometry.PolarGeometry)."""
 
-    pad_index: torch.Tensor   # (A*R, Lmax) int64 spectrum index, sentinel P
+    # (A*R, Lmax) int64 spectrum index, sentinel P: blur_profile_bins'
+    # gather table, None where nothing gathers.
+    pad_index: Optional[torch.Tensor]
     bin_counts: torch.Tensor  # (A*R,) int32
     # (H * fft_width,) int32, natural row-major order: the layout the FFT
     # kernels write, so it is also the polar kernel's table.
@@ -51,18 +57,19 @@ class PolarTables(NamedTuple):
 
     @classmethod
     def for_shape(cls, height: int, width: int, cfg: ReportConfig,
-                  device="cpu") -> "PolarTables":
+                  device="cpu", gather: bool = False) -> "PolarTables":
+        """The tables of one shape; ``gather`` adds ``pad_index``."""
         geom = polar_geometry(height, width, cfg.angle_partitions,
                               cfg.radius_partitions)
-        return cls.from_numpy(geom.pad_index, geom.bin_counts, geom.bin_ids,
-                              device)
+        return cls.from_numpy(geom.pad_index if gather else None,
+                              geom.bin_counts, geom.bin_ids, device)
 
     @classmethod
     def from_numpy(cls, pad_index, bin_counts, bin_ids,
                    device="cpu") -> "PolarTables":
         return cls(
-            pad_index=torch.tensor(np.asarray(pad_index, np.int64),
-                                   device=device),
+            pad_index=None if pad_index is None else torch.tensor(
+                np.asarray(pad_index, np.int64), device=device),
             bin_counts=torch.tensor(np.asarray(bin_counts, np.int32),
                                     device=device),
             bin_ids=torch.tensor(np.asarray(bin_ids, np.int32),
@@ -74,8 +81,9 @@ def blur_profile_bins(mag_norm: torch.Tensor, tables: PolarTables,
         -> torch.Tensor:
     """Mean normalized FFT magnitude per (angle, radius) bin.
 
-    mag_norm: (B, H, W//2+1).  Returns (B, A, R) float32; empty bins are 0
-    (reference src/blur_profile.c:106-116)."""
+    mag_norm: (B, H, W//2+1); ``tables`` with ``pad_index``.  Returns (B,
+    A, R) float32; empty bins are 0 (reference
+    src/blur_profile.c:106-116)."""
     b = mag_norm.shape[0]
     flat = torch.cat([mag_norm.reshape(b, -1),
                       mag_norm.new_zeros((b, 1))], dim=1)

@@ -8,10 +8,13 @@ reference: src/fft_processing.c
     then x < 1 -> 0 else log(x)*G_s.
 
 This is the JAX package's XLA route (``jnp.fft.rfft2``), here
-``torch.fft.rfft2`` in complex64, taken by shapes outside the FFT kernels'
-gate (fft_plan.fft_kernel_eligible); the others take
-blur.blur_bins_lognorm.  ``fft_shift`` is the dev/viz centring of a half
-spectrum (src/fft_processing.c:111-157), off the report path.
+``torch.fft.rfft2`` in complex64.  ``magnitude_fft`` is the FFT of shapes
+outside the FFT kernels' gate (fft_plan.fft_kernel_eligible), whose |X|^2
+the polar kernel bins (the operator ``photohive::spectrum_bins``); the
+others take blur.blur_bins_lognorm.  ``normalize_fft`` feeds the gather
+route (blur.blur_profile_bins), off the report path, as does
+``fft_shift``, the dev/viz centring of a half spectrum
+(src/fft_processing.c:111-157).
 """
 
 from __future__ import annotations

@@ -47,6 +47,14 @@ operator it is one node of an exported graph and one range of a trace,
 which charges the device time of its PyTorch kernels to it; its counter
 in ``_cuda.LAUNCHES`` counts the images it takes, on either device.
 
+``spectrum_bins`` is the blur route of shapes outside the FFT kernels'
+gate (``fft_plan.fft_kernel_eligible``): ``torch.fft.rfft2``'s |X|^2 in
+the natural half-spectrum layout, then K7+K8 (``polar_lognorm``) on it
+with the int32 bin ids, as on shapes inside the gate; for CPU and CUDA
+tensors alike, and a fake.  As an operator it is one node of an exported
+graph and one range of a trace, which charges the device time of cuFFT's
+kernels and of K7+K8 to it.
+
 ``branch`` is the conditional with which the routes choose between
 kernels (the palette tier, the sharpness route).
 """
@@ -68,6 +76,7 @@ from . import margin_sort as ms
 from . import palette_kernels as pk
 from . import polar_kernels as pol
 from . import sharpness_kernels as sk
+from .fft import magnitude_fft
 from .fft_plan import LengthPlan, col_tile
 from .fixed_point import from_fixed
 
@@ -378,6 +387,25 @@ def _(pgm, boxes, valid):
 @masked_sharpness.register_fake
 def _(pgm, boxes, valid):
     return pgm.new_empty((pgm.shape[0], boxes.shape[1]))
+
+
+# ------------------------------------------ the off-gate blur route ---
+
+@torch.library.custom_op("photohive::spectrum_bins", mutates_args=())
+def spectrum_bins(pgm_dc: Tensor, bin_ids: Tensor, bin_counts: Tensor,
+                  num_angle_bins: int, num_radius_bins: int) -> Tensor:
+    """(B, A, R) normalised blur bins of the DC-free luma (B, H, W)
+    float32: K7+K8 on the |X|^2 of ``torch.fft.rfft2``."""
+    b = pgm_dc.shape[0]
+    mag2 = magnitude_fft(pgm_dc).reshape(b, -1)
+    return pol.polar_bin_means_lognorm(mag2, bin_ids, bin_counts).reshape(
+        b, num_angle_bins, num_radius_bins)
+
+
+@spectrum_bins.register_fake
+def _(pgm_dc, bin_ids, bin_counts, num_angle_bins, num_radius_bins):
+    return pgm_dc.new_empty((pgm_dc.shape[0], num_angle_bins,
+                             num_radius_bins))
 
 
 # -------------------------------------------------------------- K6a/b ---

@@ -116,15 +116,14 @@ def stage_timings(height: int = 1080, width: int = 1920, batch: int = 16,
     seeded uint8 noise frames of ``height`` x ``width``, each with one crop
     box.  The stages take the frames decoded to float32; the palette stage
     is the flat-HSV route (K9, K2, K10), as the JAX package times it; the
-    blur stages are the FFT kernels and the polar kernel on shapes inside
-    their gate, the torch route otherwise; the full report takes the uint8
+    blur stages are the FFT kernels (on shapes inside their gate, else
+    torch's FFT) and the polar kernel; the full report takes the uint8
     frames (K1-K8, the main path)."""
     from ..models.pipeline import (cached_tables, full_report_batched,
                                    resolve_device)
     from ..ops import colorspace, sharpness, stats
-    from ..ops.blur import (blur_profile_bins, lognorm_bin_means,
-                            vectorize_blur_profile)
-    from ..ops.fft import magnitude_fft_normalized
+    from ..ops.blur import lognorm_bin_means, vectorize_blur_profile
+    from ..ops.fft import magnitude_fft
     from ..ops.fft_kernels import magnitude2
     from ..ops.fft_plan import FftPlan, fft_kernel_eligible
     from ..ops.quantize import color_palette_batched
@@ -162,12 +161,10 @@ def stage_timings(height: int = 1080, width: int = 1920, batch: int = 16,
     if fft_kernel_eligible(height, width):
         plan = FftPlan.for_shape(height, width, dev)
         mag = stage("magnitude fft", lambda: magnitude2(pgm_dc, plan))
-        bins = stage("blur profile bins", lambda: lognorm_bin_means(
-            mag.reshape(batch, -1), tables.polar, a, r))
     else:
-        mag = stage("magnitude fft", lambda: magnitude_fft_normalized(pgm_dc))
-        bins = stage("blur profile bins", lambda: blur_profile_bins(
-            mag, tables.polar, a, r))
+        mag = stage("magnitude fft", lambda: magnitude_fft(pgm_dc))
+    bins = stage("blur profile bins", lambda: lognorm_bin_means(
+        mag.reshape(batch, -1), tables.polar, a, r))
     stage("blur vectors", lambda: vectorize_blur_profile(bins, cfg))
     stage("full report (fused)", lambda: full_report_batched(
         u8, boxes, valid, tables, cfg))

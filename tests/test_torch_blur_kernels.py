@@ -239,7 +239,8 @@ def test_full_report_batched_routes_by_shape(h, w, kernels, monkeypatch):
 
 
 def test_get_report_non_smooth_shape_matches_jax():
-    """362x514 is outside the FFT kernels' gate: the torch rfft2 route."""
+    """362x514 is outside the FFT kernels' gate: torch's rfft2, then the
+    polar kernel."""
     h, w = 362, 514
     assert not fft_plan.fft_kernel_eligible(h, w)
     img = np.random.default_rng(8).integers(0, 256, (h, w, 3),

@@ -16,6 +16,7 @@ from photohive_dsp_tpu_torch.ops import fft_plan
 from photohive_dsp_tpu_torch.ops import library
 from photohive_dsp_tpu_torch.ops import palette_kernels as pk
 from photohive_dsp_tpu_torch.ops import quantize as tq
+from photohive_dsp_tpu_torch.ops.blur import PolarTables
 from photohive_dsp_tpu_torch.ops.margin_sort import margin_insertion_argsort
 
 CFG = ReportConfig()
@@ -56,6 +57,7 @@ def op_cases(device) -> dict:
     boxes[0, 1] = (0, 24, 0, 40)
     boxes[1, 2] = (5, 7, 30, 33)
     valid = (boxes != 0).any(axis=-1)
+    polar = PolarTables.for_shape(24, 40, CFG, dev)
     plan = fft_plan.FftPlan.for_shape(6, 10, dev)
     spec = OPS.fft_rows.default(t(rng.random((2, 6, 10), dtype=np.float32)),
                                 list(plan.rows.radices), plan.rows.twiddles,
@@ -86,6 +88,9 @@ def op_cases(device) -> dict:
                                 (pgm, halo, t(boxes), 3)),
         "masked_sharpness": (OPS.masked_sharpness, (pgm, t(boxes),
                                                     t(valid))),
+        "spectrum_bins": (OPS.spectrum_bins, (
+            pgm - 0.5, polar.bin_ids, polar.bin_counts,
+            CFG.angle_partitions, CFG.radius_partitions)),
         "fft_rows": (OPS.fft_rows, (spec.new_tensor(
             rng.random((2, 6, 10), dtype=np.float32)), *rows)),
         "fft_cols": (OPS.fft_cols, (spec, *cols)),
@@ -106,14 +111,15 @@ def test_opcheck_cpu(name):
 
 def test_every_entry_point_has_an_operator():
     """One operator for each C entry point of the kernel library but the
-    launch-floor probe, and one for the masked sharpness route, which has
-    none; the cases above reach each of them."""
+    launch-floor probe, and one each for the masked sharpness route and
+    the off-gate blur route, which have none; the cases above reach each
+    of them."""
     from photohive_dsp_tpu_torch.ops import _cuda
 
     entry = {n[3:] for n in _cuda._SIGNATURES} - {"empty_kernel"}
     ops = {n for n in dir(OPS) if isinstance(getattr(OPS, n),
                                              torch._ops.OpOverloadPacket)}
-    assert ops == entry | {"masked_sharpness"}
+    assert ops == entry | {"masked_sharpness", "spectrum_bins"}
     assert {op._qualified_op_name.split("::")[1] for op, _ in
             op_cases("cpu").values()} == ops
 

@@ -114,7 +114,7 @@ def test_fft_normalized_and_blur_bins_match():
     assert snr_db(want, got) > 100
 
     jt = jblur.PolarTables.for_shape(120, 160, cfg_j)
-    tt = tblur.PolarTables.for_shape(120, 160, cfg_t)
+    tt = tblur.PolarTables.for_shape(120, 160, cfg_t, gather=True)
     a, r = cfg_t.angle_partitions, cfg_t.radius_partitions
     jb = np.stack([np.asarray(jblur.blur_profile_bins(
         jnp.asarray(m), jt, a, r)) for m in want])

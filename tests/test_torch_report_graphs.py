@@ -314,8 +314,8 @@ def test_cuda_replayed_reports_equal_eager(route, h, w, cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_unaligned_shape_and_float_frames_replay(cuda_device):
-    """362x514 lies outside the FFT kernels' gate (torch.fft and the
-    gather); float32 frames feed the float32 palette kernels."""
+    """362x514 lies outside the FFT kernels' gate (torch.fft, then the
+    polar kernel); float32 frames feed the float32 palette kernels."""
     h, w = 362, 514
     tables = pt.cached_tables(h, w, CFG, cuda_device)
     frames = [u8(make(1, h, w)[0]) for make, _ in TIERS.values()]

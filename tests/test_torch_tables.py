@@ -105,6 +105,9 @@ def test_report_tables_from_numpy_bit_equal_to_build(knobs):
         a, b = getattr(own, part), getattr(carried, part)
         for field in a._fields:
             x, y = getattr(a, field), getattr(b, field)
+            if x is None or y is None:      # the gather table, left behind
+                assert x is None and y is None, (part, field)
+                continue
             assert x.dtype == y.dtype and torch.equal(x, y), (part, field)
 
 
